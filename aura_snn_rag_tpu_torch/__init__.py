@@ -1,0 +1,32 @@
+"""PyTorch/CUDA port of aura_snn_rag_tpu, slice by slice.
+
+This package imports torch and never JAX or the JAX package; the JAX
+package beside it is the reference its tests hold it against. Entry
+points run on the CUDA card unless the caller passes device="cpu".
+Ported so far: the episodic-memory engine (`memory`) and its three
+kernels (`ops.cuda`).
+"""
+
+from aura_snn_rag_tpu_torch.config import MemoryConfig  # noqa: F401
+from aura_snn_rag_tpu_torch.memory import (  # noqa: F401
+    CognitiveMapParams,
+    HippocampalFormation,
+    MemoryState,
+    bulk_load,
+    decay_memories,
+    grid_cell_rates,
+    init_cognitive_map,
+    init_memory_state,
+    place_cell_rates,
+    rebuild_centroids,
+    retrieve,
+    retrieve_auto,
+    retrieve_bruteforce,
+    retrieve_flat,
+    state_from_numpy,
+    state_to_numpy,
+    time_cell_rates,
+    write_memories,
+)
+
+__version__ = "0.1.0"

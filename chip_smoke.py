@@ -1,0 +1,548 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one CUDA card (an H100).
+
+    python3 chip_smoke.py [--profile]
+
+Builds the port's CUDA kernels from the sources in this checkout, then:
+
+1. kernel phase: kernels A (flat_blockmax), B (ivf_retrieve_fused) and C
+   (ivf_scan_scores) at full-width shapes on random inputs, each held
+   against its plain PyTorch version on the same inputs and timed with
+   CUDA events beside the plain version, a PyTorch library yardstick where
+   one exists, and the least time the card could take (`bound_ms`);
+2. engine phase: the episodic-memory engine in bench.py's configuration
+   (1,000,000 x 768, K = 4096, probe 64, int8 coarse bank): bulk_load,
+   write_memories, rebuild_centroids, a write on the live index, then
+   retrieve_flat (scan and blockmax, B = 1024), retrieve_auto (IVF v3r,
+   B = 1 and 8) and retrieve with locations (IVF v1, B = 8), with
+   recall@10 against the port's exact brute force over 1024 queries;
+3. host-API phase: HippocampalFormation(max_memories=65_536) written in
+   batches of 512 through automatic rebuilds, then queried with and
+   without a location.
+
+`--profile` adds a torch.profiler breakdown of one call of each
+retrieval path (device time by kernel, device busy share) to phase 2.
+
+Launch counters are zeroed just before phase 2 and read after phase 3;
+every kernel must have run there. Any failed check exits non-zero. The
+last lines are the card's name and power limit, one JSON object with the
+per-kernel numbers, and {"ok": true, "device": {...}}. Without a CUDA card
+the script exits 1 and prints no result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3
+PEAK_OPS_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+NEG_INF = -1e30
+
+# bench.py's configuration (bench.py:173-180) at full width
+ENGINE = dict(max_memories=1_000_000, feature_dim=768, k_centroids=4096,
+              probe_centroids=64, retrieve_k=10, bucket_overprovision=2.0,
+              rebuild_lloyd_iters=2, coarse_dtype="int8",
+              overflow_buckets=64, flat_score_dtype="bf16",
+              rerank_candidates=128, n_place_cells=16, n_grid_cells=8,
+              n_time_cells=4)
+KERNEL_SHAPES = dict(M=1_000_000, D=768, K=4096, C=512, P=64, kk=128, k=10)
+N_EVAL = 1024                   # queries for recall@10
+TOPK = 10
+
+SOURCES = {
+    "flat_blockmax": ("aura_snn_rag_tpu_torch/ops/cuda/csrc/flat_scan.cu",
+                      "aura_snn_rag_tpu/ops/pallas/flat_scan.py:172"),
+    "ivf_retrieve_fused": ("aura_snn_rag_tpu_torch/ops/cuda/csrc/ivf_scan.cu",
+                           "aura_snn_rag_tpu/ops/pallas/ivf_scan.py:317"),
+    "ivf_scan_scores": ("aura_snn_rag_tpu_torch/ops/cuda/csrc/ivf_scan.cu",
+                        "aura_snn_rag_tpu/ops/pallas/ivf_scan.py:550"),
+}
+
+
+class CheckFailed(AssertionError):
+    pass
+
+
+def check(cond, what):
+    if not cond:
+        raise CheckFailed(what)
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def time_ms(fns, iters=10, warmup=2):
+    """Mean ms per call over `iters` calls with CUDA events, cycling
+    through `fns` (several input sets, so a small working set cannot stay
+    in the 50 MB L2 between calls)."""
+    import torch
+    fns = list(fns)
+    for f in fns[:warmup] or fns:
+        f()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fns[i % len(fns)]()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes, ops, kind):
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = ops / PEAK_OPS_S[kind]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+# --------------------------------------------------------------------------
+# kernel phase
+# --------------------------------------------------------------------------
+
+def kernel_A(dev, gen, M, D, cases):
+    """flat_blockmax vs its plain version; returns {case: numbers}."""
+    import torch
+    from aura_snn_rag_tpu_torch.memory.engine import _to_coarse_rows
+    from aura_snn_rag_tpu_torch.ops.cuda.flat_scan import (
+        BLOCK_R, flat_blockmax, flat_blockmax_plain, pack_row_terms)
+
+    x = torch.randn(M, D, device=dev, generator=gen)
+    x = x * torch.rsqrt((x * x).sum(-1, keepdim=True))
+    strength = torch.rand(M, device=dev, generator=gen) * 0.5 + 0.5
+    add = 0.2 * strength
+    add[torch.rand(M, device=dev, generator=gen) < 0.01] = NEG_INF
+    out = {}
+    for dtype, B in cases:
+        torch_dt = torch.int8 if dtype == "int8" else torch.bfloat16
+        bank, row_scale = _to_coarse_rows(x, torch_dt)
+        mul_p, add_p = pack_row_terms(0.5 * strength * row_scale, add, M)
+        sets = []
+        for _ in range(2):
+            q = torch.randn(B, D, device=dev, generator=gen)
+            qn = q * torch.rsqrt((q * q).sum(-1, keepdim=True))
+            qc, qs = _to_coarse_rows(qn, torch_dt)
+            sets.append((bank, qc.contiguous(), mul_p, add_p,
+                         qs if dtype == "int8" else None))
+        got = flat_blockmax(*sets[0])
+        want = flat_blockmax_plain(*sets[0])
+        torch.cuda.synchronize()
+        check(got.shape == want.shape == (B, -(-M // BLOCK_R)),
+              f"flat_blockmax shape {tuple(got.shape)}")
+        err = (got - want).abs().max().item()
+        # int8: exact integer sums and the same f32 epilogue; bf16: f32
+        # sums of exact products in another order
+        tol = 1e-6 if dtype == "int8" else 1e-5
+        check(err <= tol, f"flat_blockmax {dtype} B={B}: err {err} > {tol}")
+        del got, want
+        ms = time_ms([lambda s=s: flat_blockmax(*s) for s in sets])
+        plain_ms = time_ms([lambda s=s: flat_blockmax_plain(*s)
+                            for s in sets], iters=3, warmup=1)
+        lib_ms = None
+        if dtype == "int8":
+            from aura_snn_rag_tpu_torch.memory.engine import _int8_matmul
+
+            def library(s):
+                acc = _int8_matmul(s[1], s[0]).float()
+                cos = acc * (1.0 / (127 * 127)) * s[4][:, None]
+                comb = cos * s[2][:M] + s[3][:M]
+                return comb.reshape(B, -1, BLOCK_R).amax(-1)
+            lib_ms = time_ms([lambda s=s: library(s) for s in sets],
+                             iters=3, warmup=1)
+        elem = 1 if dtype == "int8" else 2
+        nbytes = (M * D * elem + 2 * 4 * M + B * D * elem
+                  + 4 * B * (M // BLOCK_R))
+        b_ms, b_by = bound_ms(nbytes, 2 * B * M * D, dtype)
+        out[(dtype, B)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               library_ms=lib_ms, bound_ms=b_ms,
+                               bound_by=b_by)
+        log(f"kernel flat_blockmax {dtype} B={B} M={M} D={D}: "
+            f"max_abs_err={err:.3g} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_ms} bound_ms={b_ms:.4f} ({b_by})")
+        del sets, bank
+    return out
+
+
+def ivf_inputs(dev, gen, K, C, D, M, P, B, n_sets):
+    import torch
+    cl = torch.randn(K, C, D, device=dev, generator=gen)
+    cl = (cl * torch.rsqrt((cl * cl).sum(-1, keepdim=True))).to(
+        torch.bfloat16)
+    aux = torch.zeros(K, 8, C, device=dev)
+    aux[:, 0] = torch.rand(K, C, device=dev, generator=gen) * 0.5 + 0.25
+    aux[:, 1] = torch.rand(K, C, device=dev, generator=gen) * 0.2
+    dead = torch.rand(K, C, device=dev, generator=gen) < 0.1
+    aux[:, 1][dead] = NEG_INF
+    aux[:, 2] = torch.randint(0, M, (K, C), device=dev, generator=gen).float()
+    feats = torch.randn(M, D, device=dev, generator=gen)
+    sets = []
+    for _ in range(n_sets):
+        q = torch.randn(B, D, device=dev, generator=gen)
+        qn = q * torch.rsqrt((q * q).sum(-1, keepdim=True))
+        top_c = torch.stack([torch.randperm(K, device=dev, generator=gen)[:P]
+                             for _ in range(B)]).to(torch.int32)
+        sets.append((qn, top_c))
+    return cl, aux, feats, sets
+
+
+def kernel_B_C(dev, gen, K, C, D, M, P, kk, k, cases_B, B_C):
+    import numpy as np
+    import torch
+    from aura_snn_rag_tpu_torch.ops.cuda.ivf_scan import (
+        ivf_retrieve_fused, ivf_retrieve_fused_plain, ivf_scan_scores,
+        ivf_scan_scores_plain)
+
+    Bmax = max(max(cases_B), B_C)
+    cl, aux, feats, sets = ivf_inputs(dev, gen, K, C, D, M, P, Bmax, 4)
+    res = {}
+    for B in cases_B:
+        bsets = [(qn[:B].contiguous(), tc[:B].contiguous())
+                 for qn, tc in sets]
+        qn, tc = bsets[0]
+        s, sl = ivf_retrieve_fused(cl, aux, feats, qn, tc, kk, k)
+        ps, psl = ivf_retrieve_fused_plain(cl, aux, feats, qn, tc, kk, k)
+        torch.cuda.synchronize()
+        s, sl, ps, psl = (t.cpu().numpy() for t in (s, sl, ps, psl))
+        hit = ps[:, :k] > -5e29
+        check(((s[:, :k] > -5e29) == hit).all(), "ivf_retrieve_fused hits")
+        err = float(np.abs(np.where(hit, s[:, :k] - ps[:, :k], 0)).max())
+        # exact f32 dot products summed in another order
+        check(err <= 1e-5, f"ivf_retrieve_fused B={B}: err {err}")
+        for b in range(B):
+            for j in range(k):
+                gap = np.min(np.abs(np.delete(ps[b, :k], j) - ps[b, j]))
+                if gap > 1e-4:
+                    check(sl[b, j] == psl[b, j],
+                          f"ivf_retrieve_fused slot mismatch b={b} j={j}")
+        ms = time_ms([lambda q=q, t=t: ivf_retrieve_fused(
+            cl, aux, feats, q, t, kk, k) for q, t in bsets], iters=20)
+        plain_ms = time_ms([lambda q=q, t=t: ivf_retrieve_fused_plain(
+            cl, aux, feats, q, t, kk, k) for q, t in bsets], iters=4,
+            warmup=1)
+        nbytes = B * (P * C * D * 2 + 3 * P * C * 4 + P * 4 + D * 4
+                      + kk * D * 4 + 2 * 128 * 4)
+        ops = B * (2 * P * C * D + 4 * kk * D)
+        b_ms, b_by = bound_ms(nbytes, ops, "bf16")
+        res[("ivf_retrieve_fused", B)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+            bound_ms=b_ms, bound_by=b_by)
+        log(f"kernel ivf_retrieve_fused B={B} K={K} C={C} P={P} D={D} "
+            f"kk={kk}: max_abs_err={err:.3g} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+
+    B = B_C
+    bsets = [(qn[:B].contiguous(), tc[:B].contiguous()) for qn, tc in sets]
+    got = ivf_scan_scores(cl, *bsets[0])
+    want = ivf_scan_scores_plain(cl, *bsets[0])
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    # bf16 products summed in f32 in another order
+    check(err <= 1e-5, f"ivf_scan_scores err {err}")
+    ms = time_ms([lambda q=q, t=t: ivf_scan_scores(cl, q, t)
+                  for q, t in bsets], iters=20)
+    plain_ms = time_ms([lambda q=q, t=t: ivf_scan_scores_plain(cl, q, t)
+                        for q, t in bsets], iters=4, warmup=1)
+    nbytes = B * (P * C * D * 2 + D * 4 + P * 4 + P * C * 4)
+    b_ms, b_by = bound_ms(nbytes, 2 * B * P * C * D, "bf16")
+    res[("ivf_scan_scores", B)] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by)
+    log(f"kernel ivf_scan_scores B={B} K={K} C={C} P={P} D={D}: "
+        f"max_abs_err={err:.3g} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={b_ms:.4f} ({b_by})")
+    return res
+
+
+# --------------------------------------------------------------------------
+# engine phase
+# --------------------------------------------------------------------------
+
+def make_data(dev, gen, n, d, n_centers=1024):
+    """bench.py's make_data, drawn on the card."""
+    import torch
+    centers = torch.randn(n_centers, d, device=dev, generator=gen) * 2.0
+    assign = torch.randint(0, n_centers, (n,), device=dev, generator=gen)
+    feats = centers[assign]
+    feats += torch.randn(n, d, device=dev, generator=gen)
+    return feats, centers
+
+
+def recall_at_k(approx, exact):
+    a, e = approx.cpu().tolist(), exact.cpu().tolist()
+    return sum(len(set(x) & set(y)) for x, y in zip(a, e)) / (
+        len(e) * len(e[0]))
+
+
+def timed_batches(fn, batches):
+    """Run fn over every batch once; (results, seconds) with a sync."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = [fn(b) for b in batches]
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def profile_paths(cfg, state, queries, reps=5):
+    """Device time by kernel for one call of each retrieval path, from
+    torch.profiler over `reps` calls; busy = device time / wall time."""
+    import torch
+    import aura_snn_rag_tpu_torch as port
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    loc = torch.zeros(8, cfg.spatial_dims, device=queries.device)
+    paths = {
+        "flat_scan_b1024": lambda: port.retrieve_flat(
+            dataclasses.replace(cfg, flat_strategy="scan"), state,
+            queries[:1024], None, TOPK),
+        "flat_blockmax_b1024": lambda: port.retrieve_flat(
+            dataclasses.replace(cfg, flat_strategy="blockmax"), state,
+            queries[:1024], None, TOPK),
+        "ivf_v3r_b1": lambda: port.retrieve_auto(cfg, state, queries[:1],
+                                                 None, TOPK),
+        "ivf_v3r_b8": lambda: port.retrieve_auto(cfg, state, queries[:8],
+                                                 None, TOPK),
+        "ivf_v1_b8": lambda: port.retrieve(cfg, state, queries[:8], loc,
+                                           TOPK),
+    }
+    out = {}
+    for name, fn in paths.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        # kernels only: operator rows carry their kernels' time again
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / reps
+        top = sorted(events, key=lambda e: e.self_device_time_total,
+                     reverse=True)[:6]
+        out[name] = dict(
+            wall_ms=wall_ms, device_ms=dev_ms, busy=dev_ms / wall_ms,
+            top=[(e.key[:60], e.self_device_time_total / 1e3 / reps,
+                  e.count // reps) for e in top])
+        log(f"profile {name}: wall {wall_ms:.3f} ms/call, device "
+            f"{dev_ms:.3f} ms/call, busy {dev_ms / wall_ms:.2f}")
+        for key, ms, n in out[name]["top"]:
+            log(f"    {ms:9.4f} ms  x{n:<3d} {key}")
+    return out
+
+
+def engine_phase(dev, cfg_kw, n_eval, n_live, profile=False):
+    import torch
+    import aura_snn_rag_tpu_torch as port
+
+    cfg = port.MemoryConfig(**cfg_kw)
+    N, D = cfg.max_memories, cfg.feature_dim
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stats = {}
+    feats, centers = make_data(dev, gen, N, D)
+    pick = torch.randint(0, N, (n_eval,), device=dev, generator=gen)
+    queries = feats[pick] + 0.5 * torch.randn(n_eval, D, device=dev,
+                                              generator=gen)
+    zeros = torch.zeros(N, cfg.spatial_dims, device=dev)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = port.init_memory_state(cfg, dev)
+    state = port.bulk_load(cfg, state, feats[:N - n_live], zeros[:N - n_live])
+    state = port.write_memories(cfg, state, feats[N - n_live:],
+                                zeros[:n_live])
+    torch.cuda.synchronize()
+    stats["ingest_s"] = time.perf_counter() - t0
+    check(int(state.count) == N, "count after ingest")
+    del feats
+
+    t0 = time.perf_counter()
+    state = port.rebuild_centroids(cfg, state,
+                                   torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    stats["index_build_s"] = time.perf_counter() - t0
+    check(bool(state.index_ready), "index_ready after rebuild")
+    live = state.cluster_slot[state.cluster_slot >= 0].numel()
+    stats["indexed_rows"] = live
+    log(f"engine: ingest {stats['ingest_s']:.3f} s, rebuild "
+        f"{stats['index_build_s']:.3f} s, {live} of {N} rows in buckets")
+
+    # a write on the live index: overwrites FIFO slots 0..n_live-1
+    fresh = centers[torch.randint(0, len(centers), (n_live,), device=dev,
+                                  generator=gen)]
+    fresh += torch.randn(n_live, D, device=dev, generator=gen)
+    t0 = time.perf_counter()
+    state = port.write_memories(cfg, state, fresh, zeros[:n_live])
+    torch.cuda.synchronize()
+    stats["live_write_s"] = time.perf_counter() - t0
+    check(int(state.count) == N + n_live, "count after live write")
+    log(f"engine: live write of {n_live} rows {stats['live_write_s']:.3f} s")
+
+    # exact oracle, 128 queries at a time
+    qb = [queries[i:i + 128] for i in range(0, n_eval, 128)]
+    res, dt = timed_batches(
+        lambda b: port.retrieve_bruteforce(cfg, state, b, None, TOPK), qb)
+    exact = torch.cat([r.indices for r in res])
+    stats["bruteforce_qps"] = n_eval / dt
+
+    for strategy in ("scan", "blockmax"):
+        c = dataclasses.replace(cfg, flat_strategy=strategy)
+        batch = [queries[:1024]]
+        port.retrieve_flat(c, state, batch[0], None, TOPK)       # warm-up
+        res, dt = timed_batches(
+            lambda b: port.retrieve_flat(c, state, b, None, TOPK), batch * 3)
+        r = res[-1]
+        check(torch.isfinite(r.scores).all().item(), f"{strategy} finite")
+        check(tuple(r.indices.shape) == (1024, TOPK), f"{strategy} shape")
+        stats[f"flat_{strategy}_qps"] = 3 * 1024 / dt
+        stats[f"flat_{strategy}_recall_at_10"] = recall_at_k(
+            r.indices, exact[:1024])
+        log(f"engine: retrieve_flat {strategy} B=1024: "
+            f"{stats[f'flat_{strategy}_qps']:.1f} QPS, recall@10 "
+            f"{stats[f'flat_{strategy}_recall_at_10']:.4f}")
+
+    for B in (1, 8):
+        n = n_eval if B == 8 else 128
+        batches = [queries[i:i + B] for i in range(0, n, B)]
+        port.retrieve_auto(cfg, state, batches[0], None, TOPK)   # warm-up
+        res, dt = timed_batches(
+            lambda b: port.retrieve_auto(cfg, state, b, None, TOPK), batches)
+        idx = torch.cat([r.indices for r in res])
+        check(torch.isfinite(torch.cat([r.scores for r in res])).all()
+              .item(), "ivf finite")
+        stats[f"ivf_v3r_b{B}_qps"] = n / dt
+        stats[f"ivf_v3r_b{B}_recall_at_10"] = recall_at_k(idx, exact[:n])
+        log(f"engine: retrieve_auto (IVF v3r) B={B}: "
+            f"{stats[f'ivf_v3r_b{B}_qps']:.1f} QPS, recall@10 "
+            f"{stats[f'ivf_v3r_b{B}_recall_at_10']:.4f} over {n} queries")
+
+    # IVF v1: with query locations (all rows sit at the origin, so the
+    # spatial term is the same for every row and the ranking is cosine's)
+    batches = [queries[i:i + 8] for i in range(0, n_eval, 8)]
+    loc = torch.zeros(8, cfg.spatial_dims, device=dev)
+    port.retrieve(cfg, state, batches[0], loc, TOPK)             # warm-up
+    res, dt = timed_batches(
+        lambda b: port.retrieve(cfg, state, b, loc, TOPK), batches)
+    stats["ivf_v1_b8_qps"] = n_eval / dt
+    stats["ivf_v1_b8_recall_at_10"] = recall_at_k(
+        torch.cat([r.indices for r in res]), exact)
+    log(f"engine: retrieve with locations (IVF v1) B=8: "
+        f"{stats['ivf_v1_b8_qps']:.1f} QPS, recall@10 "
+        f"{stats['ivf_v1_b8_recall_at_10']:.4f}")
+
+    for key in ("flat_scan_recall_at_10", "flat_blockmax_recall_at_10"):
+        check(stats[key] >= 0.99, f"{key} = {stats[key]} < 0.99")
+    for key in ("ivf_v3r_b8_recall_at_10", "ivf_v3r_b1_recall_at_10",
+                "ivf_v1_b8_recall_at_10"):
+        check(stats[key] >= 0.98, f"{key} = {stats[key]} < 0.98")
+    stats["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if profile:
+        stats["profile"] = profile_paths(cfg, state, queries)
+    return stats
+
+
+def host_api_phase(dev, max_memories=65_536, batch=512, n_batches=4):
+    import torch
+    import aura_snn_rag_tpu_torch as port
+
+    h = port.HippocampalFormation(max_memories=max_memories, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    feats, _ = make_data(dev, gen, batch * n_batches, h.config.feature_dim,
+                         n_centers=64)
+    rebuilds = 0
+    for i in range(n_batches):
+        h.write_batch([f"h{j}" for j in range(i * batch, (i + 1) * batch)],
+                      feats[i * batch:(i + 1) * batch])
+        rebuilds += h._writes_since_rebuild == 0
+    check(rebuilds >= 1 and h.index_ready, "no automatic rebuild ran")
+    for j in (3, 700, 2000):
+        hits = h.retrieve_similar_memories(feats[j], k=5)
+        check(hits and hits[0][0] == f"h{j}", f"host API self-hit {j}")
+        hits = h.retrieve_similar_memories(feats[j], location=[0.0, 0.0],
+                                           k=5)
+        check(hits and hits[0][0] == f"h{j}",
+              f"host API self-hit with location {j}")
+    log(f"host API: {h.memory_count} memories, {rebuilds} automatic "
+        f"rebuilds, self-retrieval ok with and without a location")
+    return rebuilds
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 \
+        else "nvidia-smi unavailable"
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the "
+              "card", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from aura_snn_rag_tpu_torch.ops.cuda import _build
+
+    dev = torch.device("cuda")
+    card = card_line()
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    build_s = _build.build_all()
+    for stem in _build.SOURCES:
+        _build.load(stem)
+    log(f"kernel build: {build_s:.1f} s compiling, "
+        f"{time.perf_counter() - t0:.1f} s to load")
+
+    s = KERNEL_SHAPES
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    res_a = kernel_A(dev, gen, s["M"], s["D"],
+                     [("int8", 128), ("bf16", 128), ("int8", 1024)])
+    res_bc = kernel_B_C(dev, gen, s["K"], s["C"], s["D"], s["M"], s["P"],
+                        s["kk"], s["k"], cases_B=(1, 8), B_C=8)
+    torch.cuda.empty_cache()
+
+    # ---- the main path: counts from zero, read after the last phase ----
+    _build.reset_launch_counts()
+    stats = engine_phase(dev, ENGINE, N_EVAL, n_live=256,
+                         profile="--profile" in sys.argv[1:])
+    torch.cuda.empty_cache()
+    stats["host_api_rebuilds"] = host_api_phase(dev)
+    launches = dict(_build.launch_counts)
+    for name in SOURCES:
+        check(launches.get(name, 0) > 0, f"{name} never launched on the "
+              f"main path ({launches})")
+    log(f"main-path launches: {launches}")
+
+    main_shape = {"flat_blockmax": res_a[("int8", 1024)],
+                  "ivf_retrieve_fused": res_bc[("ivf_retrieve_fused", 8)],
+                  "ivf_scan_scores": res_bc[("ivf_scan_scores", 8)]}
+    kernels = []
+    for name, (src, replaces) in SOURCES.items():
+        kernels.append(dict(name=name, route="cuda", source=src,
+                            replaces=replaces, launches=launches[name],
+                            **main_shape[name]))
+    log(json.dumps({"engine": stats}))
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,182 @@
+"""Shared helpers for the port's parity tests, and the config/state tests.
+
+The port (`aura_snn_rag_tpu_torch`) is held against the JAX package on the
+same inputs: numpy arrays made from a seed go into both, and results come
+back as numpy. JAX runs under `jax.default_matmul_precision("highest")`.
+Sizes are small: M = 4096 rows, D = 128, K = 32 centroids (C = 256 slots
+each at overprovision 2.0), probe P = 4, a 4-bucket overflow annex.
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aura_snn_rag_tpu import config as jconfig
+from aura_snn_rag_tpu.memory import engine as jengine
+from aura_snn_rag_tpu.memory import state as jstate
+import aura_snn_rag_tpu_torch as port
+from aura_snn_rag_tpu_torch.memory import state as tstate
+
+torch.set_num_threads(1)
+
+SMALL = dict(max_memories=4096, feature_dim=128, k_centroids=32,
+             probe_centroids=4, retrieve_k=5, bucket_overprovision=2.0,
+             rebuild_lloyd_iters=2, overflow_buckets=4,
+             n_place_cells=16, n_grid_cells=8, n_time_cells=4)
+
+
+def configs(**kw):
+    """The same configuration for both packages."""
+    cfg = dict(SMALL, **kw)
+    return jconfig.MemoryConfig(**cfg), port.MemoryConfig(**cfg)
+
+
+def highest():
+    return jax.default_matmul_precision("highest")
+
+
+def make_data(seed, n, d=128, n_centers=64, noise=1.0):
+    """Clustered rows shaped like bench.py's make_data."""
+    rng = np.random.RandomState(seed)
+    centers = rng.randn(n_centers, d).astype(np.float32) * 2.0
+    feats = (centers[rng.randint(0, n_centers, n)]
+             + noise * rng.randn(n, d).astype(np.float32))
+    return feats
+
+
+def queries_near(feats, seed, n, noise=0.5):
+    rng = np.random.RandomState(seed)
+    pick = rng.randint(0, len(feats), n)
+    return feats[pick] + noise * rng.randn(n, feats.shape[1]).astype(
+        np.float32)
+
+
+def to_port(jax_state, device="cpu"):
+    """A JAX MemoryState carried into the port through numpy."""
+    return port.state_from_numpy(jax.tree.map(np.asarray, jax_state), device)
+
+
+def np_state(state):
+    """Either package's MemoryState as numpy (bf16 as f32)."""
+    if isinstance(state, tstate.MemoryState):
+        return tstate.state_to_numpy(state)
+    return jstate.MemoryState(*[np.asarray(jnp.asarray(x).astype(
+        jnp.float32) if x.dtype == jnp.bfloat16 else x) for x in state])
+
+
+def built_jax_state(jcfg, feats, seed=0):
+    """bulk_load + rebuild in the JAX package."""
+    with highest():
+        st = jstate.init_memory_state(jcfg)
+        st = jengine.bulk_load(jcfg, st, jnp.asarray(feats),
+                               jnp.zeros((len(feats), 2), jnp.float32))
+        return jengine.rebuild_centroids(jcfg, st, jax.random.PRNGKey(seed))
+
+
+def assert_topk_match(idx_a, sc_a, idx_b, sc_b, tol):
+    """Scores agree within `tol`; indices agree wherever the score is more
+    than `tol` away from every other score in its row (topk does not fix
+    the order of ties)."""
+    idx_a, sc_a, idx_b, sc_b = (np.asarray(x) for x in (idx_a, sc_a,
+                                                        idx_b, sc_b))
+    np.testing.assert_allclose(sc_a, sc_b, rtol=0, atol=tol)
+    for r in range(sc_a.shape[0]):
+        for j in range(sc_a.shape[1]):
+            others = np.delete(sc_b[r], j)
+            if others.size == 0 or np.min(np.abs(others - sc_b[r, j])) > tol:
+                assert idx_a[r, j] == idx_b[r, j], (r, j, idx_a[r], idx_b[r])
+
+
+def result_np(res):
+    """(indices, scores, features) of either package as numpy."""
+    return tuple(np.asarray(x.cpu() if torch.is_tensor(x) else x)
+                 for x in res)
+
+
+@functools.lru_cache(maxsize=None)
+def shared_bank(coarse):
+    """A live, partly decayed bank with varied ages and locations."""
+    jcfg, _ = configs(coarse_dtype=coarse)
+    feats = make_data(11, 4096)
+    rng = np.random.RandomState(12)
+    locs = rng.randn(4096, 2).astype(np.float32) * 3
+    with highest():
+        js = jengine.bulk_load(jcfg, jstate.init_memory_state(jcfg),
+                               jnp.asarray(feats[:3900]),
+                               jnp.asarray(locs[:3900]))
+        js = jengine.rebuild_centroids(jcfg, js, jax.random.PRNGKey(1))
+        js = jengine.decay_memories(js, 0.1)
+        js = jengine.tick(js, 900.0)
+        js = jengine.write_memories(jcfg, js, jnp.asarray(feats[3900:]),
+                                    jnp.asarray(locs[3900:]))
+    return jax.tree.map(np.asarray, js), feats
+
+
+def bank_pair(coarse, **kw):
+    """Both packages' copies of `shared_bank` under one configuration."""
+    arrays, feats = shared_bank(coarse)
+    jcfg, tcfg = configs(coarse_dtype=coarse, **kw)
+    js = jax.tree.map(jnp.asarray, arrays)
+    return jcfg, tcfg, js, port.state_from_numpy(arrays, "cpu"), feats
+
+
+# --------------------------------------------------------------------------
+# config and state
+# --------------------------------------------------------------------------
+
+def test_memory_config_fields_and_defaults_match():
+    jf = {f.name: f.default for f in dataclasses.fields(jconfig.MemoryConfig)}
+    tf = {f.name: f.default for f in dataclasses.fields(port.MemoryConfig)}
+    assert jf == tf
+    for kw in ({}, SMALL, dict(max_memories=1_000_000, k_centroids=4096)):
+        assert (jconfig.MemoryConfig(**kw).bucket_capacity
+                == port.MemoryConfig(**kw).bucket_capacity)
+
+
+@pytest.mark.parametrize("coarse", ["bf16", "int8"])
+def test_init_memory_state_matches(coarse):
+    jcfg, tcfg = configs(coarse_dtype=coarse)
+    js = np_state(jstate.init_memory_state(jcfg))
+    ts = port.init_memory_state(tcfg, device="cpu")
+    assert ts.features_nb16.dtype == (torch.int8 if coarse == "int8"
+                                      else torch.bfloat16)
+    assert ts.clustered.dtype == torch.bfloat16
+    tn = tstate.state_to_numpy(ts)
+    for name, a, b in zip(jstate.MemoryState._fields, js, tn):
+        assert a.shape == b.shape, name
+        assert a.dtype == b.dtype, (name, a.dtype, b.dtype)
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+def test_entry_points_default_to_cuda():
+    _, tcfg = configs()
+    if torch.cuda.is_available():
+        assert port.init_memory_state(tcfg).features.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            port.init_memory_state(tcfg)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            port.HippocampalFormation(tcfg)
+
+
+def test_state_numpy_round_trip_from_jax():
+    jcfg, _ = configs(coarse_dtype="int8")
+    feats = make_data(0, 1000)
+    with highest():
+        js = jengine.bulk_load(jcfg, jstate.init_memory_state(jcfg),
+                               jnp.asarray(feats),
+                               jnp.zeros((1000, 2), jnp.float32))
+    ts = to_port(js)
+    assert ts.features_nb16.dtype == torch.int8
+    assert ts.clustered.dtype == torch.bfloat16
+    for name, a, b in zip(jstate.MemoryState._fields, np_state(js),
+                          tstate.state_to_numpy(ts)):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    back = tstate.state_from_numpy(tstate.state_to_numpy(ts), "cpu")
+    for a, b in zip(ts, back):
+        assert a.dtype == b.dtype and torch.equal(a, b)

@@ -1,0 +1,124 @@
+"""Kernels A, B and C against their plain PyTorch versions on the card.
+
+Marked `cuda`: they skip without a card (decided in a fixture, so every
+xdist worker collects the same tests). On a machine with an H100:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
+
+Inputs are made with numpy from a seed and copied to the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from aura_snn_rag_tpu_torch.ops.cuda import launch_counts
+from aura_snn_rag_tpu_torch.ops.cuda.flat_scan import (
+    flat_blockmax, flat_blockmax_plain, pack_row_terms)
+from aura_snn_rag_tpu_torch.ops.cuda.ivf_scan import (
+    ivf_retrieve_fused, ivf_retrieve_fused_plain, ivf_scan_scores,
+    ivf_scan_scores_plain)
+
+torch.set_num_threads(1)
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _flat_inputs(rng, M, D, B, int8):
+    x = rng.randn(M, D).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q = rng.randn(B, D).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    mul = (rng.rand(M) * 0.5 + 0.25).astype(np.float32)
+    add = (rng.rand(M) * 0.2).astype(np.float32)
+    add[rng.rand(M) < 0.05] = -1e30                      # dead rows
+    if int8:
+        xs = np.abs(x).max(1, keepdims=True)
+        qs = np.abs(q).max(1, keepdims=True)
+        bank = torch.from_numpy(np.round(x * 127 / xs).astype(np.int8))
+        qq = torch.from_numpy(np.round(q * 127 / qs).astype(np.int8))
+        return bank, qq, mul * xs[:, 0], add, torch.from_numpy(qs[:, 0])
+    return (torch.from_numpy(x).to(torch.bfloat16),
+            torch.from_numpy(q).to(torch.bfloat16), mul, add, None)
+
+
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("M,D,B", [(4096, 128, 70), (1029, 768, 5)])
+def test_flat_blockmax_kernel_matches_plain(dev, int8, M, D, B):
+    bank, q, mul, add, qs = _flat_inputs(np.random.RandomState(M + B),
+                                         M, D, B, int8)
+    mul_p, add_p = pack_row_terms(torch.from_numpy(mul),
+                                  torch.from_numpy(add), M)
+    args = [t.to(dev) if t is not None else None
+            for t in (bank, q, mul_p, add_p, qs)]
+    n0 = launch_counts["flat_blockmax"]
+    got = flat_blockmax(*args)
+    torch.cuda.synchronize()
+    assert launch_counts["flat_blockmax"] == n0 + 1
+    want = flat_blockmax_plain(*args)
+    assert got.shape == want.shape == (B, -(-M // 8))
+    # int8: exact integer accumulation, identical f32 epilogue -> 0 error;
+    # bf16: f32 sums in another order -> a few ulp of |cos| <= 1
+    tol = 0.0 if int8 else 2e-5
+    assert (got - want).abs().max().item() <= tol
+
+
+def _ivf_inputs(rng, K, C, D, B, P, M):
+    cl = rng.randn(K, C, D).astype(np.float32)
+    cl /= np.linalg.norm(cl, axis=-1, keepdims=True)
+    aux = np.zeros((K, 8, C), np.float32)
+    aux[:, 0] = rng.rand(K, C) * 0.5 + 0.25
+    aux[:, 1] = rng.rand(K, C) * 0.2
+    aux[:, 1][rng.rand(K, C) < 0.3] = -1e30              # dead entries
+    aux[:, 2] = rng.randint(0, M, (K, C))
+    feats = rng.randn(M, D).astype(np.float32)
+    q = rng.randn(B, D).astype(np.float32)
+    qn = q / np.linalg.norm(q, axis=1, keepdims=True)
+    top_c = np.stack([rng.choice(K, P, replace=False) for _ in range(B)])
+    return (torch.from_numpy(cl).to(torch.bfloat16), torch.from_numpy(aux),
+            torch.from_numpy(feats), torch.from_numpy(qn),
+            torch.from_numpy(top_c.astype(np.int32)))
+
+
+@pytest.mark.parametrize("D", [128, 72])
+def test_ivf_scan_scores_kernel_matches_plain(dev, D):
+    cl, _, _, qn, top_c = _ivf_inputs(np.random.RandomState(D),
+                                      32, 256, D, 5, 4, 4096)
+    cl, qn, top_c = cl.to(dev), qn.to(dev), top_c.to(dev)
+    got = ivf_scan_scores(cl, qn, top_c)
+    want = ivf_scan_scores_plain(cl, qn, top_c)
+    torch.cuda.synchronize()
+    # f32 sums of bf16 products in another order
+    assert (got - want).abs().max().item() <= 2e-5
+
+
+# (2, 2048, 10, 8, 128): kk = 2048 needs > 48 KB of dynamic shared memory
+# (the opt-in path); D = 72 leaves lanes idle in the row loops
+@pytest.mark.parametrize("B,kk,k,P,D", [(1, 128, 10, 4, 128),
+                                        (6, 256, 5, 4, 128),
+                                        (2, 2048, 10, 8, 128),
+                                        (3, 128, 10, 4, 72)])
+def test_ivf_retrieve_fused_kernel_matches_plain(dev, B, kk, k, P, D):
+    inputs = _ivf_inputs(np.random.RandomState(B), 32, 256, D, B, P, 4096)
+    cl, aux, feats, qn, top_c = (t.to(dev) for t in inputs)
+    s, sl = ivf_retrieve_fused(cl, aux, feats, qn, top_c, kk, k)
+    ps, psl = ivf_retrieve_fused_plain(cl, aux, feats, qn, top_c, kk, k)
+    torch.cuda.synchronize()
+    assert s.shape == ps.shape == (B, 128)
+    s, sl, ps, psl = (t.cpu().numpy() for t in (s, sl, ps, psl))
+    # exact scores: f32 dot products summed in another order
+    assert np.abs(s - ps).max() <= 1e-5
+    assert (sl[:, k:] == -1).all() and (s[:, k:] == -1e30).all()
+    # slots agree wherever the score is clear of its neighbours
+    for b in range(B):
+        for j in range(k):
+            gap = np.min(np.abs(np.delete(ps[b, :k], j) - ps[b, j]))
+            if gap > 1e-4:
+                assert sl[b, j] == psl[b, j], (b, j)

@@ -1,0 +1,36 @@
+"""The port imports neither JAX nor the JAX package."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None            # any `import jax` now raises
+import aura_snn_rag_tpu_torch as pkg
+names = [m.name for m in
+         pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules
+                if m == "aura_snn_rag_tpu" or m.startswith("aura_snn_rag_tpu.")
+                or (m.startswith("jax") and sys.modules[m] is not None))
+print(len(names), leaked)
+"""
+
+
+def test_port_imports_without_jax_or_the_jax_package():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    n, leaked = out.stdout.strip().split(" ", 1)
+    assert leaked == "[]"
+    # every module file but the package's own __init__
+    files = list((ROOT / "aura_snn_rag_tpu_torch").rglob("*.py"))
+    assert int(n) == len(files) - 1 >= 10
