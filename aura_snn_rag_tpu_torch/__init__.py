@@ -3,7 +3,7 @@
 This package imports torch and never JAX or the JAX package; the JAX
 package beside it is the reference its tests hold it against. Entry
 points run on the CUDA card unless the caller passes device="cpu".
-Ported so far: the episodic-memory engine (`memory`) and its three
+Ported so far: the episodic-memory engine (`memory`) and its five
 kernels (`ops.cuda`).
 """
 

@@ -6,11 +6,13 @@ The port keeps its own copy because importing the JAX package pulls in JAX.
 
 What the fields mean in the port:
 
-- `use_pallas_ivf` selects the hand-written IVF kernel path (kernels B and
-  C in `ops/cuda/ivf_scan.py`); False takes the plain gather path.
-- `ivf_kernel`: only "v3r" is ported. "v2" and "v3" raise
-  NotImplementedError when the IVF kernel path would run them (and so does
-  "v3r" at shapes where the JAX package drops to v2: probe*capacity < 128).
+- `use_pallas_ivf` selects the hand-written IVF kernel path (kernels B, C,
+  D and E in `ops/cuda/ivf_scan.py`); False takes the plain gather path.
+- `ivf_kernel`: "v3r" (kernel B), "v3" (kernel D) or "v2" (kernel E), with
+  the JAX package's fallbacks: v3r drops to v2 when probe*capacity < 128,
+  max_memories % 8 != 0 or k > 128, and v3 drops to v2 when
+  probe*capacity < 128. With query locations every setting takes v1
+  (kernel C).
 - `flat_strategy`: "scan" ([B, M] coarse scores + exact top-k funnel) or
   "blockmax" (kernel A, no [B, M]).
 - `flat_rescue_queries`, `flat_wide_funnel` and `flat_exact_funnel` are not

@@ -10,7 +10,7 @@ Differences from the JAX package, by design:
 - Every coarse funnel is an exact `torch.topk` where the JAX package uses
   `jax.lax.approx_max_k`, so the port's recall is at least the
   reference's.
-- Which branch runs depends only on the config and the shapes. The three
+- Which branch runs depends only on the config and the shapes. The
   kernel wrappers (`ops/cuda`) alone look at the device: they launch the
   CUDA kernel for a CUDA tensor and run the plain version for a CPU one.
 - Bank slots in `RetrievalResult.indices` are int64 (PyTorch's index type).
@@ -28,7 +28,8 @@ from aura_snn_rag_tpu_torch.memory.state import MemoryState
 from aura_snn_rag_tpu_torch.ops.cuda.flat_scan import (
     BLOCK_R, block_member_slots, flat_blockmax, pack_row_terms)
 from aura_snn_rag_tpu_torch.ops.cuda.ivf_scan import (
-    KPAD, ivf_retrieve_fused, ivf_scan_scores)
+    KPAD, ivf_candidates, ivf_retrieve_fused, ivf_scan_scores,
+    ivf_topk_scores)
 
 NEG_INF = -1e30
 
@@ -320,11 +321,20 @@ def retrieve(config: MemoryConfig, state: MemoryState, queries: torch.Tensor,
     clustered store scored with the combined metric (stale entries
     masked), the overflow annex merged in, exact f32 rerank, top-k.
 
-    Branches, as in the JAX package: `use_pallas_ivf` without locations
-    takes kernel B (v3r, everything up to the final top-k in the kernel);
-    with locations it takes kernel C (v1, the fused gather + dot) and
+    Branches, as in the JAX package, for `use_pallas_ivf` without
+    locations:
+    - v3r (kernel B, everything up to the final top-k in the kernel) when
+      `ivf_kernel == "v3r"`, probe*capacity >= 128, max_memories % 8 == 0
+      and k <= 128;
+    - else v3 (kernel D, the coarse top-kk across probes) when
+      `ivf_kernel == "v3"` and probe*capacity >= 128;
+    - else v2 (kernel E, the coarse top-k of each probe).
+    v2 and v3 feed the funnel and the exact rerank below. With locations
+    every `ivf_kernel` takes kernel C (v1, the fused gather + dot) and
     scores the metadata around it; `use_pallas_ivf=False` gathers the
-    blocks with plain tensor ops.
+    blocks with plain tensor ops. Widths the JAX package's kernels reject
+    (v2 with more than 128 per probe, v3 with kk rounded past
+    probe*capacity) raise ValueError.
     """
     G = min(config.overflow_buckets, state.k_centroids // 4)
     P = min(config.probe_centroids, state.k_centroids - G)
@@ -340,39 +350,74 @@ def retrieve(config: MemoryConfig, state: MemoryState, queries: torch.Tensor,
     B = queries.shape[0]
     kk = min(max(config.rerank_candidates, 4 * k), P * C)
     if config.use_pallas_ivf and query_locations is None:
-        if not (config.ivf_kernel == "v3r" and P * C >= KPAD
-                and M % 8 == 0 and k <= KPAD):
-            raise NotImplementedError(
-                f"IVF kernel {config.ivf_kernel!r} at probe*capacity={P * C}"
-                f", k={k}: only the v3r kernel is ported")
         if aux is None:
             aux = build_ivf_aux(config, state)
-        kk3 = -(-kk // KPAD) * KPAD
-        s, sl = ivf_retrieve_fused(state.clustered, aux, state.features, qn,
-                                   top_c, kk3, k)
-        scores, out_slots = s[:, :k], sl[:, :k].long()
-        # the annex's coarse top-kk, reranked exactly here and merged with
-        # the kernel's already-exact output by score
-        annex = _annex_coarse(config, state, qn, None, kk3)
-        if annex is not None:
-            a_s, a_sl, a_valid = annex
-            a_cos = torch.einsum("bkd,bd->bk",
-                                 _l2norm(state.features[a_sl]), qn)
-            a_exact = _combined_score(config, state, a_cos, a_sl, None)
-            a_exact = torch.where(a_valid, a_exact, NEG_INF)
-            all_s = torch.cat([scores, a_exact], dim=1)
-            all_sl = torch.cat([out_slots, a_sl], dim=1)
-            scores, pick2 = torch.topk(all_s, k, dim=1)
-            out_slots = all_sl.gather(1, pick2)
-        hit = scores > NEG_INF / 2
-        feats = state.features[torch.where(hit, out_slots, 0)]
-        return _finish(out_slots, scores, feats)
+        if (config.ivf_kernel == "v3r" and P * C >= KPAD and M % 8 == 0
+                and k <= KPAD):
+            return _retrieve_v3r(config, state, qn, top_c, aux, kk, k)
+        if config.ivf_kernel == "v3" and P * C >= KPAD:
+            kk = -(-kk // KPAD) * KPAD                           # lane-aligned
+            combined, sl = ivf_candidates(state.clustered, aux, qn, top_c,
+                                          kk)
+        else:
+            per_k = min(max(k, -(-kk // P)), C)
+            sc, sl = ivf_topk_scores(state.clustered, aux, qn, top_c, per_k)
+            combined = sc[:, :, :per_k].reshape(B, -1)
+            sl = sl[:, :, :per_k].reshape(B, -1)
+        slots = sl.clamp(min=0).long()
+        valid = combined > NEG_INF / 2
+    else:
+        combined, slots, valid = _probe_scores(config, state, qn, top_c,
+                                               query_locations)
 
-    slots_raw = state.cluster_slot[top_c]                        # [B, P, C]
+    annex = _annex_coarse(config, state, qn, query_locations, kk)
+    if annex is not None:
+        a_s, a_sl, a_valid = annex
+        combined = torch.cat([combined, a_s], dim=1)
+        slots = torch.cat([slots, a_sl], dim=1)
+        valid = torch.cat([valid, a_valid], dim=1)
+
+    # coarse top-kk (exact), then the exact f32 rerank from the bank
+    if combined.shape[-1] > kk:
+        _, pick = torch.topk(combined, kk, dim=1)
+        slots, valid = slots.gather(1, pick), valid.gather(1, pick)
+    return _rerank(config, state, qn, slots, valid, query_locations, k)
+
+
+def _retrieve_v3r(config: MemoryConfig, state: MemoryState, qn: torch.Tensor,
+                  top_c: torch.Tensor, aux: torch.Tensor, kk: int,
+                  k: int) -> RetrievalResult:
+    """Kernel B does the coarse scan, funnel, exact rerank and top-k; the
+    annex's coarse top-kk is reranked here and merged by score."""
+    kk3 = -(-kk // KPAD) * KPAD
+    s, sl = ivf_retrieve_fused(state.clustered, aux, state.features, qn,
+                               top_c, kk3, k)
+    scores, out_slots = s[:, :k], sl[:, :k].long()
+    annex = _annex_coarse(config, state, qn, None, kk3)
+    if annex is not None:
+        a_s, a_sl, a_valid = annex
+        a_cos = torch.einsum("bkd,bd->bk",
+                             _l2norm(state.features[a_sl]), qn)
+        a_exact = _combined_score(config, state, a_cos, a_sl, None)
+        a_exact = torch.where(a_valid, a_exact, NEG_INF)
+        all_s = torch.cat([scores, a_exact], dim=1)
+        all_sl = torch.cat([out_slots, a_sl], dim=1)
+        scores, pick2 = torch.topk(all_s, k, dim=1)
+        out_slots = all_sl.gather(1, pick2)
+    hit = scores > NEG_INF / 2
+    feats = state.features[torch.where(hit, out_slots, 0)]
+    return _finish(out_slots, scores, feats)
+
+
+def _probe_scores(config: MemoryConfig, state: MemoryState, qn: torch.Tensor,
+                  top_c: torch.Tensor, query_locations: Optional[torch.Tensor]):
+    """v1 and the plain gather: the combined score of every probed entry,
+    (combined, slots, valid), each [B, P*C]."""
+    B = qn.shape[0]
     # FIFO liveness: slot g % M holds generation g iff g >= count - M
     gens = state.cluster_gen[top_c]
-    valid = (gens >= 0) & (gens >= state.count - M)
-    slots = slots_raw.clamp(min=0).long()
+    valid = (gens >= 0) & (gens >= state.count - state.max_memories)
+    slots = state.cluster_slot[top_c].clamp(min=0).long()        # [B, P, C]
     if config.use_pallas_ivf:
         cos = ivf_scan_scores(state.clustered, qn, top_c)        # [B, P, C]
     else:
@@ -391,20 +436,7 @@ def retrieve(config: MemoryConfig, state: MemoryState, queries: torch.Tensor,
     combined = (config.w_cosine * cos + config.w_spatial * spatial
                 + config.w_temporal * temporal) * strength
     combined = torch.where(valid, combined, NEG_INF).reshape(B, -1)
-    slots, valid = slots.reshape(B, -1), valid.reshape(B, -1)
-
-    annex = _annex_coarse(config, state, qn, query_locations, kk)
-    if annex is not None:
-        a_s, a_sl, a_valid = annex
-        combined = torch.cat([combined, a_s], dim=1)
-        slots = torch.cat([slots, a_sl], dim=1)
-        valid = torch.cat([valid, a_valid], dim=1)
-
-    # coarse top-kk (exact), then the exact f32 rerank from the bank
-    if combined.shape[-1] > kk:
-        _, pick = torch.topk(combined, kk, dim=1)
-        slots, valid = slots.gather(1, pick), valid.gather(1, pick)
-    return _rerank(config, state, qn, slots, valid, query_locations, k)
+    return combined, slots.reshape(B, -1), valid.reshape(B, -1)
 
 
 # --------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Kernels B and C: the IVF probe scan (counterpart of
+"""Kernels B, C, D and E: the IVF probe scan (counterpart of
 `aura_snn_rag_tpu/ops/pallas/ivf_scan.py`).
 
 - `ivf_scan_scores` (kernel C, replaces the v1 TPU kernel at
@@ -9,13 +9,25 @@
   aux0 * cos + aux1, exact top-kk across probes (ties to the lowest flat
   index p*C + c; dead lanes at -1e30), exact f32 rerank of the kk raw bank
   rows, final top-k.
+- `ivf_candidates` (kernel D, replaces the v3 TPU kernel at
+  aura_snn_rag_tpu/ops/pallas/ivf_scan.py:186): the coarse top-kk across
+  probes, sorted descending, ties to the lowest flat index p*C + c.
+- `ivf_topk_scores` (kernel E, replaces the v2 TPU kernel at
+  aura_snn_rag_tpu/ops/pallas/ivf_scan.py:62): the coarse top-k of each
+  probe, sorted descending, ties to the lowest c.
 
-Both launch `csrc/ivf_scan.cu` for CUDA tensors (bound and design in its
-header) and run the `_plain` versions below for CPU tensors.
+All four launch `csrc/ivf_scan.cu` for CUDA tensors (bound and design in
+its header) and run the `_plain` versions below for CPU tensors.
 
-Output convention of `ivf_retrieve_fused`: lanes < k hold the final top-k
-sorted by exact score (ties to the lower funnel lane); a lane without a
-live candidate, and every lane >= k, holds score -1e30 and slot -1.
+Output conventions:
+- `ivf_retrieve_fused`: lanes < k hold the final top-k sorted by exact
+  score (ties to the lower funnel lane); a lane without a live candidate,
+  and every lane >= k, holds score -1e30 and slot -1.
+- `ivf_candidates` and `ivf_topk_scores`: every selected lane holds its
+  entry's coarse score and its bank slot (aux row 2). Once a probe's or a
+  query's live entries run out, dead entries (score <= -5e29) fill the
+  remaining lanes; callers mask them by score. Lanes >= k of
+  `ivf_topk_scores` hold -1e30 and slot 0.
 """
 
 from __future__ import annotations
@@ -29,7 +41,9 @@ from aura_snn_rag_tpu_torch.ops.cuda import _build
 
 NEG_INF = -1e30
 DEAD = -5e29                # coarse or exact scores at or below are dead
-KPAD = 128                  # output width of ivf_retrieve_fused
+KPAD = 128                  # output width of ivf_retrieve_fused and E
+KK_MAX_FUSED = 4096         # kernel B: keys, query and candidate metadata
+KK_MAX_CANDIDATES = 16384   # kernel D: 128 KB of sorted keys in shared memory
 
 
 def ivf_scan_scores_plain(clustered: torch.Tensor, qn: torch.Tensor,
@@ -40,18 +54,24 @@ def ivf_scan_scores_plain(clustered: torch.Tensor, qn: torch.Tensor,
     return torch.einsum("bpcd,bd->bpc", blocks, q16)
 
 
+def _coarse_plain(clustered, aux, qn, top_c):
+    """The coarse pass of kernels B, D and E in PyTorch: aux0 * cos + aux1
+    and the aux rows (mul, add, slot), each [B, P, C]."""
+    cos = ivf_scan_scores_plain(clustered, qn, top_c)
+    a = aux[top_c.long()]                                    # [B, P, 8, C]
+    a0, a1, sl = a[:, :, 0], a[:, :, 1], a[:, :, 2]
+    return a0 * cos + a1, a0, a1, sl
+
+
 def ivf_retrieve_fused_plain(clustered: torch.Tensor, aux: torch.Tensor,
                              features: torch.Tensor, qn: torch.Tensor,
                              top_c: torch.Tensor, kk: int, k: int
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel B in PyTorch. Stable sorts reproduce both tie rules."""
-    B, P = top_c.shape
-    C = clustered.shape[1]
+    B = top_c.shape[0]
     M = features.shape[0]
-    cos = ivf_scan_scores_plain(clustered, qn, top_c)        # [B, P, C]
-    a = aux[top_c.long()]                                    # [B, P, 8, C]
-    a0, a1, sl = (a[:, :, i].reshape(B, P * C) for i in range(3))
-    coarse = a0 * cos.reshape(B, P * C) + a1
+    coarse, a0, a1, sl = (x.reshape(B, -1) for x in _coarse_plain(
+        clustered, aux, qn, top_c))
     order = torch.argsort(coarse, dim=1, descending=True, stable=True)[:, :kk]
     live = coarse.gather(1, order) > DEAD
     a0k = torch.where(live, a0.gather(1, order), 0.0)
@@ -72,6 +92,31 @@ def ivf_retrieve_fused_plain(clustered: torch.Tensor, aux: torch.Tensor,
     return out_s, out_slot
 
 
+def ivf_candidates_plain(clustered: torch.Tensor, aux: torch.Tensor,
+                         qn: torch.Tensor, top_c: torch.Tensor, kk: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel D in PyTorch. A stable sort reproduces the tie rule."""
+    B = top_c.shape[0]
+    coarse, _, _, sl = _coarse_plain(clustered, aux, qn, top_c)
+    coarse, sl = coarse.reshape(B, -1), sl.reshape(B, -1)
+    order = torch.argsort(coarse, dim=1, descending=True, stable=True)[:, :kk]
+    return coarse.gather(1, order), sl.gather(1, order).int()
+
+
+def ivf_topk_scores_plain(clustered: torch.Tensor, aux: torch.Tensor,
+                          qn: torch.Tensor, top_c: torch.Tensor, k: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel E in PyTorch. A stable sort reproduces the tie rule."""
+    B, P = top_c.shape
+    coarse, _, _, sl = _coarse_plain(clustered, aux, qn, top_c)
+    order = torch.argsort(coarse, dim=2, descending=True, stable=True)[..., :k]
+    out_s = torch.full((B, P, KPAD), NEG_INF, device=qn.device)
+    out_slot = torch.zeros((B, P, KPAD), dtype=torch.int32, device=qn.device)
+    out_s[..., :k] = coarse.gather(2, order)
+    out_slot[..., :k] = sl.gather(2, order).int()
+    return out_s, out_slot
+
+
 def _check(name, tensors, dtypes):
     dev = tensors[0].device
     for t, dt in zip(tensors, dtypes):
@@ -82,29 +127,54 @@ def _check(name, tensors, dtypes):
                              f"aligned and on one device")
 
 
+def _ivf_args(name, clustered, aux, qn, top_c, features=None):
+    """Checks the CUDA kernels' inputs; returns (qn f32, top_c i32), both
+    contiguous. The keys carry the flat index p*C + c in 32 bits."""
+    K, C, D = clustered.shape
+    B, P = top_c.shape
+    top_c = top_c.to(torch.int32).contiguous()
+    qn = qn.float().contiguous()
+    tensors = [clustered, qn, top_c]
+    dtypes = [torch.bfloat16, torch.float32, torch.int32]
+    if aux is not None:
+        tensors.append(aux)
+        dtypes.append(torch.float32)
+    if features is not None:
+        tensors.append(features)
+        dtypes.append(torch.float32)
+    _check(name, tensors, dtypes)
+    if (D % 8 or qn.shape != (B, D) or P * C >= 2 ** 31
+            or (aux is not None and aux.shape != (K, 8, C))
+            or (features is not None and features.shape[1:] != (D,))):
+        raise ValueError(
+            f"{name}: clustered {tuple(clustered.shape)}, qn "
+            f"{tuple(qn.shape)}, top_c {tuple(top_c.shape)}, aux "
+            f"{None if aux is None else tuple(aux.shape)}, features "
+            f"{None if features is None else tuple(features.shape)}")
+    return qn, top_c
+
+
+def _launch(name: str, argtypes, *args) -> None:
+    fn = getattr(_build.load("ivf_scan"), f"{name}_launch")
+    fn.argtypes = argtypes + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.check(fn(*args, _build.stream()), name)
+    _build.launch_counts[name] += 1
+
+
 def ivf_scan_scores(clustered: torch.Tensor, qn: torch.Tensor,
                     top_c: torch.Tensor) -> torch.Tensor:
     """clustered [K, C, D] bf16, qn [B, D] f32 (cast to bf16 inside),
     top_c [B, P] probed cluster ids -> cosines [B, P, C] f32."""
     if not clustered.is_cuda:
         return ivf_scan_scores_plain(clustered, qn, top_c)
-    K, C, D = clustered.shape
+    _, C, D = clustered.shape
     B, P = top_c.shape
-    top_c = top_c.to(torch.int32).contiguous()
-    qn = qn.float().contiguous()
-    _check("ivf_scan_scores", [clustered, qn, top_c],
-           [torch.bfloat16, torch.float32, torch.int32])
-    if D % 8 or qn.shape != (B, D):
-        raise ValueError(f"ivf_scan_scores: D={D}, qn {tuple(qn.shape)}")
+    qn, top_c = _ivf_args("ivf_scan_scores", clustered, None, qn, top_c)
     out = torch.empty((B, P, C), dtype=torch.float32, device=qn.device)
-    fn = _build.load("ivf_scan").ivf_scan_scores_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(_build.ptr(clustered), _build.ptr(qn), _build.ptr(top_c),
-            _build.ptr(out), C, D, B, P, _build.stream())
-    _build.check(rc, "ivf_scan_scores")
-    _build.launch_counts["ivf_scan_scores"] += 1
+    _launch("ivf_scan_scores", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4,
+            _build.ptr(clustered), _build.ptr(qn), _build.ptr(top_c),
+            _build.ptr(out), C, D, B, P)
     return out
 
 
@@ -115,36 +185,81 @@ def ivf_retrieve_fused(clustered: torch.Tensor, aux: torch.Tensor,
     """clustered [K, C, D] bf16; aux [K, 8, C] f32 (`build_ivf_aux`);
     features [M, D] f32; qn [B, D] f32 L2-normalised; top_c [B, P].
     Returns (scores [B, 128] f32, slots [B, 128] i32)."""
-    K, C, D = clustered.shape
+    _, C, D = clustered.shape
     B, P = top_c.shape
-    if not (0 < kk <= P * C and kk <= 4096 and 0 < k <= min(kk, KPAD)):
+    if not (0 < kk <= P * C and kk <= KK_MAX_FUSED
+            and 0 < k <= min(kk, KPAD)):
         raise ValueError(f"ivf_retrieve_fused: kk={kk}, k={k}, P*C={P * C}")
     if not clustered.is_cuda:
         return ivf_retrieve_fused_plain(clustered, aux, features, qn, top_c,
                                         kk, k)
     M = features.shape[0]
-    top_c = top_c.to(torch.int32).contiguous()
-    qn = qn.float().contiguous()
-    _check("ivf_retrieve_fused", [clustered, aux, features, qn, top_c],
-           [torch.bfloat16, torch.float32, torch.float32, torch.float32,
-            torch.int32])
-    if (D % 8 or aux.shape != (K, 8, C) or features.shape != (M, D)
-            or qn.shape != (B, D)):
-        raise ValueError("ivf_retrieve_fused: shapes "
-                         f"{tuple(aux.shape)} {tuple(features.shape)} "
-                         f"{tuple(qn.shape)} for D={D}")
+    qn, top_c = _ivf_args("ivf_retrieve_fused", clustered, aux, qn, top_c,
+                          features)
     scratch = torch.empty((B, P * C), dtype=torch.float32, device=qn.device)
     out_s = torch.empty((B, KPAD), dtype=torch.float32, device=qn.device)
     out_slot = torch.empty((B, KPAD), dtype=torch.int32, device=qn.device)
-    fn = _build.load("ivf_scan").ivf_retrieve_fused_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_long]
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    rc = fn(_build.ptr(clustered), _build.ptr(aux), _build.ptr(features),
+    _launch("ivf_retrieve_fused",
+            [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_long] + [ctypes.c_int] * 5,
+            _build.ptr(clustered), _build.ptr(aux), _build.ptr(features),
             _build.ptr(qn), _build.ptr(top_c), _build.ptr(scratch),
             _build.ptr(out_s), _build.ptr(out_slot), C, D, M, B, P, kk, k,
-            KPAD, _build.stream())
-    _build.check(rc, "ivf_retrieve_fused")
-    _build.launch_counts["ivf_retrieve_fused"] += 1
+            KPAD)
+    return out_s, out_slot
+
+
+def ivf_candidates(clustered: torch.Tensor, aux: torch.Tensor,
+                   qn: torch.Tensor, top_c: torch.Tensor, kk: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """clustered [K, C, D] bf16; aux [K, 8, C] f32; qn [B, D] f32
+    L2-normalised; top_c [B, P]; kk a multiple of 128, at most P*C and
+    16384. Returns (scores [B, kk] f32, slots [B, kk] i32), sorted
+    descending."""
+    C = clustered.shape[1]
+    B, P = top_c.shape
+    if not (0 < kk <= min(P * C, KK_MAX_CANDIDATES) and kk % KPAD == 0):
+        raise ValueError(f"ivf_candidates: kk={kk} must be a multiple of "
+                         f"{KPAD} in (0, min(P*C={P * C}, "
+                         f"{KK_MAX_CANDIDATES})]")
+    if not clustered.is_cuda:
+        return ivf_candidates_plain(clustered, aux, qn, top_c, kk)
+    return _select_launch("ivf_candidates", clustered, aux, qn, top_c, kk,
+                          (B, kk))
+
+
+def ivf_topk_scores(clustered: torch.Tensor, aux: torch.Tensor,
+                    qn: torch.Tensor, top_c: torch.Tensor, k: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """clustered [K, C, D] bf16; aux [K, 8, C] f32; qn [B, D] f32
+    L2-normalised; top_c [B, P]; 0 < k <= min(128, C). Returns
+    (scores [B, P, 128] f32, slots [B, P, 128] i32); lanes < k hold each
+    probe's top-k sorted descending. Shared memory holds only the 128
+    selected keys, so it puts no bound on C; the 32-bit index in the keys
+    does (P*C < 2^31)."""
+    C = clustered.shape[1]
+    B, P = top_c.shape
+    if not 0 < k <= min(KPAD, C):
+        raise ValueError(f"ivf_topk_scores: k={k} must be in "
+                         f"(0, min({KPAD}, C={C})]")
+    if not clustered.is_cuda:
+        return ivf_topk_scores_plain(clustered, aux, qn, top_c, k)
+    return _select_launch("ivf_topk_scores", clustered, aux, qn, top_c, k,
+                          (B, P, KPAD))
+
+
+def _select_launch(name, clustered, aux, qn, top_c, width,
+                   out_shape) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernels D and E: coarse pass into a [B, P*C] scratch, then the
+    select pass that keeps `width` entries per query (D) or probe (E)."""
+    _, C, D = clustered.shape
+    B, P = top_c.shape
+    qn, top_c = _ivf_args(name, clustered, aux, qn, top_c)
+    scratch = torch.empty((B, P * C), dtype=torch.float32, device=qn.device)
+    out_s = torch.empty(out_shape, dtype=torch.float32, device=qn.device)
+    out_slot = torch.empty(out_shape, dtype=torch.int32, device=qn.device)
+    _launch(name, [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5,
+            _build.ptr(clustered), _build.ptr(aux), _build.ptr(qn),
+            _build.ptr(top_c), _build.ptr(scratch), _build.ptr(out_s),
+            _build.ptr(out_slot), C, D, B, P, width)
     return out_s, out_slot

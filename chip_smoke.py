@@ -5,17 +5,19 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, then:
 
-1. kernel phase: kernels A (flat_blockmax), B (ivf_retrieve_fused) and C
-   (ivf_scan_scores) at full-width shapes on random inputs, each held
-   against its plain PyTorch version on the same inputs and timed with
-   CUDA events beside the plain version, a PyTorch library yardstick where
-   one exists, and the least time the card could take (`bound_ms`);
+1. kernel phase: kernels A (flat_blockmax), B (ivf_retrieve_fused), C
+   (ivf_scan_scores), D (ivf_candidates) and E (ivf_topk_scores) at
+   full-width shapes on random inputs, each held against its plain
+   PyTorch version on the same inputs and timed with CUDA events beside
+   the plain version, a PyTorch library yardstick where one exists, and
+   the least time the card could take (`bound_ms`);
 2. engine phase: the episodic-memory engine in bench.py's configuration
    (1,000,000 x 768, K = 4096, probe 64, int8 coarse bank): bulk_load,
    write_memories, rebuild_centroids, a write on the live index, then
-   retrieve_flat (scan and blockmax, B = 1024), retrieve_auto (IVF v3r,
-   B = 1 and 8) and retrieve with locations (IVF v1, B = 8), with
-   recall@10 against the port's exact brute force over 1024 queries;
+   retrieve_flat (scan and blockmax, B = 1024), retrieve_auto with
+   ivf_kernel v3r, v2 and v3 (IVF, B = 1 and 8) and retrieve with
+   locations (IVF v1, B = 8), with recall@10 against the port's exact
+   brute force over 1024 queries;
 3. host-API phase: HippocampalFormation(max_memories=65_536) written in
    batches of 512 through automatic rebuilds, then queried with and
    without a location.
@@ -60,7 +62,12 @@ SOURCES = {
                            "aura_snn_rag_tpu/ops/pallas/ivf_scan.py:317"),
     "ivf_scan_scores": ("aura_snn_rag_tpu_torch/ops/cuda/csrc/ivf_scan.cu",
                         "aura_snn_rag_tpu/ops/pallas/ivf_scan.py:550"),
+    "ivf_candidates": ("aura_snn_rag_tpu_torch/ops/cuda/csrc/ivf_scan.cu",
+                       "aura_snn_rag_tpu/ops/pallas/ivf_scan.py:186"),
+    "ivf_topk_scores": ("aura_snn_rag_tpu_torch/ops/cuda/csrc/ivf_scan.cu",
+                        "aura_snn_rag_tpu/ops/pallas/ivf_scan.py:62"),
 }
+IVF_KERNELS = ("v3r", "v2", "v3")     # ivf_kernel settings the engine runs
 
 
 class CheckFailed(AssertionError):
@@ -144,7 +151,8 @@ def kernel_A(dev, gen, M, D, cases):
         ms = time_ms([lambda s=s: flat_blockmax(*s) for s in sets])
         plain_ms = time_ms([lambda s=s: flat_blockmax_plain(*s)
                             for s in sets], iters=3, warmup=1)
-        lib_ms = None
+        # yardstick: the library product (`_int_mm` / bf16 `matmul`), then
+        # the same epilogue in PyTorch
         if dtype == "int8":
             from aura_snn_rag_tpu_torch.memory.engine import _int8_matmul
 
@@ -153,8 +161,13 @@ def kernel_A(dev, gen, M, D, cases):
                 cos = acc * (1.0 / (127 * 127)) * s[4][:, None]
                 comb = cos * s[2][:M] + s[3][:M]
                 return comb.reshape(B, -1, BLOCK_R).amax(-1)
-            lib_ms = time_ms([lambda s=s: library(s) for s in sets],
-                             iters=3, warmup=1)
+        else:
+            def library(s):
+                cos = torch.matmul(s[1], s[0].T).float()
+                comb = cos * s[2][:M] + s[3][:M]
+                return comb.reshape(B, -1, BLOCK_R).amax(-1)
+        lib_ms = time_ms([lambda s=s: library(s) for s in sets],
+                         iters=3, warmup=1)
         elem = 1 if dtype == "int8" else 2
         nbytes = (M * D * elem + 2 * 4 * M + B * D * elem
                   + 4 * B * (M // BLOCK_R))
@@ -191,15 +204,27 @@ def ivf_inputs(dev, gen, K, C, D, M, P, B, n_sets):
     return cl, aux, feats, sets
 
 
-def kernel_B_C(dev, gen, K, C, D, M, P, kk, k, cases_B, B_C):
+def check_slots(name, s, sl, ps, psl):
+    """Rows of (score, slot) lanes against the plain version's: slots
+    equal wherever the plain score is more than 1e-4 from its neighbours
+    (nearer scores may swap under another summation order)."""
+    import numpy as np
+    for r in range(ps.shape[0]):
+        for j in range(ps.shape[1]):
+            others = np.delete(ps[r], j)
+            if others.size == 0 or np.min(np.abs(others - ps[r, j])) > 1e-4:
+                check(sl[r, j] == psl[r, j],
+                      f"{name} slot mismatch row={r} lane={j}")
+
+
+def kernel_B_C(ivf, K, C, D, M, P, kk, k, cases_B, B_C):
     import numpy as np
     import torch
     from aura_snn_rag_tpu_torch.ops.cuda.ivf_scan import (
-        ivf_retrieve_fused, ivf_retrieve_fused_plain, ivf_scan_scores,
-        ivf_scan_scores_plain)
+        ivf_candidates_plain, ivf_retrieve_fused, ivf_retrieve_fused_plain,
+        ivf_scan_scores, ivf_scan_scores_plain)
 
-    Bmax = max(max(cases_B), B_C)
-    cl, aux, feats, sets = ivf_inputs(dev, gen, K, C, D, M, P, Bmax, 4)
+    cl, aux, feats, sets = ivf
     res = {}
     for B in cases_B:
         bsets = [(qn[:B].contiguous(), tc[:B].contiguous())
@@ -214,20 +239,22 @@ def kernel_B_C(dev, gen, K, C, D, M, P, kk, k, cases_B, B_C):
         err = float(np.abs(np.where(hit, s[:, :k] - ps[:, :k], 0)).max())
         # exact f32 dot products summed in another order
         check(err <= 1e-5, f"ivf_retrieve_fused B={B}: err {err}")
-        for b in range(B):
-            for j in range(k):
-                gap = np.min(np.abs(np.delete(ps[b, :k], j) - ps[b, j]))
-                if gap > 1e-4:
-                    check(sl[b, j] == psl[b, j],
-                          f"ivf_retrieve_fused slot mismatch b={b} j={j}")
+        check_slots("ivf_retrieve_fused", s[:, :k], sl[:, :k], ps[:, :k],
+                    psl[:, :k])
         ms = time_ms([lambda q=q, t=t: ivf_retrieve_fused(
             cl, aux, feats, q, t, kk, k) for q, t in bsets], iters=20)
         plain_ms = time_ms([lambda q=q, t=t: ivf_retrieve_fused_plain(
             cl, aux, feats, q, t, kk, k) for q, t in bsets], iters=4,
             warmup=1)
-        nbytes = B * (P * C * D * 2 + 3 * P * C * 4 + P * 4 + D * 4
-                      + kk * D * 4 + 2 * 128 * 4)
-        ops = B * (2 * P * C * D + 4 * kk * D)
+        # the probed bf16 blocks and aux rows 0-1 once, the query, the
+        # probe ids, the slots of the kk candidates, the f32 rows of the
+        # live ones (the rerank skips dead lanes), and the (score, slot)
+        # lanes written
+        n_live = int((ivf_candidates_plain(cl, aux, qn, tc, kk)[0] > -5e29)
+                     .sum())
+        nbytes = (B * (P * C * D * 2 + 2 * P * C * 4 + P * 4 + D * 4
+                       + kk * 4 + 2 * 128 * 4) + n_live * D * 4)
+        ops = B * 2 * P * C * D + n_live * 4 * D
         b_ms, b_by = bound_ms(nbytes, ops, "bf16")
         res[("ivf_retrieve_fused", B)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
@@ -256,6 +283,57 @@ def kernel_B_C(dev, gen, K, C, D, M, P, kk, k, cases_B, B_C):
     log(f"kernel ivf_scan_scores B={B} K={K} C={C} P={P} D={D}: "
         f"max_abs_err={err:.3g} ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"bound_ms={b_ms:.4f} ({b_by})")
+    return res
+
+
+def kernel_D_E(ivf, K, C, D, P, kk, k, cases_B):
+    """ivf_candidates (width kk per query) and ivf_topk_scores (width k per
+    probe) against their plain versions on the kernel-phase inputs."""
+    import numpy as np
+    import torch
+    from aura_snn_rag_tpu_torch.ops.cuda import ivf_scan
+
+    cl, aux, _, sets = ivf
+    res = {}
+    # per query: the selected lanes whose slot is read, and the lanes written
+    for name, width, picked, lanes in (
+            ("ivf_candidates", kk, kk, kk),
+            ("ivf_topk_scores", k, P * k, P * ivf_scan.KPAD)):
+        fn = getattr(ivf_scan, name)
+        plain = getattr(ivf_scan, name + "_plain")
+        for B in cases_B:
+            bsets = [(qn[:B].contiguous(), tc[:B].contiguous())
+                     for qn, tc in sets]
+            qn, tc = bsets[0]
+            s, sl = fn(cl, aux, qn, tc, width)
+            ps, psl = plain(cl, aux, qn, tc, width)
+            torch.cuda.synchronize()
+            # rows of `width` selected lanes: one per query (D) or probe (E)
+            s, sl, ps, psl = (t.reshape(-1, t.shape[-1])[:, :width]
+                              .cpu().numpy() for t in (s, sl, ps, psl))
+            live = ps > -5e29
+            check((live == (s > -5e29)).all(), f"{name} B={B} live lanes")
+            err = float(np.abs(np.where(live, s - ps, 0)).max())
+            # aux0 * cos + aux1: f32 sums of bf16 products in another order
+            check(err <= 1e-5, f"{name} B={B}: err {err}")
+            check_slots(name, np.where(live, s, 0), np.where(live, sl, -1),
+                        np.where(live, ps, 0), np.where(live, psl, -1))
+            ms = time_ms([lambda q=q, t=t: fn(cl, aux, q, t, width)
+                          for q, t in bsets], iters=20)
+            plain_ms = time_ms([lambda q=q, t=t: plain(cl, aux, q, t, width)
+                                for q, t in bsets], iters=4, warmup=1)
+            # the probed bf16 blocks and aux rows 0-1 once, the query, the
+            # probe ids, the slots (aux row 2) of the selected lanes only,
+            # and the (score, slot) lanes written
+            nbytes = B * (P * C * D * 2 + 2 * P * C * 4 + P * 4 + D * 4
+                          + picked * 4 + lanes * 8)
+            b_ms, b_by = bound_ms(nbytes, B * 2 * P * C * D, "bf16")
+            res[(name, B)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by)
+            log(f"kernel {name} B={B} K={K} C={C} P={P} D={D} "
+                f"width={width}: max_abs_err={err:.3g} ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
     return res
 
 
@@ -305,13 +383,15 @@ def profile_paths(cfg, state, queries, reps=5):
         "flat_blockmax_b1024": lambda: port.retrieve_flat(
             dataclasses.replace(cfg, flat_strategy="blockmax"), state,
             queries[:1024], None, TOPK),
-        "ivf_v3r_b1": lambda: port.retrieve_auto(cfg, state, queries[:1],
-                                                 None, TOPK),
-        "ivf_v3r_b8": lambda: port.retrieve_auto(cfg, state, queries[:8],
-                                                 None, TOPK),
         "ivf_v1_b8": lambda: port.retrieve(cfg, state, queries[:8], loc,
                                            TOPK),
     }
+    for kern in IVF_KERNELS:
+        c = dataclasses.replace(cfg, ivf_kernel=kern)
+        for B in (1, 8):
+            paths[f"ivf_{kern}_b{B}"] = (
+                lambda c=c, B=B: port.retrieve_auto(c, state, queries[:B],
+                                                    None, TOPK))
     out = {}
     for name, fn in paths.items():
         fn()
@@ -411,20 +491,25 @@ def engine_phase(dev, cfg_kw, n_eval, n_live, profile=False):
             f"{stats[f'flat_{strategy}_qps']:.1f} QPS, recall@10 "
             f"{stats[f'flat_{strategy}_recall_at_10']:.4f}")
 
-    for B in (1, 8):
-        n = n_eval if B == 8 else 128
-        batches = [queries[i:i + B] for i in range(0, n, B)]
-        port.retrieve_auto(cfg, state, batches[0], None, TOPK)   # warm-up
-        res, dt = timed_batches(
-            lambda b: port.retrieve_auto(cfg, state, b, None, TOPK), batches)
-        idx = torch.cat([r.indices for r in res])
-        check(torch.isfinite(torch.cat([r.scores for r in res])).all()
-              .item(), "ivf finite")
-        stats[f"ivf_v3r_b{B}_qps"] = n / dt
-        stats[f"ivf_v3r_b{B}_recall_at_10"] = recall_at_k(idx, exact[:n])
-        log(f"engine: retrieve_auto (IVF v3r) B={B}: "
-            f"{stats[f'ivf_v3r_b{B}_qps']:.1f} QPS, recall@10 "
-            f"{stats[f'ivf_v3r_b{B}_recall_at_10']:.4f} over {n} queries")
+    for kern in IVF_KERNELS:
+        c = dataclasses.replace(cfg, ivf_kernel=kern)
+        for B in (1, 8):
+            n = n_eval if B == 8 else 128
+            batches = [queries[i:i + B] for i in range(0, n, B)]
+            port.retrieve_auto(c, state, batches[0], None, TOPK)  # warm-up
+            res, dt = timed_batches(
+                lambda b: port.retrieve_auto(c, state, b, None, TOPK),
+                batches)
+            idx = torch.cat([r.indices for r in res])
+            check(torch.isfinite(torch.cat([r.scores for r in res])).all()
+                  .item(), f"ivf {kern} finite")
+            check(tuple(idx.shape) == (n, TOPK), f"ivf {kern} shape")
+            key = f"ivf_{kern}_b{B}"
+            stats[f"{key}_qps"] = n / dt
+            stats[f"{key}_recall_at_10"] = recall_at_k(idx, exact[:n])
+            log(f"engine: retrieve_auto (IVF {kern}) B={B}: "
+                f"{stats[f'{key}_qps']:.1f} QPS, recall@10 "
+                f"{stats[f'{key}_recall_at_10']:.4f} over {n} queries")
 
     # IVF v1: with query locations (all rows sit at the origin, so the
     # spatial term is the same for every row and the ranking is cosine's)
@@ -442,8 +527,8 @@ def engine_phase(dev, cfg_kw, n_eval, n_live, profile=False):
 
     for key in ("flat_scan_recall_at_10", "flat_blockmax_recall_at_10"):
         check(stats[key] >= 0.99, f"{key} = {stats[key]} < 0.99")
-    for key in ("ivf_v3r_b8_recall_at_10", "ivf_v3r_b1_recall_at_10",
-                "ivf_v1_b8_recall_at_10"):
+    for key in [f"ivf_{kern}_b{B}_recall_at_10" for kern in IVF_KERNELS
+                for B in (1, 8)] + ["ivf_v1_b8_recall_at_10"]:
         check(stats[key] >= 0.98, f"{key} = {stats[key]} < 0.98")
     stats["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     if profile:
@@ -511,8 +596,14 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(1234)
     res_a = kernel_A(dev, gen, s["M"], s["D"],
                      [("int8", 128), ("bf16", 128), ("int8", 1024)])
-    res_bc = kernel_B_C(dev, gen, s["K"], s["C"], s["D"], s["M"], s["P"],
+    ivf = ivf_inputs(dev, gen, s["K"], s["C"], s["D"], s["M"], s["P"], 8, 4)
+    res_bc = kernel_B_C(ivf, s["K"], s["C"], s["D"], s["M"], s["P"],
                         s["kk"], s["k"], cases_B=(1, 8), B_C=8)
+    # the engine's widths at these shapes: kk = 128 for D, and for E
+    # per_k = min(max(k, ceil(kk / P)), C) = k
+    res_de = kernel_D_E(ivf, s["K"], s["C"], s["D"], s["P"], s["kk"],
+                        s["k"], cases_B=(1, 8))
+    del ivf
     torch.cuda.empty_cache()
 
     # ---- the main path: counts from zero, read after the last phase ----
@@ -529,7 +620,9 @@ def main() -> int:
 
     main_shape = {"flat_blockmax": res_a[("int8", 1024)],
                   "ivf_retrieve_fused": res_bc[("ivf_retrieve_fused", 8)],
-                  "ivf_scan_scores": res_bc[("ivf_scan_scores", 8)]}
+                  "ivf_scan_scores": res_bc[("ivf_scan_scores", 8)],
+                  "ivf_candidates": res_de[("ivf_candidates", 8)],
+                  "ivf_topk_scores": res_de[("ivf_topk_scores", 8)]}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         kernels.append(dict(name=name, route="cuda", source=src,

@@ -20,6 +20,7 @@ from aura_snn_rag_tpu import config as jconfig
 from aura_snn_rag_tpu.memory import engine as jengine
 from aura_snn_rag_tpu.memory import state as jstate
 import aura_snn_rag_tpu_torch as port
+from aura_snn_rag_tpu_torch.memory import engine as tengine
 from aura_snn_rag_tpu_torch.memory import state as tstate
 
 torch.set_num_threads(1)
@@ -123,6 +124,61 @@ def bank_pair(coarse, **kw):
     jcfg, tcfg = configs(coarse_dtype=coarse, **kw)
     js = jax.tree.map(jnp.asarray, arrays)
     return jcfg, tcfg, js, port.state_from_numpy(arrays, "cpu"), feats
+
+
+def spy_ivf_kernels(monkeypatch):
+    """Records which IVF kernel wrapper the port's `retrieve` calls."""
+    calls = []
+    for name in ("ivf_retrieve_fused", "ivf_candidates", "ivf_topk_scores",
+                 "ivf_scan_scores"):
+        fn = getattr(tengine, name)
+
+        def wrapped(*a, _fn=fn, _name=name, **kw):
+            calls.append(_name)
+            return _fn(*a, **kw)
+        monkeypatch.setattr(tengine, name, wrapped)
+    return calls
+
+
+def retrieve_both(jcfg, tcfg, js, ts, q, qloc, k):
+    """`retrieve` of both packages on the same queries, as numpy."""
+    with highest():
+        jr = result_np(jengine.retrieve(
+            jcfg, js, jnp.asarray(q),
+            None if qloc is None else jnp.asarray(qloc), k))
+    tr = result_np(port.retrieve(
+        tcfg, ts, torch.from_numpy(q),
+        None if qloc is None else torch.from_numpy(qloc), k))
+    return jr, tr
+
+
+def ivf_kernel_inputs(seed, K=32, C=256, D=128, B=3, P=4, M=4096):
+    """Inputs of the IVF kernels for both packages: a bf16 clustered store
+    [K, C, D], its aux rows [K, 8, C] with 30% dead entries, a bank
+    [M, D], normalised queries [B, D] and P distinct probes per query.
+    Returns (jax arrays, torch tensors), each (clustered, aux, features,
+    qn, top_c)."""
+    rng = np.random.RandomState(seed)
+    cl = rng.randn(K, C, D).astype(np.float32)
+    cl /= np.linalg.norm(cl, axis=-1, keepdims=True)
+    cl16 = jnp.asarray(cl, jnp.bfloat16)
+    aux = np.zeros((K, 8, C), np.float32)
+    aux[:, 0] = rng.rand(K, C) * 0.5 + 0.25
+    aux[:, 1] = rng.rand(K, C) * 0.2
+    aux[:, 1][rng.rand(K, C) < 0.3] = -1e30                  # dead entries
+    aux[:, 2] = rng.randint(0, M, (K, C))
+    feats = rng.randn(M, D).astype(np.float32)
+    q = rng.randn(B, D).astype(np.float32)
+    qn = q / np.linalg.norm(q, axis=1, keepdims=True)
+    top_c = np.stack([rng.choice(K, P, replace=False)
+                      for _ in range(B)]).astype(np.int32)
+    jx = (cl16, jnp.asarray(aux), jnp.asarray(feats), jnp.asarray(qn),
+          jnp.asarray(top_c))
+    tx = (torch.from_numpy(np.array(cl16.astype(jnp.float32)))
+          .to(torch.bfloat16), torch.from_numpy(aux),
+          torch.from_numpy(feats), torch.from_numpy(qn),
+          torch.from_numpy(top_c))
+    return jx, tx
 
 
 # --------------------------------------------------------------------------

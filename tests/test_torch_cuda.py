@@ -1,4 +1,5 @@
-"""Kernels A, B and C against their plain PyTorch versions on the card.
+"""Kernels A, B, C, D and E against their plain PyTorch versions on the
+card.
 
 Marked `cuda`: they skip without a card (decided in a fixture, so every
 xdist worker collects the same tests). On a machine with an H100:
@@ -16,8 +17,9 @@ from aura_snn_rag_tpu_torch.ops.cuda import launch_counts
 from aura_snn_rag_tpu_torch.ops.cuda.flat_scan import (
     flat_blockmax, flat_blockmax_plain, pack_row_terms)
 from aura_snn_rag_tpu_torch.ops.cuda.ivf_scan import (
-    ivf_retrieve_fused, ivf_retrieve_fused_plain, ivf_scan_scores,
-    ivf_scan_scores_plain)
+    ivf_candidates, ivf_candidates_plain, ivf_retrieve_fused,
+    ivf_retrieve_fused_plain, ivf_scan_scores, ivf_scan_scores_plain,
+    ivf_topk_scores, ivf_topk_scores_plain)
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -99,6 +101,23 @@ def test_ivf_scan_scores_kernel_matches_plain(dev, D):
     assert (got - want).abs().max().item() <= 2e-5
 
 
+def _assert_select_matches(s, sl, ps, psl, rows):
+    """Scores within 1e-5 on live lanes, the same lanes live, slots equal
+    wherever the score is more than 1e-4 from its neighbours."""
+    s, sl, ps, psl = (t.cpu().numpy().reshape(rows, -1)
+                      for t in (s, sl, ps, psl))
+    live = ps > -5e29
+    assert (live == (s > -5e29)).all()
+    # f32 sums of bf16 products in another order, times aux0 <= 1
+    assert np.abs(np.where(live, s - ps, 0)).max() <= 1e-5
+    for r in range(rows):
+        for j in np.nonzero(live[r])[0]:
+            others = np.delete(ps[r], j)
+            if others.size == 0 or np.min(np.abs(others - ps[r, j])) > 1e-4:
+                assert sl[r, j] == psl[r, j], (r, j)
+    return s, sl, psl
+
+
 # (2, 2048, 10, 8, 128): kk = 2048 needs > 48 KB of dynamic shared memory
 # (the opt-in path); D = 72 leaves lanes idle in the row loops
 @pytest.mark.parametrize("B,kk,k,P,D", [(1, 128, 10, 4, 128),
@@ -112,13 +131,70 @@ def test_ivf_retrieve_fused_kernel_matches_plain(dev, B, kk, k, P, D):
     ps, psl = ivf_retrieve_fused_plain(cl, aux, feats, qn, top_c, kk, k)
     torch.cuda.synchronize()
     assert s.shape == ps.shape == (B, 128)
-    s, sl, ps, psl = (t.cpu().numpy() for t in (s, sl, ps, psl))
-    # exact scores: f32 dot products summed in another order
-    assert np.abs(s - ps).max() <= 1e-5
+    # exact scores (f32 dot products summed in another order), well inside
+    # the select's 1e-5
+    _assert_select_matches(s[:, :k], sl[:, :k], ps[:, :k], psl[:, :k], B)
     assert (sl[:, k:] == -1).all() and (s[:, k:] == -1e30).all()
-    # slots agree wherever the score is clear of its neighbours
+
+
+def _tied_inputs(seed, C, B, P, K=40, D=128, M=4096):
+    """_ivf_inputs with exact ties planted at the top of every query's
+    ranking: its own direction stored three times (probe 0 at c = 2b and
+    2b + 1, probe 1 at c = 2b), each with aux0 = 1, aux1 = 0.5 and its
+    own slot, so the three coarse scores are equal and far above the
+    random entries (|score| < 0.8)."""
+    cl, aux, feats, qn, top_c = _ivf_inputs(np.random.RandomState(seed), K,
+                                            C, D, B, P, M)
     for b in range(B):
-        for j in range(k):
-            gap = np.min(np.abs(np.delete(ps[b, :k], j) - ps[b, j]))
-            if gap > 1e-4:
-                assert sl[b, j] == psl[b, j], (b, j)
+        for n, (p, c) in enumerate(((0, 2 * b), (0, 2 * b + 1),
+                                    (1, 2 * b))):
+            cid = int(top_c[b, p])
+            cl[cid, c] = qn[b].to(torch.bfloat16)
+            aux[cid, 0, c], aux[cid, 1, c] = 1.0, 0.5
+            aux[cid, 2, c] = M + 3 * b + n
+    return cl, aux, qn, top_c
+
+
+@pytest.mark.parametrize("k", [1, 10, 128])
+@pytest.mark.parametrize("C", [128, 384, 896])
+@pytest.mark.parametrize("B", [1, 5])
+def test_ivf_topk_scores_kernel_matches_plain(dev, B, C, k):
+    P = 4
+    cl, aux, qn, top_c = (t.to(dev) for t in _tied_inputs(C + k, C, B, P))
+    n0 = launch_counts["ivf_topk_scores"]
+    s, sl = ivf_topk_scores(cl, aux, qn, top_c, k)
+    ps, psl = ivf_topk_scores_plain(cl, aux, qn, top_c, k)
+    torch.cuda.synchronize()
+    assert launch_counts["ivf_topk_scores"] == n0 + 1
+    assert s.shape == sl.shape == (B, P, 128) and sl.dtype == torch.int32
+    s, sl, psl = _assert_select_matches(s[..., :k], sl[..., :k], ps[..., :k],
+                                        psl[..., :k], B * P)
+    # the tie in probe 0 goes to the lower c, as in the TPU kernel
+    lead = min(k, 2)
+    for b in range(B):
+        np.testing.assert_array_equal(sl[b * P, :lead], psl[b * P, :lead])
+        np.testing.assert_array_equal(sl[b * P, :lead],
+                                      [4096 + 3 * b, 4096 + 3 * b + 1][:lead])
+    s_all, sl_all = ivf_topk_scores(cl, aux, qn, top_c, k)
+    assert (s_all[..., k:] == -1e30).all() and (sl_all[..., k:] == 0).all()
+
+
+# (2, 512, 32, 16384): the largest kk kernel D takes, 128 KB of keys in
+# opt-in shared memory
+@pytest.mark.parametrize("B,C,P,kk", [
+    (B, C, 4, kk) for B in (1, 5) for C in (128, 384, 896)
+    for kk in (128, 4 * C)] + [(2, 512, 32, 16384)])
+def test_ivf_candidates_kernel_matches_plain(dev, B, C, P, kk):
+    cl, aux, qn, top_c = (t.to(dev) for t in _tied_inputs(C + kk, C, B, P))
+    n0 = launch_counts["ivf_candidates"]
+    s, sl = ivf_candidates(cl, aux, qn, top_c, kk)
+    ps, psl = ivf_candidates_plain(cl, aux, qn, top_c, kk)
+    torch.cuda.synchronize()
+    assert launch_counts["ivf_candidates"] == n0 + 1
+    assert s.shape == sl.shape == (B, kk) and sl.dtype == torch.int32
+    s, sl, psl = _assert_select_matches(s, sl, ps, psl, B)
+    assert (np.diff(s, axis=1) <= 0).all()
+    # the three-way tie across probes 0 and 1 goes to the lowest p*C + c
+    for b in range(B):
+        np.testing.assert_array_equal(sl[b, :3], psl[b, :3])
+        np.testing.assert_array_equal(sl[b, :3], 4096 + 3 * b + np.arange(3))

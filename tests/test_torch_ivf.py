@@ -1,6 +1,8 @@
 """IVF path: kernels B and C's plain versions against the Pallas kernels in
-interpret mode, and `retrieve` (v3r, v1 with locations, plain gather) and
-`retrieve_auto` of the port against the JAX package on one bank.
+interpret mode, and `retrieve` (v3r, v3, v2, v1 with locations, plain
+gather) and `retrieve_auto` of the port against the JAX package on one
+bank. Kernels D and E and the rest of the v2 and v3 paths are in
+`test_torch_ivf_v2.py`.
 
 The JAX package takes its kernel branches on the CPU only with
 AURA_PALLAS_INTERPRET=1, which every JAX call in this file sets.
@@ -18,11 +20,15 @@ from aura_snn_rag_tpu.ops.pallas import ivf_scan as jivf
 from aura_snn_rag_tpu_torch.memory import engine as tengine
 from aura_snn_rag_tpu_torch.ops.cuda import ivf_scan as tivf
 from tests.test_torch_common import (
-    assert_topk_match, bank_pair, highest, queries_near, result_np)
+    assert_topk_match, bank_pair, highest, ivf_kernel_inputs, queries_near,
+    result_np, retrieve_both, spy_ivf_kernels)
 
 torch.set_num_threads(1)
 
 SCORE_TOL = 1e-5      # exact f32 rerank, dot products in another order
+# the kernel each ivf_kernel setting reaches on this bank without locations
+BRANCH_KERNEL = {"v3r": "ivf_retrieve_fused", "v3": "ivf_candidates",
+                 "v2": "ivf_topk_scores"}
 
 
 @pytest.fixture(autouse=True)
@@ -30,32 +36,8 @@ def _interpret(monkeypatch):
     monkeypatch.setenv("AURA_PALLAS_INTERPRET", "1")
 
 
-def _kernel_inputs(seed, K=32, C=256, D=128, B=3, P=4, M=4096):
-    rng = np.random.RandomState(seed)
-    cl = rng.randn(K, C, D).astype(np.float32)
-    cl /= np.linalg.norm(cl, axis=-1, keepdims=True)
-    cl16 = jnp.asarray(cl, jnp.bfloat16)
-    aux = np.zeros((K, 8, C), np.float32)
-    aux[:, 0] = rng.rand(K, C) * 0.5 + 0.25
-    aux[:, 1] = rng.rand(K, C) * 0.2
-    aux[:, 1][rng.rand(K, C) < 0.3] = -1e30                  # dead entries
-    aux[:, 2] = rng.randint(0, M, (K, C))
-    feats = rng.randn(M, D).astype(np.float32)
-    q = rng.randn(B, D).astype(np.float32)
-    qn = q / np.linalg.norm(q, axis=1, keepdims=True)
-    top_c = np.stack([rng.choice(K, P, replace=False)
-                      for _ in range(B)]).astype(np.int32)
-    jx = (cl16, jnp.asarray(aux), jnp.asarray(feats), jnp.asarray(qn),
-          jnp.asarray(top_c))
-    tx = (torch.from_numpy(np.array(cl16.astype(jnp.float32)))
-          .to(torch.bfloat16), torch.from_numpy(aux),
-          torch.from_numpy(feats), torch.from_numpy(qn),
-          torch.from_numpy(top_c))
-    return jx, tx
-
-
 def test_ivf_scan_scores_plain_matches_pallas_kernel():
-    (cl, _, _, qn, top_c), (tcl, _, _, tqn, ttop) = _kernel_inputs(0)
+    (cl, _, _, qn, top_c), (tcl, _, _, tqn, ttop) = ivf_kernel_inputs(0)
     want = np.asarray(jivf.ivf_scan_scores(cl, qn, top_c, interpret=True))
     got = tivf.ivf_scan_scores(tcl, tqn, ttop).numpy()
     # bf16 x bf16 products summed in f32 in another order
@@ -64,7 +46,7 @@ def test_ivf_scan_scores_plain_matches_pallas_kernel():
 
 @pytest.mark.parametrize("kk,k,B", [(128, 10, 3), (256, 5, 2)])
 def test_ivf_retrieve_fused_plain_matches_pallas_kernel(kk, k, B):
-    jx, tx = _kernel_inputs(kk + k, B=B)
+    jx, tx = ivf_kernel_inputs(kk + k, B=B)
     with highest():
         js, jsl = (np.asarray(x) for x in jivf.ivf_retrieve_fused(
             *jx, kk, k, interpret=True))
@@ -79,31 +61,32 @@ def test_ivf_retrieve_fused_plain_matches_pallas_kernel(kk, k, B):
     assert (ts[:, k:] == -1e30).all() and (tsl[:, k:] == -1).all()
 
 
-def _retrieve_both(jcfg, tcfg, js, ts, q, qloc, k):
-    with highest():
-        jr = result_np(jengine.retrieve(
-            jcfg, js, jnp.asarray(q),
-            None if qloc is None else jnp.asarray(qloc), k))
-    tr = result_np(port.retrieve(
-        tcfg, ts, torch.from_numpy(q),
-        None if qloc is None else torch.from_numpy(qloc), k))
-    return jr, tr
-
-
 @pytest.mark.parametrize("kernel,with_loc,k", [
     ("v3r", False, 10),         # kernel B
     ("v3r", False, 40),         # kk = 160 -> 256-wide funnel
     ("v3r", True, 10),          # kernel C (v1) with locations
     (None, False, 10),          # plain gather path
     (None, True, 5),
+    ("v2", False, 10),          # kernel E, per_k = 32
+    ("v2", False, 40),          # per_k = 40
+    ("v3", False, 10),          # kernel D, kk = 128
+    ("v3", False, 40),          # kk = 160 -> 256 lanes
+    ("v2", True, 5),            # with locations every ivf_kernel takes v1
+    ("v3", True, 5),
 ])
-def test_retrieve_matches(kernel, with_loc, k):
+def test_retrieve_matches(monkeypatch, kernel, with_loc, k):
+    """The port takes the JAX package's branch (the kernel wrapper it
+    calls) and returns the JAX package's top-k from it."""
     kw = {"ivf_kernel": kernel} if kernel else {"use_pallas_ivf": False}
     jcfg, tcfg, js, ts, feats = bank_pair("bf16", **kw)
     q = queries_near(feats, 21, 6)
     qloc = (np.random.RandomState(22).randn(6, 2).astype(np.float32) * 3
             if with_loc else None)
-    jr, tr = _retrieve_both(jcfg, tcfg, js, ts, q, qloc, k)
+    calls = spy_ivf_kernels(monkeypatch)
+    jr, tr = retrieve_both(jcfg, tcfg, js, ts, q, qloc, k)
+    want = [] if kernel is None else [
+        "ivf_scan_scores" if with_loc else BRANCH_KERNEL[kernel]]
+    assert calls == want
     assert_topk_match(tr[0], tr[1], jr[0], jr[1], SCORE_TOL)
     same = tr[0] == jr[0]
     np.testing.assert_array_equal(tr[2][same], jr[2][same])
@@ -126,7 +109,7 @@ def test_retrieve_reaches_annexed_rows():
     annexed = np.asarray(js.cluster_slot[-G:]).reshape(-1)
     annexed = annexed[annexed >= 0][:6]
     assert len(annexed) == 6
-    jr, tr = _retrieve_both(jcfg, tcfg, js, ts, feats[annexed], None, 3)
+    jr, tr = retrieve_both(jcfg, tcfg, js, ts, feats[annexed], None, 3)
     np.testing.assert_array_equal(tr[0][:, 0], annexed)
     assert_topk_match(tr[0], tr[1], jr[0], jr[1], SCORE_TOL)
 
@@ -154,16 +137,6 @@ def test_retrieve_auto_without_index_is_bruteforce():
     a = port.retrieve_auto(tcfg, st, q, None, 5)
     b = port.retrieve_bruteforce(tcfg, st, q, None, 5)
     assert torch.equal(a.indices, b.indices)
-
-
-@pytest.mark.parametrize("kernel", ["v2", "v3"])
-def test_unported_ivf_kernels_raise(kernel):
-    _, tcfg, _, ts, feats = bank_pair("bf16", ivf_kernel=kernel)
-    with pytest.raises(NotImplementedError):
-        port.retrieve(tcfg, ts, torch.from_numpy(feats[:2]), None, 5)
-    # with locations the v1 kernel serves every ivf_kernel setting
-    loc = torch.zeros(2, 2)
-    port.retrieve(tcfg, ts, torch.from_numpy(feats[:2]), loc, 5)
 
 
 def test_build_ivf_aux_matches():
