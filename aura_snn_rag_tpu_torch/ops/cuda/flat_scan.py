@@ -100,6 +100,9 @@ def flat_blockmax(bank: torch.Tensor, q: torch.Tensor, mul: torch.Tensor,
         raise ValueError(f"flat_blockmax: q {tuple(q.shape)} {q.dtype}")
     if D % 64:
         raise ValueError(f"flat_blockmax: D={D} must be a multiple of 64")
+    if M >= 2 ** 31 or B >= 2 ** 31:
+        raise ValueError(f"flat_blockmax: M={M}, B={B} past the kernel's "
+                         "32-bit TMA row coordinates")
     for name, t in (("mul", mul), ("add", add)):
         if t.dtype != torch.float32 or t.numel() < nb * BLOCK_R:
             raise ValueError(f"flat_blockmax: {name} {t.dtype} {t.numel()}")

@@ -10,7 +10,10 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
    full-width shapes on random inputs, each held against its plain
    PyTorch version on the same inputs and timed with CUDA events beside
    the plain version, a PyTorch library yardstick where one exists, and
-   the least time the card could take (`bound_ms`);
+   the least time the card could take (`bound_ms`); for kernel A also a
+   ~2 s sustained run with the SM clock and power draw sampled, and at
+   int8 the bare `torch._int_mm` product without its epilogue (context
+   for how close A comes to cuBLAS's GEMM, not the yardstick);
 2. engine phase: the episodic-memory engine in bench.py's configuration
    (1,000,000 x 768, K = 4096, probe 64, int8 coarse bank): bulk_load,
    write_memories, rebuild_centroids, a write on the live index, then
@@ -102,6 +105,53 @@ def time_ms(fns, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def sustained(fn, seconds=2.0):
+    """fn run back to back for about `seconds`: (ms per call, SM clock MHz
+    (min, max), power W (min, max)), the clock and power sampled with
+    nvidia-smi meanwhile, over the last two thirds of the window (None
+    where nvidia-smi gave nothing). Shows whether the card held its clock
+    or its power limit set the pace."""
+    import threading
+    import torch
+    samples, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            try:
+                r = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                     "--format=csv,noheader,nounits"], capture_output=True,
+                    text=True, timeout=30)
+                samples.append(tuple(float(v) for v in
+                                     r.stdout.splitlines()[0].split(",")))
+            except (OSError, subprocess.SubprocessError, IndexError,
+                    ValueError):
+                pass
+            time.sleep(0.2)
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    n = max(10, int(seconds / (time.perf_counter() - t0)))
+    thread = threading.Thread(target=sample)
+    thread.start()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    stop.set()
+    thread.join()
+    tail = samples[len(samples) // 3:]
+    span = [(min(v), max(v)) if v else None
+            for v in zip(*tail)] if tail else [None, None]
+    return start.elapsed_time(end) / n, span[0], span[1]
+
+
 def bound_ms(nbytes, ops, kind):
     t_bytes = nbytes / PEAK_BYTES_S
     t_ops = ops / PEAK_OPS_S[kind]
@@ -145,10 +195,13 @@ def kernel_A(dev, gen, M, D, cases):
         err = (got - want).abs().max().item()
         # int8: exact integer sums and the same f32 epilogue; bf16: f32
         # sums of exact products in another order
-        tol = 1e-6 if dtype == "int8" else 1e-5
+        tol = 0.0 if dtype == "int8" else 1e-5
         check(err <= tol, f"flat_blockmax {dtype} B={B}: err {err} > {tol}")
         del got, want
         ms = time_ms([lambda s=s: flat_blockmax(*s) for s in sets])
+        s_ms, clock, power = sustained(lambda: flat_blockmax(*sets[0]))
+        log(f"kernel flat_blockmax {dtype} B={B}: sustained for ~2 s "
+            f"{s_ms:.4f} ms/call, SM clock {clock} MHz, power {power} W")
         plain_ms = time_ms([lambda s=s: flat_blockmax_plain(*s)
                             for s in sets], iters=3, warmup=1)
         # yardstick: the library product (`_int_mm` / bf16 `matmul`), then
@@ -168,6 +221,13 @@ def kernel_A(dev, gen, M, D, cases):
                 return comb.reshape(B, -1, BLOCK_R).amax(-1)
         lib_ms = time_ms([lambda s=s: library(s) for s in sets],
                          iters=3, warmup=1)
+        if dtype == "int8":
+            # context, not the yardstick: cuBLAS's int8 GEMM alone, without
+            # the epilogue and with its [B, M] int32 output
+            gemm_ms = time_ms([lambda s=s: _int8_matmul(s[1], s[0])
+                               for s in sets], iters=3, warmup=1)
+            log(f"kernel flat_blockmax int8 B={B}: bare _int_mm product "
+                f"ms={gemm_ms:.4f}")
         elem = 1 if dtype == "int8" else 2
         nbytes = (M * D * elem + 2 * 4 * M + B * D * elem
                   + 4 * B * (M // BLOCK_R))

@@ -51,11 +51,28 @@ def _flat_inputs(rng, M, D, B, int8):
             torch.from_numpy(q).to(torch.bfloat16), mul, add, None)
 
 
-@pytest.mark.parametrize("int8", [True, False])
-@pytest.mark.parametrize("M,D,B", [(4096, 128, 70), (1029, 768, 5)])
-def test_flat_blockmax_kernel_matches_plain(dev, int8, M, D, B):
+# The kernel's tiles are 128 queries x 256 bank rows x 128 bytes of depth.
+# B = 300 crosses query tiles and ends ragged, B = 1 and 8 leave a consumer
+# warpgroup idle; M = 4104 and 769 end one row group into a bank tile, with
+# an output row length nb that is not a multiple of 4 (scalar stores);
+# 4128 ends ragged with 16-byte stores; D = 192 leaves a partial
+# 128-byte box in depth at int8, and D = 64 at int8 a box wider than the
+# rows.
+@pytest.mark.parametrize("int8,M,D,B,variant", [
+    (int8, M, D, B, "") for int8 in (True, False)
+    for M, D, B in [(4096, 128, 70), (1029, 768, 5), (4104, 192, 1),
+                    (769, 768, 8), (4128, 768, 300), (769, 192, 300),
+                    (1029, 64, 70)]] + [
+    (True, 4096, 128, 8, "no_q_scale"),
+    (True, 2048, 768, 70, "dead_first_tile"),
+    (False, 2048, 768, 70, "dead_first_tile")])
+def test_flat_blockmax_kernel_matches_plain(dev, int8, M, D, B, variant):
     bank, q, mul, add, qs = _flat_inputs(np.random.RandomState(M + B),
                                          M, D, B, int8)
+    if variant == "no_q_scale":
+        qs = None
+    if variant == "dead_first_tile":
+        add[:256] = -1e30
     mul_p, add_p = pack_row_terms(torch.from_numpy(mul),
                                   torch.from_numpy(add), M)
     args = [t.to(dev) if t is not None else None

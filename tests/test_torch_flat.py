@@ -20,12 +20,16 @@ torch.set_num_threads(1)
 SCORE_TOL = 1e-5
 
 
+# (4100, 192): M ragged against both kernels' tiles and 8-row blocks, D
+# not a multiple of 128
+@pytest.mark.parametrize("M,D", [(4096, 128), (4100, 192)])
 @pytest.mark.parametrize("int8", [True, False])
-def test_flat_blockmax_plain_matches_pallas_kernel(int8):
+def test_flat_blockmax_plain_matches_pallas_kernel(int8, M, D):
     """Both against the same per-row scores: the TPU kernel's strided
-    blocks mapped through `block_member_slots`, the port's contiguous."""
-    rng = np.random.RandomState(int(int8))
-    M, D, B, tile = 4096, 128, 5, 1024
+    blocks mapped through `block_member_slots`, the port's contiguous;
+    rows past M count as -1e30 in both."""
+    rng = np.random.RandomState(int(int8) + M - 4096)
+    B, tile = 5, 1024
     x = rng.randn(M, D).astype(np.float32)
     x /= np.linalg.norm(x, axis=1, keepdims=True)
     q = rng.randn(B, D).astype(np.float32)
@@ -68,7 +72,10 @@ def test_flat_blockmax_plain_matches_pallas_kernel(int8):
     mul_p, add_p = tflat.pack_row_terms(torch.from_numpy(mul),
                                         torch.from_numpy(add), M)
     tout = tflat.flat_blockmax(tbank, tq, mul_p, add_p, tqs).numpy()
-    contig = tflat.block_member_slots(torch.arange(M // 8)).numpy()
+    contig = tflat.block_member_slots(torch.arange(-(-M // 8))).numpy()
+    n_rows = max(strided.max(), contig.max()) + 1
+    rows = np.pad(rows, ((0, 0), (0, n_rows - M)),
+                  constant_values=np.float32(-1e30))
 
     # int8: integer products exact on both sides; bf16: f32 sums of exact
     # products in another order
