@@ -28,28 +28,57 @@
 //      one warp per clustered row, 16-byte loads, f32 accumulation; writes
 //      the cosine or coarse score to a [B, P*C] scratch in device memory
 //      (L2-resident at small B);
-//   2. select pass: `select_topkk`, a radix select over 64-bit keys (score
-//      bits, then the inverted index, which encodes the lowest-index tie
-//      rule) that finds the top-kk, and a bitonic sort that orders them.
-//      B and D run it on one 1024-thread CTA per query over all P*C
-//      scores; B then reranks (one warp per candidate) and takes the final
-//      top-k. E runs it on one 256-thread CTA per (probe, query) over C.
-// The scores live in device memory, not shared memory, so C has no
-// shared-memory limit (E keeps at most 128 keys; every kernel needs
-// P*C < 2^31 for the 32-bit index in its keys); D's sorted keys do:
-// kk <= 16384 (128 KB).
+//   2. select pass: a radix select over 64-bit keys (score bits, then the
+//      inverted index, which encodes the lowest-index tie rule) that finds
+//      the top-kk, and a bitonic sort that orders them.
+//      B and D run it on a thread-block cluster of G CTAs per query
+//      (`cluster_select`): each CTA copies its contiguous share of the
+//      query's P*C scores into shared memory once, builds 256-bin
+//      histograms (8 per CTA, so the few hot bins of the top key byte
+//      contend less), pushes its sum into every CTA of the cluster
+//      through distributed shared memory (DSMEM), and every CTA finds the
+//      same digit from the G histograms with a warp suffix scan. The
+//      selected keys go into rank 0's shared memory through DSMEM (one
+//      remote atomic per warp).
+//      Up to 512 of them are put in order by counting, each key's lane
+//      its rank (one step, where a bitonic sort of 128 keys takes 28
+//      barriers); more are sorted by rank 0 (bitonic). D writes the lanes
+//      out; B reranks its kk candidates split over the G CTAs (one warp
+//      per candidate, every row load issued before the FMAs), sends the
+//      exact scores back to rank 0 through DSMEM, and rank 0 takes the
+//      final top-k by the same count over (exact score, funnel lane).
+//      G = 8 (CLUSTER), and the select launches with programmatic
+//      stream serialisation (its prologue overlaps the coarse pass's
+//      tail): on the H100 that measured faster than G = 16 and than the
+//      launch without it (PERF.md).
+//      E runs the one-CTA `select_topkk` per (probe, query) over C.
+// A share too large for shared memory is read from the L2-resident
+// scratch on every radix pass instead (the same kernel, instantiated
+// with SMEM = false), so C and P put no shared-memory limit on B and D;
+// the keys' 32-bit index does (P*C < 2^31). Rank 0's sorted keys bound
+// kk: B <= 4096, D <= 16384 (128 KB).
+// A cluster launch that the card refuses (cudaErrorClusterOutOfResources)
+// returns its error; nothing falls back to another launch.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cooperative_groups.h>
 #include <stdint.h>
-#include <limits.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int COARSE_ROWS = 64;        // clustered rows per coarse CTA
 constexpr int COARSE_THREADS = 256;
-constexpr int SEL_THREADS = 1024;      // per-query select (B, D)
+constexpr int SEL_THREADS = 512;       // per CTA of a query's cluster (B, D)
+constexpr int SEL_WARPS = SEL_THREADS / 32;
+constexpr int WHIST = 8;               // sub-histograms per CTA (B, D)
+constexpr int SEL_UNROLL = 4;          // scores per thread per batch (B, D)
+constexpr int CLUSTER = 8;            // CTAs per query's select (B, D)
+constexpr int SMEM_PROBES = 1024;      // probe ids kept in shared memory
 constexpr int TOPK_THREADS = 256;      // per-probe select (E)
+constexpr int ROW_UNROLL = 8;          // float4 loads in flight per lane (B)
 constexpr int KPAD = 128;              // lanes of E's per-probe output
 constexpr float NEG_INF_F = -1e30f;
 constexpr float DEAD = -5e29f;         // scores at or below are dead lanes
@@ -100,6 +129,10 @@ ivf_coarse_kernel(const __nv_bfloat16* __restrict__ clustered,
       out[((long)b * P + p) * C + c] = v;
     }
   }
+  // a select pass launched with programmatic stream serialisation may
+  // start once every CTA got here; it waits for the whole grid before it
+  // reads the scores
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 }
 
 // Orders (score desc, index asc) as one unsigned 64-bit key.
@@ -111,6 +144,44 @@ __device__ __forceinline__ unsigned long long sort_key(float s, unsigned idx) {
 
 __device__ __forceinline__ unsigned key_index(unsigned long long key) {
   return 0xFFFFFFFFu - (unsigned)(key & 0xFFFFFFFFull);
+}
+
+// The score a key was made from (-0 comes back as +0).
+__device__ __forceinline__ float key_score(unsigned long long key) {
+  const unsigned k = (unsigned)(key >> 32);
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
+}
+
+// Sorts a[0, n) descending in place; n a power of two. Every thread of
+// the CTA calls it; it ends on a barrier.
+__device__ __forceinline__ void bitonic_desc(unsigned long long* a, int n) {
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const int j = i ^ stride;
+        if (j > i) {
+          const bool desc = (i & size) == 0;
+          const unsigned long long x = a[i], y = a[j];
+          if (desc ? (x < y) : (x > y)) { a[i] = y; a[j] = x; }
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// How many of n entries come before entry j = threadIdx.x / T in a strict
+// order where before(i) says entry i does. The T consecutive threads of
+// entry j (T a power of two <= 32) split the count; every thread of the
+// warp calls it. With n <= blockDim.x / T entries this ranks them all in
+// one step, where a bitonic sort takes log2(n) (log2(n) + 1) / 2 barriers.
+template <typename Before>
+__device__ __forceinline__ int rank_desc(int n, int T, Before before) {
+  int r = 0;
+#pragma unroll 8
+  for (int i = (int)threadIdx.x % T; i < n; i += T) r += before(i) ? 1 : 0;
+  for (int o = 1; o < T; o <<= 1) r += __shfl_xor_sync(0xffffffffu, r, o);
+  return r;
 }
 
 struct SelectShared {
@@ -175,21 +246,169 @@ __device__ __forceinline__ void select_topkk(const float* __restrict__ sc, int N
     }
   }
   __syncthreads();
-  for (int size = 2; size <= kkp; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = tid; i < kkp; i += NT) {
-        const int j = i ^ stride;
-        if (j > i) {
-          const bool desc = (i & size) == 0;
-          const unsigned long long a = ckey[i], c = ckey[j];
-          if (desc ? (a < c) : (a > c)) { ckey[i] = c; ckey[j] = a; }
-        }
-      }
-      __syncthreads();
-    }
-  }
+  bitonic_desc(ckey, kkp);
 }
 
+struct ClusterShared {
+  unsigned whist[WHIST][256];          // histograms of one pass, a pair of
+                                       // warps to each, zero between passes
+  // every CTA's histogram of a pass, pushed here by its owner (two
+  // buffers: passes alternate)
+  unsigned hist[2][CLUSTER][256];
+  unsigned wsum[8];                    // suffix-scan totals of warps 0-7
+  int probe[SMEM_PROBES];              // the query's cluster ids, P small
+  unsigned long long prefix, mask;
+  int need, done, count;               // count: rank 0's collect cursor
+};
+
+// Leaves the kk largest keys sort_key(sc[i], i), i < N, in rank 0's
+// ckey[0, kk) in no set order, and zeros in ckey[kk, kkp). Every thread of
+// every CTA of the query's cluster calls it; it ends on a cluster
+// barrier. CTA r owns scores [r*chunk, (r+1)*chunk), chunk = ceil(N/G),
+// copied into sc_s when SMEM, else read from the scratch on every pass.
+// Returns the query's P cluster ids: st.probe when P <= SMEM_PROBES
+// (loaded before the wait on the coarse pass), else top_c in device memory.
+template <bool SMEM>
+__device__ __forceinline__ const int* cluster_select(
+    const float* __restrict__ sc, float* sc_s, int N, int kk, int kkp,
+    const int* __restrict__ top_c, int P, unsigned long long* ckey,
+    ClusterShared& st, cg::cluster_group& cluster) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned rank = cluster.block_rank();
+  const int chunk = (N + CLUSTER - 1) / CLUSTER;
+  const int lo = min(N, (int)rank * chunk);
+  const int n = min(N, lo + chunk) - lo;
+  // every CTA of the cluster must have started before distributed shared
+  // memory is touched: arrive now, wait just before the first remote store
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  if (tid == 0) {
+    st.prefix = 0ull; st.mask = 0ull; st.need = kk; st.done = 0;
+    st.count = 0;
+  }
+  if (rank == 0)
+    for (int i = tid; i < kkp; i += SEL_THREADS) ckey[i] = 0ull;
+  const bool probes_in_smem = P <= SMEM_PROBES;
+  if (probes_in_smem)
+    for (int i = tid; i < P; i += SEL_THREADS) st.probe[i] = top_c[i];
+  // the coarse pass must have finished before its scores are read
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  if (SMEM)
+    for (int i = tid; i < n; i += SEL_THREADS) sc_s[i] = sc[lo + i];
+  const float* src = SMEM ? sc_s : sc + lo;
+  for (int i = tid; i < WHIST * 256; i += SEL_THREADS)
+    (&st.whist[0][0])[i] = 0u;
+  __syncthreads();
+
+  // ---- radix select of the kk-th largest key, 8 bits per pass ----------
+  unsigned* wh = st.whist[warp % WHIST];
+  int buf = 0;
+  for (int shift = 56; shift >= 0; shift -= 8, buf ^= 1) {
+    const unsigned long long prefix = st.prefix, mask = st.mask;
+    const unsigned need = (unsigned)st.need;
+    // all loads of a batch before its atomics, which the compiler must
+    // otherwise order after each other (both are shared memory)
+    for (int i0 = tid; i0 < n; i0 += SEL_UNROLL * SEL_THREADS) {
+      float v[SEL_UNROLL];
+#pragma unroll
+      for (int u = 0; u < SEL_UNROLL; ++u) {
+        const int i = i0 + u * SEL_THREADS;
+        v[u] = i < n ? src[i] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < SEL_UNROLL; ++u) {
+        const int i = i0 + u * SEL_THREADS;
+        const unsigned long long key = sort_key(v[u], (unsigned)(lo + i));
+        if (i < n && (key & mask) == prefix)
+          atomicAdd(&wh[(unsigned)(key >> shift) & 255u], 1u);
+      }
+    }
+    __syncthreads();
+    if (shift == 56)                    // every CTA arrived at the top
+      asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+    if (tid < 256) {
+      unsigned s = 0u;
+#pragma unroll
+      for (int w = 0; w < WHIST; ++w) {
+        s += st.whist[w][tid];
+        st.whist[w][tid] = 0u;
+      }
+      // push this CTA's bin to every CTA: remote stores do not wait, where
+      // G remote loads after the barrier would, one after another
+#pragma unroll
+      for (int r = 0; r < CLUSTER; ++r)
+        *cluster.map_shared_rank(&st.hist[buf][rank][tid], r) = s;
+    }
+    // hist[buf] is complete in every CTA; the other buffer may be reused,
+    // since every CTA finished reading it before arriving here
+    cluster.sync();
+    unsigned h = 0u, suf = 0u;
+    if (tid < 256) {
+#pragma unroll
+      for (int r = 0; r < CLUSTER; ++r) h += st.hist[buf][r][tid];
+      // suffix sums over bins tid..255: within the warp, then across
+      suf = h;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned v = __shfl_down_sync(0xffffffffu, suf, o);
+        if (lane + o < 32) suf += v;
+      }
+      if (lane == 0) st.wsum[warp] = suf;
+    }
+    __syncthreads();
+    if (tid < 256) {
+      for (int w = warp + 1; w < 8; ++w) suf += st.wsum[w];
+      // the one bin where the running count crosses `need`
+      if (suf >= need && suf - h < need) {
+        const unsigned rest = need - (suf - h);
+        st.prefix = prefix | ((unsigned long long)tid << shift);
+        st.mask = mask | (255ull << shift);
+        st.need = (int)rest;
+        st.done = (h == rest);
+      }
+    }
+    __syncthreads();
+    if (st.done) break;                 // the same in every CTA
+  }
+
+  // ---- collect exactly kk keys into rank 0 ------------------------------
+  {
+    const unsigned long long prefix = st.prefix, mask = st.mask;
+    int* count0 = cluster.map_shared_rank(&st.count, 0);
+    unsigned long long* key0 = cluster.map_shared_rank(ckey, 0);
+    // one remote atomic per warp and batch reserves the places
+    const unsigned below = (1u << lane) - 1u;
+    for (int i0 = warp * 32 + lane; i0 - lane < n;
+         i0 += SEL_UNROLL * SEL_THREADS) {
+      unsigned long long key[SEL_UNROLL];
+      unsigned ball[SEL_UNROLL];
+      int total = 0;
+#pragma unroll
+      for (int u = 0; u < SEL_UNROLL; ++u) {
+        const int i = i0 + u * SEL_THREADS;
+        key[u] = i < n ? sort_key(src[i], (unsigned)(lo + i)) : 0ull;
+        ball[u] = __ballot_sync(0xffffffffu,
+                                i < n && (key[u] & mask) >= prefix);
+        total += __popc(ball[u]);
+      }
+      if (total) {
+        int pos = 0;
+        if (lane == 0) pos = atomicAdd(count0, total);
+        pos = __shfl_sync(0xffffffffu, pos, 0);
+#pragma unroll
+        for (int u = 0; u < SEL_UNROLL; ++u) {
+          const int at = pos + __popc(ball[u] & below);
+          if (((ball[u] >> lane) & 1u) && at < kkp) key0[at] = key[u];
+          pos += __popc(ball[u]);
+        }
+      }
+    }
+  }
+  cluster.sync();
+  return probes_in_smem ? st.probe : top_c;
+}
+
+// Kernel B's select pass: a cluster of G CTAs per query (grid B*G).
+template <bool SMEM>
 __global__ void __launch_bounds__(SEL_THREADS)
 ivf_select_rerank_kernel(const float* __restrict__ scores,
                          const float* __restrict__ aux,
@@ -202,95 +421,130 @@ ivf_select_rerank_kernel(const float* __restrict__ scores,
   extern __shared__ __align__(16) unsigned char dyn[];
   unsigned long long* ckey = reinterpret_cast<unsigned long long*>(dyn);  // [kkp]
   float* sq = reinterpret_cast<float*>(ckey + kkp);                       // [D]
-  float* ca0 = sq + D;                                                    // [kk]
-  float* ca1 = ca0 + kk;
-  float* cex = ca1 + kk;
-  int* cslot = reinterpret_cast<int*>(cex + kk);
-  int* ctaken = cslot + kk;
-  __shared__ SelectShared st;
-
-  const int tid = threadIdx.x;
-  const int b = blockIdx.x;
+  float* cex = sq + D;                                                    // [kk]
+  int* cslot = reinterpret_cast<int*>(cex + kk);                          // [kk]
+  float* sc_s = reinterpret_cast<float*>(cslot + kk);                     // [chunk]
+  __shared__ ClusterShared st;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b = blockIdx.x / CLUSTER;
   const float* sc = scores + (long)b * P * C;
   for (int d = tid; d < D; d += SEL_THREADS) sq[d] = qn[(long)b * D + d];
-  select_topkk<SEL_THREADS>(sc, P * C, kk, kkp, ckey, st);
-
-  // ---- candidate metadata; dead lanes get a0 = 0, a1 = -1e30 -----------
-  for (int j = tid; j < kk; j += SEL_THREADS) {
-    const unsigned idx = key_index(ckey[j]);
-    const float s = sc[idx];
-    const int p = idx / C, c = idx % C;
-    const float* a = aux + (long)top_c[b * P + p] * 8 * C;
-    const bool live = s > DEAD;
-    ca0[j] = live ? a[c] : 0.f;
-    ca1[j] = live ? a[C + c] : NEG_INF_F;
-    cslot[j] = live ? (int)a[2 * C + c] : -1;
-    ctaken[j] = 0;
+  const int* probe = cluster_select<SMEM>(sc, sc_s, P * C, kk, kkp,
+                                         top_c + (long)b * P, P, ckey, st,
+                                         cluster);
+  // up to SEL_THREADS candidates are ranked at the end without a sort;
+  // more are sorted first, so that their index j is their funnel lane
+  const bool by_rank = kkp <= SEL_THREADS;
+  if (!by_rank) {
+    if (rank == 0) bitonic_desc(ckey, kkp);
+    cluster.sync();
   }
-  __syncthreads();
 
-  // ---- exact f32 rerank, one warp per candidate ------------------------
-  const int warp = tid / 32, lane = tid % 32;
-  for (int j = warp; j < kk; j += SEL_THREADS / 32) {
-    const int slot = cslot[j];
+  // ---- exact f32 rerank of this CTA's share, one warp per candidate ----
+  // dead lanes get a0 = 0, a1 = -1e30, slot -1 and are not reranked
+  const unsigned long long* key0 = cluster.map_shared_rank(ckey, 0);
+  float* cex0 = cluster.map_shared_rank(cex, 0);
+  int* cslot0 = cluster.map_shared_rank(cslot, 0);
+  const int per = (kk + CLUSTER - 1) / CLUSTER;
+  const int j1 = min(kk, (rank + 1) * per);
+  const int nch = D / 4;
+  for (int j = rank * per + warp; j < j1; j += SEL_WARPS) {
+    // the score from the key and the three aux rows at once: the chain of
+    // dependent loads is the key, the probe's cluster id, aux, the row
+    const unsigned long long key = key0[j];
+    const unsigned idx = key_index(key);
+    const int p = idx / C, c = idx % C;
+    const float* a = aux + (long)probe[p] * 8 * C;
+    const float a0 = a[c], a1 = a[C + c], a2 = a[2 * C + c];
+    const int slot = key_score(key) > DEAD ? (int)a2 : -1;
     float ex = NEG_INF_F;
     if (slot >= 0) {
       const long r = slot < M ? slot : M - 1;
       const float4* row = reinterpret_cast<const float4*>(features + r * D);
       float dot = 0.f, n2 = 0.f;
-      for (int ch = lane; ch < D / 4; ch += 32) {
-        const float4 v = row[ch];
-        dot = fmaf(v.x, sq[4 * ch], dot);
-        dot = fmaf(v.y, sq[4 * ch + 1], dot);
-        dot = fmaf(v.z, sq[4 * ch + 2], dot);
-        dot = fmaf(v.w, sq[4 * ch + 3], dot);
-        n2 = fmaf(v.x, v.x, n2);
-        n2 = fmaf(v.y, v.y, n2);
-        n2 = fmaf(v.z, v.z, n2);
-        n2 = fmaf(v.w, v.w, n2);
+      // the same per-lane order as one load at a time: ch = lane + 32 t
+      for (int ch0 = lane; ch0 < nch; ch0 += 32 * ROW_UNROLL) {
+        float4 v[ROW_UNROLL];
+#pragma unroll
+        for (int u = 0; u < ROW_UNROLL; ++u) {
+          const int ch = ch0 + 32 * u;
+          if (ch < nch) v[u] = __ldg(row + ch);
+        }
+#pragma unroll
+        for (int u = 0; u < ROW_UNROLL; ++u) {
+          const int ch = ch0 + 32 * u;
+          if (ch < nch) {
+            dot = fmaf(v[u].x, sq[4 * ch], dot);
+            dot = fmaf(v[u].y, sq[4 * ch + 1], dot);
+            dot = fmaf(v[u].z, sq[4 * ch + 2], dot);
+            dot = fmaf(v[u].w, sq[4 * ch + 3], dot);
+            n2 = fmaf(v[u].x, v[u].x, n2);
+            n2 = fmaf(v[u].y, v[u].y, n2);
+            n2 = fmaf(v[u].z, v[u].z, n2);
+            n2 = fmaf(v[u].w, v[u].w, n2);
+          }
+        }
       }
       dot = warp_sum(dot);
       n2 = warp_sum(n2);
       const float cos = __fmul_rn(dot, rsqrtf(__fadd_rn(n2, 1e-12f)));
-      ex = __fadd_rn(__fmul_rn(ca0[j], cos), ca1[j]);
+      ex = __fadd_rn(__fmul_rn(a0, cos), a1);
     }
-    if (lane == 0) cex[j] = ex;
+    if (lane == 0) {
+      cex0[j] = ex;
+      cslot0[j] = slot;
+    }
   }
-  __syncthreads();
+  cluster.sync();
+  if (rank != 0) return;
 
-  // ---- final top-k, ties to the lower funnel lane ----------------------
-  if (warp == 0) {
-    for (int t = 0; t < k; ++t) {
-      float bv = -INFINITY;
-      int bj = INT_MAX;
-      for (int j = lane; j < kk; j += 32) {
-        const float v = cex[j];
-        if (!ctaken[j] && (v > bv || (v == bv && j < bj))) { bv = v; bj = j; }
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-        const int oj = __shfl_xor_sync(0xffffffffu, bj, o);
-        if (ov > bv || (ov == bv && oj < bj)) { bv = ov; bj = oj; }
-      }
-      if (lane == 0) {
-        const bool hit = bj < kk && bv > DEAD;
-        if (bj < kk) ctaken[bj] = 1;
-        out_s[(long)b * kpad + t] = hit ? bv : NEG_INF_F;
-        out_slot[(long)b * kpad + t] = hit ? cslot[bj] : -1;
-      }
-      __syncwarp();
+  // ---- final top-k on rank 0, ties to the lower funnel lane ------------
+  if (by_rank) {
+    // the lower funnel lane is the larger coarse key
+    const int T = min(32, SEL_THREADS / kkp);
+    const int j = tid / T;
+    const bool valid = j < kk;
+    const float ej = valid ? cex[j] : 0.f;
+    const unsigned long long kj = valid ? ckey[j] : 0ull;
+    const int r = rank_desc(kk, T, [&](int i) {
+      const float ei = cex[i];
+      const unsigned long long ki = ckey[i];
+      return (ei > ej) | ((ei == ej) & (ki > kj));
+    });
+    if (valid && tid % T == 0 && r < k) {
+      const bool hit = ej > DEAD;
+      out_s[(long)b * kpad + r] = hit ? ej : NEG_INF_F;
+      out_slot[(long)b * kpad + r] = hit ? cslot[j] : -1;
     }
-    for (int t = k + lane; t < kpad; t += 32) {
+    for (int t = k + tid; t < kpad; t += SEL_THREADS) {
       out_s[(long)b * kpad + t] = NEG_INF_F;
       out_slot[(long)b * kpad + t] = -1;
     }
+    return;
+  }
+  for (int j = tid; j < kkp; j += SEL_THREADS)
+    ckey[j] = j < kk ? sort_key(cex[j], (unsigned)j) : 0ull;
+  __syncthreads();
+  bitonic_desc(ckey, kkp);
+  for (int t = tid; t < kpad; t += SEL_THREADS) {
+    float s = NEG_INF_F;
+    int slot = -1;
+    if (t < k) {
+      const unsigned j = key_index(ckey[t]);
+      if (cex[j] > DEAD) { s = cex[j]; slot = cslot[j]; }
+    }
+    out_s[(long)b * kpad + t] = s;
+    out_slot[(long)b * kpad + t] = slot;
   }
 }
 
-// Kernel D's select pass: one CTA per query. Every lane holds its entry's
-// coarse score and bank slot as they are; a dead entry (score <= -5e29)
-// fills lanes once the live ones run out, and the caller masks it.
+// Kernel D's select pass: a cluster of G CTAs per query. Every lane holds
+// its entry's coarse score and bank slot as they are; a dead entry
+// (score <= -5e29) fills lanes once the live ones run out, and the caller
+// masks it.
+template <bool SMEM>
 __global__ void __launch_bounds__(SEL_THREADS)
 ivf_candidates_select_kernel(const float* __restrict__ scores,
                              const float* __restrict__ aux,
@@ -300,17 +554,41 @@ ivf_candidates_select_kernel(const float* __restrict__ scores,
                              int kkp) {
   extern __shared__ __align__(16) unsigned char dyn[];
   unsigned long long* ckey = reinterpret_cast<unsigned long long*>(dyn);  // [kkp]
-  __shared__ SelectShared st;
-  const int b = blockIdx.x;
+  float* sc_s = reinterpret_cast<float*>(ckey + kkp);                     // [chunk]
+  __shared__ ClusterShared st;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / CLUSTER;
   const float* sc = scores + (long)b * P * C;
-  select_topkk<SEL_THREADS>(sc, P * C, kk, kkp, ckey, st);
-  for (int j = threadIdx.x; j < kk; j += SEL_THREADS) {
-    const unsigned idx = key_index(ckey[j]);
+  const int* probe = cluster_select<SMEM>(sc, sc_s, P * C, kk, kkp,
+                                         top_c + (long)b * P, P, ckey, st,
+                                         cluster);
+  auto write_lane = [&](int lane, unsigned long long key) {
+    const unsigned idx = key_index(key);
     const int p = idx / C, c = idx % C;
-    out_s[(long)b * kk + j] = sc[idx];
-    out_slot[(long)b * kk + j] =
-        (int)aux[((long)top_c[b * P + p] * 8 + 2) * C + c];
+    out_s[(long)b * kk + lane] = sc[idx];
+    out_slot[(long)b * kk + lane] =
+        (int)aux[((long)probe[p] * 8 + 2) * C + c];
+  };
+  if (kkp <= SEL_THREADS) {
+    // rank 0 alone: each key's lane is its rank, with no sort and no
+    // further cluster barrier
+    if (rank != 0) return;
+    const int T = min(32, SEL_THREADS / kkp);
+    const int j = threadIdx.x / T;
+    const bool valid = j < kk;
+    const unsigned long long kj = valid ? ckey[j] : 0ull;
+    const int r = rank_desc(kk, T, [&](int i) { return ckey[i] > kj; });
+    if (valid && threadIdx.x % T == 0) write_lane(r, kj);
+    return;
   }
+  if (rank == 0) bitonic_desc(ckey, kkp);
+  cluster.sync();
+  const unsigned long long* key0 = cluster.map_shared_rank(ckey, 0);
+  for (int j = rank * SEL_THREADS + threadIdx.x; j < kk;
+       j += CLUSTER * SEL_THREADS)
+    write_lane(j, key0[j]);
+  cluster.sync();                 // rank 0's keys outlive every reader
 }
 
 // Kernel E's select pass: one CTA per (probe, query). Lanes < k as in D,
@@ -346,15 +624,6 @@ int pow2_at_least(int n) {
   return p;
 }
 
-// Opts in to more than 48 KB of dynamic shared memory where needed.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-}
-
 template <bool WITH_AUX>
 cudaError_t launch_coarse(const void* clustered, const float* aux,
                           const float* qn, const int* top_c, float* out,
@@ -364,6 +633,56 @@ cudaError_t launch_coarse(const void* clustered, const float* aux,
       static_cast<const __nv_bfloat16*>(clustered), aux, qn, top_c, out, C,
       D, P);
   return cudaGetLastError();
+}
+
+// Launches a select kernel on a cluster of CLUSTER CTAs per query (grid
+// B * CLUSTER), with programmatic stream serialisation after the coarse
+// pass: `in_smem` when a CTA's share of the N scores fits in shared memory
+// beside `fixed` bytes, else `in_l2`, which reads them from the scratch.
+// Returns the launch's error; nothing retries another way.
+template <typename Kernel, typename... Args>
+cudaError_t launch_select(Kernel in_smem, Kernel in_l2, size_t fixed, int N,
+                          int B, cudaStream_t s, Args... args) {
+  static int optin = 0;                // per-block limit, static + dynamic
+  static size_t static_smem = 0;
+  cudaError_t err = cudaSuccess;
+  if (optin == 0) {
+    int dev = 0;
+    cudaFuncAttributes fa;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, in_smem);
+    if (err != cudaSuccess) { optin = 0; cudaGetLastError(); return err; }
+    static_smem = fa.sharedSizeBytes;
+  }
+  const size_t share = (size_t)((N + CLUSTER - 1) / CLUSTER) * sizeof(float);
+  const bool fits = static_smem + fixed + share <= (size_t)optin;
+  const Kernel kernel = fits ? in_smem : in_l2;
+  const size_t smem = fixed + (fits ? share : 0);
+  // the 48 KB default counts the static ClusterShared too: always opt in
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) { cudaGetLastError(); return err; }
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * CLUSTER);
+  cfg.blockDim = dim3(SEL_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  // read and clear the launch's error, so the next launch does not see it
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
 }
 
 }  // namespace
@@ -386,13 +705,13 @@ extern "C" int ivf_retrieve_fused_launch(
                                         D, B, P, s);
   if (err != cudaSuccess) return (int)err;
   const int kkp = pow2_at_least(kk);
-  const size_t smem = (size_t)kkp * 8 + (size_t)D * 4 + (size_t)kk * 4 * 5;
-  err = allow_smem(ivf_select_rerank_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  ivf_select_rerank_kernel<<<B, SEL_THREADS, smem, s>>>(
-      scratch, aux, top_c, features, qn, out_s, out_slot, C, P, D, M, kk, kkp,
-      k, kpad);
-  return (int)cudaGetLastError();
+  // rank 0's keys, the query, the exact scores and slots of the kk lanes
+  const size_t fixed = (size_t)kkp * 8 + (size_t)D * 4 + (size_t)kk * 8;
+  return (int)launch_select(ivf_select_rerank_kernel<true>,
+                            ivf_select_rerank_kernel<false>, fixed, P * C, B,
+                            s, (const float*)scratch, aux, top_c, features,
+                            qn, out_s, out_slot, C, P, D, M, kk, kkp, k,
+                            kpad);
 }
 
 extern "C" int ivf_candidates_launch(const void* clustered, const float* aux,
@@ -405,12 +724,11 @@ extern "C" int ivf_candidates_launch(const void* clustered, const float* aux,
                                         D, B, P, s);
   if (err != cudaSuccess) return (int)err;
   const int kkp = pow2_at_least(kk);
-  const size_t smem = (size_t)kkp * 8;
-  err = allow_smem(ivf_candidates_select_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  ivf_candidates_select_kernel<<<B, SEL_THREADS, smem, s>>>(
-      scratch, aux, top_c, out_s, out_slot, C, P, kk, kkp);
-  return (int)cudaGetLastError();
+  return (int)launch_select(ivf_candidates_select_kernel<true>,
+                            ivf_candidates_select_kernel<false>,
+                            (size_t)kkp * 8, P * C, B, s,
+                            (const float*)scratch, aux, top_c, out_s,
+                            out_slot, C, P, kk, kkp);
 }
 
 extern "C" int ivf_topk_scores_launch(const void* clustered, const float* aux,

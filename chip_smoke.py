@@ -13,12 +13,19 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
    the least time the card could take (`bound_ms`); for kernel A also a
    ~2 s sustained run with the SM clock and power draw sampled, and at
    int8 the bare `torch._int_mm` product without its epilogue (context
-   for how close A comes to cuBLAS's GEMM, not the yardstick);
+   for how close A comes to cuBLAS's GEMM, not the yardstick). B-E run
+   at B = 1 and 8 (C alone is their shared coarse pass, so B - C and
+   D - C are the select passes' time); besides their CUDA-event time
+   over back-to-back calls (`ms`, which the host's enqueue rate can set
+   at B = 1) they are timed by CUDA-graph replay (`graph_ms`, device
+   time). Then `torch.topk` of 128 over [B, 32768] as context for the
+   select;
 2. engine phase: the episodic-memory engine in bench.py's configuration
    (1,000,000 x 768, K = 4096, probe 64, int8 coarse bank): bulk_load,
    write_memories, rebuild_centroids, a write on the live index, then
    retrieve_flat (scan and blockmax, B = 1024), retrieve_auto with
-   ivf_kernel v3r, v2 and v3 (IVF, B = 1 and 8) and retrieve with
+   ivf_kernel v3r, v2 and v3 (IVF, B = 1 and 8; in that order and again
+   in the reverse order, keys ending "_rev") and retrieve with
    locations (IVF v1, B = 8), with recall@10 against the port's exact
    brute force over 1024 queries;
 3. host-API phase: HippocampalFormation(max_memories=65_536) written in
@@ -103,6 +110,33 @@ def time_ms(fns, iters=10, warmup=2):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fns, iters=20, replays=5):
+    """Mean device ms per call: `iters` calls cycling through `fns`,
+    captured once in a CUDA graph and replayed `replays` times between
+    CUDA events. Unlike time_ms, the host's enqueue rate (Python, ctypes
+    and allocations, tens of microseconds per call) cannot set the pace,
+    which it does for the IVF kernels at B = 1."""
+    import torch
+    fns = list(fns)
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def sustained(fn, seconds=2.0):
@@ -277,7 +311,7 @@ def check_slots(name, s, sl, ps, psl):
                       f"{name} slot mismatch row={r} lane={j}")
 
 
-def kernel_B_C(ivf, K, C, D, M, P, kk, k, cases_B, B_C):
+def kernel_B_C(ivf, K, C, D, M, P, kk, k, cases_B, cases_C):
     import numpy as np
     import torch
     from aura_snn_rag_tpu_torch.ops.cuda.ivf_scan import (
@@ -301,8 +335,9 @@ def kernel_B_C(ivf, K, C, D, M, P, kk, k, cases_B, B_C):
         check(err <= 1e-5, f"ivf_retrieve_fused B={B}: err {err}")
         check_slots("ivf_retrieve_fused", s[:, :k], sl[:, :k], ps[:, :k],
                     psl[:, :k])
-        ms = time_ms([lambda q=q, t=t: ivf_retrieve_fused(
-            cl, aux, feats, q, t, kk, k) for q, t in bsets], iters=20)
+        calls = [lambda q=q, t=t: ivf_retrieve_fused(
+            cl, aux, feats, q, t, kk, k) for q, t in bsets]
+        ms, g_ms = time_ms(calls, iters=20), graph_ms(calls)
         plain_ms = time_ms([lambda q=q, t=t: ivf_retrieve_fused_plain(
             cl, aux, feats, q, t, kk, k) for q, t in bsets], iters=4,
             warmup=1)
@@ -317,32 +352,36 @@ def kernel_B_C(ivf, K, C, D, M, P, kk, k, cases_B, B_C):
         ops = B * 2 * P * C * D + n_live * 4 * D
         b_ms, b_by = bound_ms(nbytes, ops, "bf16")
         res[("ivf_retrieve_fused", B)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-            bound_ms=b_ms, bound_by=b_by)
+            max_abs_err=err, ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
+            library_ms=None, bound_ms=b_ms, bound_by=b_by)
         log(f"kernel ivf_retrieve_fused B={B} K={K} C={C} P={P} D={D} "
             f"kk={kk}: max_abs_err={err:.3g} ms={ms:.4f} "
+            f"graph_ms={g_ms:.4f} "
             f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
 
-    B = B_C
-    bsets = [(qn[:B].contiguous(), tc[:B].contiguous()) for qn, tc in sets]
-    got = ivf_scan_scores(cl, *bsets[0])
-    want = ivf_scan_scores_plain(cl, *bsets[0])
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    # bf16 products summed in f32 in another order
-    check(err <= 1e-5, f"ivf_scan_scores err {err}")
-    ms = time_ms([lambda q=q, t=t: ivf_scan_scores(cl, q, t)
-                  for q, t in bsets], iters=20)
-    plain_ms = time_ms([lambda q=q, t=t: ivf_scan_scores_plain(cl, q, t)
-                        for q, t in bsets], iters=4, warmup=1)
-    nbytes = B * (P * C * D * 2 + D * 4 + P * 4 + P * C * 4)
-    b_ms, b_by = bound_ms(nbytes, 2 * B * P * C * D, "bf16")
-    res[("ivf_scan_scores", B)] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-        bound_ms=b_ms, bound_by=b_by)
-    log(f"kernel ivf_scan_scores B={B} K={K} C={C} P={P} D={D}: "
-        f"max_abs_err={err:.3g} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"bound_ms={b_ms:.4f} ({b_by})")
+    for B in cases_C:
+        bsets = [(qn[:B].contiguous(), tc[:B].contiguous())
+                 for qn, tc in sets]
+        got = ivf_scan_scores(cl, *bsets[0])
+        want = ivf_scan_scores_plain(cl, *bsets[0])
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        # bf16 products summed in f32 in another order
+        check(err <= 1e-5, f"ivf_scan_scores err {err}")
+        calls = [lambda q=q, t=t: ivf_scan_scores(cl, q, t)
+                 for q, t in bsets]
+        ms, g_ms = time_ms(calls, iters=20), graph_ms(calls)
+        plain_ms = time_ms([lambda q=q, t=t: ivf_scan_scores_plain(cl, q, t)
+                            for q, t in bsets], iters=4, warmup=1)
+        nbytes = B * (P * C * D * 2 + D * 4 + P * 4 + P * C * 4)
+        b_ms, b_by = bound_ms(nbytes, 2 * B * P * C * D, "bf16")
+        res[("ivf_scan_scores", B)] = dict(
+            max_abs_err=err, ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
+            library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        log(f"kernel ivf_scan_scores B={B} K={K} C={C} P={P} D={D}: "
+            f"max_abs_err={err:.3g} ms={ms:.4f} graph_ms={g_ms:.4f} "
+            f"plain_ms={plain_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by})")
     return res
 
 
@@ -378,8 +417,9 @@ def kernel_D_E(ivf, K, C, D, P, kk, k, cases_B):
             check(err <= 1e-5, f"{name} B={B}: err {err}")
             check_slots(name, np.where(live, s, 0), np.where(live, sl, -1),
                         np.where(live, ps, 0), np.where(live, psl, -1))
-            ms = time_ms([lambda q=q, t=t: fn(cl, aux, q, t, width)
-                          for q, t in bsets], iters=20)
+            calls = [lambda q=q, t=t: fn(cl, aux, q, t, width)
+                     for q, t in bsets]
+            ms, g_ms = time_ms(calls, iters=20), graph_ms(calls)
             plain_ms = time_ms([lambda q=q, t=t: plain(cl, aux, q, t, width)
                                 for q, t in bsets], iters=4, warmup=1)
             # the probed bf16 blocks and aux rows 0-1 once, the query, the
@@ -389,12 +429,28 @@ def kernel_D_E(ivf, K, C, D, P, kk, k, cases_B):
                           + picked * 4 + lanes * 8)
             b_ms, b_by = bound_ms(nbytes, B * 2 * P * C * D, "bf16")
             res[(name, B)] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=b_ms, bound_by=b_by)
+                max_abs_err=err, ms=ms, graph_ms=g_ms,
+                plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by)
             log(f"kernel {name} B={B} K={K} C={C} P={P} D={D} "
                 f"width={width}: max_abs_err={err:.3g} ms={ms:.4f} "
+                f"graph_ms={g_ms:.4f} "
                 f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
     return res
+
+
+def topk_context(dev, gen, N, kk, cases_B):
+    """torch.topk of kk over [B, N] f32: context for the select pass of B
+    and D (N = P*C coarse scores), not their yardstick."""
+    import torch
+    out = {}
+    for B in cases_B:
+        xs = [torch.randn(B, N, device=dev, generator=gen) for _ in range(4)]
+        out[B] = time_ms([lambda x=x: torch.topk(x, kk) for x in xs],
+                         iters=20)
+        log(f"context torch.topk(k={kk}) over [{B}, {N}] f32: "
+            f"ms={out[B]:.4f}")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -470,14 +526,22 @@ def profile_paths(cfg, state, queries, reps=5):
         dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / reps
         top = sorted(events, key=lambda e: e.self_device_time_total,
                      reverse=True)[:6]
+        # the port's own kernels (coarse and select passes) in any case
+        port_rows = [e for e in events if "namespace)::" in e.key
+                     and ("ivf_" in e.key or "flat_blockmax" in e.key)]
+
+        def row(e):
+            return (e.key[:60], e.self_device_time_total / 1e3 / reps,
+                    e.count // reps)
         out[name] = dict(
             wall_ms=wall_ms, device_ms=dev_ms, busy=dev_ms / wall_ms,
-            top=[(e.key[:60], e.self_device_time_total / 1e3 / reps,
-                  e.count // reps) for e in top])
+            top=[row(e) for e in top], port=[row(e) for e in port_rows])
         log(f"profile {name}: wall {wall_ms:.3f} ms/call, device "
             f"{dev_ms:.3f} ms/call, busy {dev_ms / wall_ms:.2f}")
         for key, ms, n in out[name]["top"]:
             log(f"    {ms:9.4f} ms  x{n:<3d} {key}")
+        for key, ms, n in out[name]["port"]:
+            log(f"    port {ms:9.4f} ms  x{n:<3d} {key}")
     return out
 
 
@@ -551,25 +615,30 @@ def engine_phase(dev, cfg_kw, n_eval, n_live, profile=False):
             f"{stats[f'flat_{strategy}_qps']:.1f} QPS, recall@10 "
             f"{stats[f'flat_{strategy}_recall_at_10']:.4f}")
 
-    for kern in IVF_KERNELS:
-        c = dataclasses.replace(cfg, ivf_kernel=kern)
-        for B in (1, 8):
-            n = n_eval if B == 8 else 128
-            batches = [queries[i:i + B] for i in range(0, n, B)]
-            port.retrieve_auto(c, state, batches[0], None, TOPK)  # warm-up
-            res, dt = timed_batches(
-                lambda b: port.retrieve_auto(c, state, b, None, TOPK),
-                batches)
-            idx = torch.cat([r.indices for r in res])
-            check(torch.isfinite(torch.cat([r.scores for r in res])).all()
-                  .item(), f"ivf {kern} finite")
-            check(tuple(idx.shape) == (n, TOPK), f"ivf {kern} shape")
-            key = f"ivf_{kern}_b{B}"
-            stats[f"{key}_qps"] = n / dt
-            stats[f"{key}_recall_at_10"] = recall_at_k(idx, exact[:n])
-            log(f"engine: retrieve_auto (IVF {kern}) B={B}: "
-                f"{stats[f'{key}_qps']:.1f} QPS, recall@10 "
-                f"{stats[f'{key}_recall_at_10']:.4f} over {n} queries")
+    # each IVF path in the order v3r, v2, v3 and again in v3, v2, v3r
+    # (keys ending "_rev"), to tell an order effect from a path's own cost
+    for suffix, kerns in (("", IVF_KERNELS), ("_rev", IVF_KERNELS[::-1])):
+        for kern in kerns:
+            c = dataclasses.replace(cfg, ivf_kernel=kern)
+            for B in (1, 8):
+                n = n_eval if B == 8 else 128
+                batches = [queries[i:i + B] for i in range(0, n, B)]
+                port.retrieve_auto(c, state, batches[0], None, TOPK)
+                res, dt = timed_batches(
+                    lambda b: port.retrieve_auto(c, state, b, None, TOPK),
+                    batches)
+                idx = torch.cat([r.indices for r in res])
+                check(torch.isfinite(torch.cat([r.scores for r in res]))
+                      .all().item(), f"ivf {kern} finite")
+                check(tuple(idx.shape) == (n, TOPK), f"ivf {kern} shape")
+                key = f"ivf_{kern}_b{B}"
+                stats[f"{key}_qps{suffix}"] = n / dt
+                stats[f"{key}_recall_at_10{suffix}"] = recall_at_k(
+                    idx, exact[:n])
+                log(f"engine: retrieve_auto (IVF {kern}) B={B}{suffix}: "
+                    f"{stats[f'{key}_qps{suffix}']:.1f} QPS, recall@10 "
+                    f"{stats[f'{key}_recall_at_10{suffix}']:.4f} over {n} "
+                    f"queries")
 
     # IVF v1: with query locations (all rows sit at the origin, so the
     # spatial term is the same for every row and the ranking is cosine's)
@@ -587,8 +656,9 @@ def engine_phase(dev, cfg_kw, n_eval, n_live, profile=False):
 
     for key in ("flat_scan_recall_at_10", "flat_blockmax_recall_at_10"):
         check(stats[key] >= 0.99, f"{key} = {stats[key]} < 0.99")
-    for key in [f"ivf_{kern}_b{B}_recall_at_10" for kern in IVF_KERNELS
-                for B in (1, 8)] + ["ivf_v1_b8_recall_at_10"]:
+    for key in [f"ivf_{kern}_b{B}_recall_at_10{suffix}"
+                for kern in IVF_KERNELS for B in (1, 8)
+                for suffix in ("", "_rev")] + ["ivf_v1_b8_recall_at_10"]:
         check(stats[key] >= 0.98, f"{key} = {stats[key]} < 0.98")
     stats["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     if profile:
@@ -658,12 +728,13 @@ def main() -> int:
                      [("int8", 128), ("bf16", 128), ("int8", 1024)])
     ivf = ivf_inputs(dev, gen, s["K"], s["C"], s["D"], s["M"], s["P"], 8, 4)
     res_bc = kernel_B_C(ivf, s["K"], s["C"], s["D"], s["M"], s["P"],
-                        s["kk"], s["k"], cases_B=(1, 8), B_C=8)
+                        s["kk"], s["k"], cases_B=(1, 8), cases_C=(1, 8))
     # the engine's widths at these shapes: kk = 128 for D, and for E
     # per_k = min(max(k, ceil(kk / P)), C) = k
     res_de = kernel_D_E(ivf, s["K"], s["C"], s["D"], s["P"], s["kk"],
                         s["k"], cases_B=(1, 8))
     del ivf
+    topk_ms = topk_context(dev, gen, s["P"] * s["C"], s["kk"], (1, 8))
     torch.cuda.empty_cache()
 
     # ---- the main path: counts from zero, read after the last phase ----
@@ -683,11 +754,18 @@ def main() -> int:
                   "ivf_scan_scores": res_bc[("ivf_scan_scores", 8)],
                   "ivf_candidates": res_de[("ivf_candidates", 8)],
                   "ivf_topk_scores": res_de[("ivf_topk_scores", 8)]}
+    # the IVF kernels at B = 1 too, the single-query serving case
+    res_ivf = {**res_bc, **res_de}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
-        kernels.append(dict(name=name, route="cuda", source=src,
-                            replaces=replaces, launches=launches[name],
-                            **main_shape[name]))
+        row = dict(name=name, route="cuda", source=src, replaces=replaces,
+                   launches=launches[name], **main_shape[name])
+        if (name, 1) in res_ivf:
+            b1 = res_ivf[(name, 1)]
+            row.update(ms_b1=b1["ms"], graph_ms_b1=b1["graph_ms"],
+                       bound_ms_b1=b1["bound_ms"])
+        kernels.append(row)
+    log(json.dumps({"torch_topk_ms": topk_ms}))
     log(json.dumps({"engine": stats}))
     log(card)
     log(json.dumps({"kernels": kernels}))

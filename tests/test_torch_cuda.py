@@ -135,25 +135,6 @@ def _assert_select_matches(s, sl, ps, psl, rows):
     return s, sl, psl
 
 
-# (2, 2048, 10, 8, 128): kk = 2048 needs > 48 KB of dynamic shared memory
-# (the opt-in path); D = 72 leaves lanes idle in the row loops
-@pytest.mark.parametrize("B,kk,k,P,D", [(1, 128, 10, 4, 128),
-                                        (6, 256, 5, 4, 128),
-                                        (2, 2048, 10, 8, 128),
-                                        (3, 128, 10, 4, 72)])
-def test_ivf_retrieve_fused_kernel_matches_plain(dev, B, kk, k, P, D):
-    inputs = _ivf_inputs(np.random.RandomState(B), 32, 256, D, B, P, 4096)
-    cl, aux, feats, qn, top_c = (t.to(dev) for t in inputs)
-    s, sl = ivf_retrieve_fused(cl, aux, feats, qn, top_c, kk, k)
-    ps, psl = ivf_retrieve_fused_plain(cl, aux, feats, qn, top_c, kk, k)
-    torch.cuda.synchronize()
-    assert s.shape == ps.shape == (B, 128)
-    # exact scores (f32 dot products summed in another order), well inside
-    # the select's 1e-5
-    _assert_select_matches(s[:, :k], sl[:, :k], ps[:, :k], psl[:, :k], B)
-    assert (sl[:, k:] == -1).all() and (s[:, k:] == -1e30).all()
-
-
 def _tied_inputs(seed, C, B, P, K=40, D=128, M=4096):
     """_ivf_inputs with exact ties planted at the top of every query's
     ranking: its own direction stored three times (probe 0 at c = 2b and
@@ -170,6 +151,63 @@ def _tied_inputs(seed, C, B, P, K=40, D=128, M=4096):
             aux[cid, 0, c], aux[cid, 1, c] = 1.0, 0.5
             aux[cid, 2, c] = M + 3 * b + n
     return cl, aux, qn, top_c
+
+
+def _tied_fused_inputs(seed, C, B, P, D):
+    """_tied_inputs plus a feature bank whose planted slots M + 3b + n
+    hold query b's own direction, so the three tied candidates also tie
+    on their exact scores (1.0 * 1 + 0.5) and the final top-k orders them
+    by funnel lane, which is the flat-index order p*C + c."""
+    M = 4096
+    cl, aux, qn, top_c = _tied_inputs(seed, C, B, P, D=D, M=M)
+    rng = np.random.RandomState(seed + 1)
+    feats = rng.randn(M + 3 * B, D).astype(np.float32)
+    feats[M:] = np.repeat(qn.numpy(), 3, axis=0)
+    return cl, aux, torch.from_numpy(feats), qn, top_c
+
+
+# The select pass runs on a cluster of G CTAs per query, each over a
+# contiguous share of the P*C scores. (2, 2048, 10, 8, 256, 128): kk =
+# 2048 needs > 48 KB of dynamic shared memory (the opt-in path); D = 72
+# leaves lanes idle in the row loops; P*C = 3 * 385 is not a multiple of
+# G times a share; kk = P*C = 1024 with 30% dead entries puts dead lanes
+# into the top-kk; kk = 4096 is the largest kernel B takes; B = 17 needs
+# more clusters than fit on the card at once; `tied` plants exact ties
+# on the coarse and the exact score. kk <= 512 orders the candidates by
+# counting, larger kk by bitonic sorts.
+@pytest.mark.parametrize("B,kk,k,P,C,D,tied", [
+    (1, 128, 10, 4, 256, 128, False), (6, 256, 5, 4, 256, 128, False),
+    (2, 2048, 10, 8, 256, 128, False), (3, 128, 10, 4, 256, 72, False),
+    (1, 128, 10, 3, 385, 128, False), (5, 1024, 128, 4, 256, 128, False),
+    (2, 4096, 10, 32, 256, 128, False), (17, 128, 10, 4, 256, 128, False),
+    (1, 128, 10, 4, 256, 128, True), (5, 256, 10, 3, 385, 128, True),
+    (17, 128, 3, 4, 256, 128, True), (2, 1024, 10, 4, 256, 128, True)])
+def test_ivf_retrieve_fused_kernel_matches_plain(dev, B, kk, k, P, C, D,
+                                                 tied):
+    if tied:
+        inputs = _tied_fused_inputs(B + C, C, B, P, D)
+    else:
+        inputs = _ivf_inputs(np.random.RandomState(B), 32, C, D, B, P, 4096)
+    cl, aux, feats, qn, top_c = (t.to(dev) for t in inputs)
+    n0 = launch_counts["ivf_retrieve_fused"]
+    s, sl = ivf_retrieve_fused(cl, aux, feats, qn, top_c, kk, k)
+    ps, psl = ivf_retrieve_fused_plain(cl, aux, feats, qn, top_c, kk, k)
+    torch.cuda.synchronize()
+    assert launch_counts["ivf_retrieve_fused"] == n0 + 1
+    assert s.shape == ps.shape == (B, 128)
+    assert (sl[:, k:] == -1).all() and (s[:, k:] == -1e30).all()
+    # exact scores (f32 dot products summed in another order), well inside
+    # the select's 1e-5
+    s, sl, psl = _assert_select_matches(s[:, :k], sl[:, :k], ps[:, :k],
+                                        psl[:, :k], B)
+    if tied:
+        # equal exact scores go to the lower funnel lane, and equal coarse
+        # scores to the lower flat index, as in the TPU kernel
+        lead = min(k, 3)
+        for b in range(B):
+            np.testing.assert_array_equal(sl[b, :lead], psl[b, :lead])
+            np.testing.assert_array_equal(
+                sl[b, :lead], 4096 + 3 * b + np.arange(lead))
 
 
 @pytest.mark.parametrize("k", [1, 10, 128])
@@ -197,12 +235,22 @@ def test_ivf_topk_scores_kernel_matches_plain(dev, B, C, k):
 
 
 # (2, 512, 32, 16384): the largest kk kernel D takes, 128 KB of keys in
-# opt-in shared memory
-@pytest.mark.parametrize("B,C,P,kk", [
-    (B, C, 4, kk) for B in (1, 5) for C in (128, 384, 896)
-    for kk in (128, 4 * C)] + [(2, 512, 32, 16384)])
-def test_ivf_candidates_kernel_matches_plain(dev, B, C, P, kk):
-    cl, aux, qn, top_c = (t.to(dev) for t in _tied_inputs(C + kk, C, B, P))
+# opt-in shared memory; kk = 4 * C = P*C puts dead lanes into the top-kk;
+# P*C = 3 * 385 is not a multiple of G times a share; B = 17 needs more
+# clusters than fit on the card at once; P*C = 2 * 170000 at kk = 16384
+# leaves no room in shared memory for a CTA's share, so the select reads
+# its scores from the scratch on every pass; P = 1100 probes are more
+# than the select keeps in shared memory, so it reads their cluster ids
+# from device memory.
+@pytest.mark.parametrize("B,C,P,kk,K,D", [
+    (B, C, 4, kk, 40, 128) for B in (1, 5) for C in (128, 384, 896)
+    for kk in (128, 4 * C)] + [
+    (2, 512, 32, 16384, 40, 128), (1, 385, 3, 128, 40, 128),
+    (3, 385, 3, 1152, 40, 128), (17, 256, 4, 256, 40, 128),
+    (2, 170000, 2, 16384, 4, 8), (1, 8, 1100, 256, 1200, 8)])
+def test_ivf_candidates_kernel_matches_plain(dev, B, C, P, kk, K, D):
+    cl, aux, qn, top_c = (t.to(dev) for t in _tied_inputs(C + kk, C, B, P,
+                                                          K=K, D=D))
     n0 = launch_counts["ivf_candidates"]
     s, sl = ivf_candidates(cl, aux, qn, top_c, kk)
     ps, psl = ivf_candidates_plain(cl, aux, qn, top_c, kk)
@@ -215,3 +263,4 @@ def test_ivf_candidates_kernel_matches_plain(dev, B, C, P, kk):
     for b in range(B):
         np.testing.assert_array_equal(sl[b, :3], psl[b, :3])
         np.testing.assert_array_equal(sl[b, :3], 4096 + 3 * b + np.arange(3))
+
