@@ -23,14 +23,18 @@
 // arithmetic is a matrix-vector product, so bytes bound them. The TPU
 // kernels ran one program per query with [P, C] scratch in VMEM, which
 // neither fits a CTA's 227 KB of shared memory at full width nor fills
-// 132 SMs at B = 1. So every kernel runs in two passes:
-//   1. coarse pass (shared by all four): a (row chunk, probe, query) grid,
-//      one warp per clustered row, 16-byte loads, f32 accumulation; writes
-//      the cosine or coarse score to a [B, P*C] scratch in device memory
-//      (L2-resident at small B);
-//   2. select pass: a radix select over 64-bit keys (score bits, then the
-//      inverted index, which encodes the lowest-index tie rule) that finds
-//      the top-kk, and a bitonic sort that orders them.
+// 132 SMs at B = 1. All four score a row the same way (`row_dot`: one
+// warp per clustered row, 16-byte loads, f32 accumulation in one fixed
+// order), so C's cosines and B, D and E's coarse scores agree bit for bit.
+// Keys are 64 bits: the score's bits, then the inverted index, which
+// encodes the lowest-index tie rule.
+// C is the coarse pass alone. B and D, whose top-kk spans all P*C entries
+// of a query, run in two passes:
+//   1. coarse pass: a (row chunk, probe, query) grid; writes the coarse
+//      score to a [B, P*C] scratch in device memory (L2-resident at small
+//      B);
+//   2. select pass: a radix select that finds the top-kk keys, which are
+//      then put in order.
 //      B and D run it on a thread-block cluster of G CTAs per query
 //      (`cluster_select`): each CTA copies its contiguous share of the
 //      query's P*C scores into shared memory once, builds 256-bin
@@ -51,12 +55,22 @@
 //      stream serialisation (its prologue overlaps the coarse pass's
 //      tail): on the H100 that measured faster than G = 16 and than the
 //      launch without it (PERF.md).
-//      E runs the one-CTA `select_topkk` per (probe, query) over C.
-// A share too large for shared memory is read from the L2-resident
-// scratch on every radix pass instead (the same kernel, instantiated
-// with SMEM = false), so C and P put no shared-memory limit on B and D;
-// the keys' 32-bit index does (P*C < 2^31). Rank 0's sorted keys bound
-// kk: B <= 4096, D <= 16384 (128 KB).
+//      A share too large for shared memory is read from the L2-resident
+//      scratch on every radix pass instead (the same kernel, instantiated
+//      with SMEM = false), so C and P put no shared-memory limit on B and
+//      D; the keys' 32-bit index does (P*C < 2^31). Rank 0's sorted keys
+//      bound kk: B <= 4096, D <= 16384 (128 KB).
+// E needs only each probe's top-k (k <= 128), so it runs in one launch
+// with no scratch (`ivf_topk_kernel`): a cluster of G CTAs per (probe,
+// query). CTA r scores its contiguous share of the probe's C rows,
+// [r*ceil(C/G), (r+1)*ceil(C/G)) (64 rows at C = 512: the coarse pass's
+// CTA, so the same byte stream), into keys in its shared memory,
+// TOPK_PIECE rows at a time. It ranks them by counting (each key's rank
+// is the number of keys above it), together with the top-k kept from
+// earlier pieces, so a share of any size keeps only its top-k. Each CTA
+// stores its top min(k, share) keys into rank 0 through DSMEM; rank 0
+// ranks those G*k keys by counting and writes each key's score and slot
+// to the lane of its rank.
 // A cluster launch that the card refuses (cudaErrorClusterOutOfResources)
 // returns its error; nothing falls back to another launch.
 
@@ -75,18 +89,58 @@ constexpr int SEL_THREADS = 512;       // per CTA of a query's cluster (B, D)
 constexpr int SEL_WARPS = SEL_THREADS / 32;
 constexpr int WHIST = 8;               // sub-histograms per CTA (B, D)
 constexpr int SEL_UNROLL = 4;          // scores per thread per batch (B, D)
-constexpr int CLUSTER = 8;            // CTAs per query's select (B, D)
+constexpr int CLUSTER = 8;            // CTAs per query's select (B, D) and
+                                       // per (probe, query) (E)
 constexpr int SMEM_PROBES = 1024;      // probe ids kept in shared memory
-constexpr int TOPK_THREADS = 256;      // per-probe select (E)
 constexpr int ROW_UNROLL = 8;          // float4 loads in flight per lane (B)
+constexpr int ROW_LOADS = 4;           // bf16 16-byte loads in flight per lane
 constexpr int KPAD = 128;              // lanes of E's per-probe output
+constexpr int TOPK_PIECE = 128;        // rows E's CTA scores per selection
 constexpr float NEG_INF_F = -1e30f;
 constexpr float DEAD = -5e29f;         // scores at or below are dead lanes
+// E ranks its kept keys and a piece's keys with one thread (group) each
+static_assert(KPAD + TOPK_PIECE <= COARSE_THREADS, "E's candidates");
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// The query's dot product with one clustered bf16 row of D values, the
+// query sq in shared memory (rounded to bf16): one warp per row, 16-byte
+// loads (ROW_LOADS of them issued before their FMAs: all of a row's at
+// D = 768), f32 FMAs in the per-lane order ch = lane + 32 t, then
+// warp_sum; every lane gets the sum. Every kernel here scores a row
+// through it, so their scores of one entry are the same bits. The second
+// loop guards with `if`: with `break` instead, E ran far slower on the
+// H100 (PERF.md).
+__device__ __forceinline__ float row_dot(const __nv_bfloat16* __restrict__ row,
+                                         const float* sq, int D, int lane) {
+  const uint4* v4 = reinterpret_cast<const uint4*>(row);
+  const int nch = D / 8;
+  float acc = 0.f;
+  for (int ch0 = lane; ch0 < nch; ch0 += 32 * ROW_LOADS) {
+    uint4 v[ROW_LOADS];
+#pragma unroll
+    for (int u = 0; u < ROW_LOADS; ++u)
+      if (ch0 + 32 * u < nch) v[u] = __ldg(v4 + ch0 + 32 * u);
+#pragma unroll
+    for (int u = 0; u < ROW_LOADS; ++u) {
+      const int ch = ch0 + 32 * u;
+      if (ch < nch) {
+        const __nv_bfloat162* h =
+            reinterpret_cast<const __nv_bfloat162*>(&v[u]);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const float2 f = __bfloat1622float2(h[t]);
+          acc = fmaf(f.x, sq[ch * 8 + 2 * t], acc);
+          acc = fmaf(f.y, sq[ch * 8 + 2 * t + 1], acc);
+        }
+      }
+    }
+  }
+  return warp_sum(acc);
 }
 
 template <bool WITH_AUX>
@@ -107,19 +161,7 @@ ivf_coarse_kernel(const __nv_bfloat16* __restrict__ clustered,
   for (int r = warp; r < COARSE_ROWS; r += COARSE_THREADS / 32) {
     const int c = c0 + r;
     if (c >= C) break;
-    const uint4* row = reinterpret_cast<const uint4*>(blk + (long)c * D);
-    float acc = 0.f;
-    for (int ch = lane; ch < D / 8; ch += 32) {
-      const uint4 v = row[ch];
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const float2 f = __bfloat1622float2(h[t]);
-        acc = fmaf(f.x, sq[ch * 8 + 2 * t], acc);
-        acc = fmaf(f.y, sq[ch * 8 + 2 * t + 1], acc);
-      }
-    }
-    acc = warp_sum(acc);
+    const float acc = row_dot(blk + (long)c * D, sq, D, lane);
     if (lane == 0) {
       float v = acc;
       if (WITH_AUX) {
@@ -182,71 +224,6 @@ __device__ __forceinline__ int rank_desc(int n, int T, Before before) {
   for (int i = (int)threadIdx.x % T; i < n; i += T) r += before(i) ? 1 : 0;
   for (int o = 1; o < T; o <<= 1) r += __shfl_xor_sync(0xffffffffu, r, o);
   return r;
-}
-
-struct SelectShared {
-  unsigned hist[256];
-  unsigned long long prefix, mask;
-  int need, done, count;
-};
-
-// Leaves the kk largest keys sort_key(sc[i], i), i < N, in ckey[0, kk)
-// sorted descending, and zeros (which sort last) in ckey[kk, kkp).
-// Requires 0 < kk <= N and kkp the power of two >= kk; every thread of
-// the CTA (NT of them) calls it, and it ends on a barrier. Inlined, so
-// the compiler sees that `st` and `ckey` are shared memory.
-template <int NT>
-__device__ __forceinline__ void select_topkk(const float* __restrict__ sc, int N, int kk,
-                             int kkp, unsigned long long* ckey,
-                             SelectShared& st) {
-  const int tid = threadIdx.x;
-  if (tid == 0) {
-    st.prefix = 0ull; st.mask = 0ull; st.need = kk; st.done = 0;
-    st.count = 0;
-  }
-  for (int i = tid; i < kkp; i += NT) ckey[i] = 0ull;
-  __syncthreads();
-
-  // ---- radix select of the kk-th largest key, 8 bits per pass ----------
-  for (int shift = 56; shift >= 0; shift -= 8) {
-    for (int i = tid; i < 256; i += NT) st.hist[i] = 0u;
-    __syncthreads();
-    const unsigned long long prefix = st.prefix, mask = st.mask;
-    for (int i = tid; i < N; i += NT) {
-      const unsigned long long key = sort_key(sc[i], (unsigned)i);
-      if ((key & mask) == prefix)
-        atomicAdd(&st.hist[(key >> shift) & 255u], 1u);
-    }
-    __syncthreads();
-    if (tid == 0) {
-      int need = st.need;
-      int d = 255;
-      for (; d > 0; --d) {
-        if ((int)st.hist[d] >= need) break;
-        need -= (int)st.hist[d];
-      }
-      st.prefix = prefix | ((unsigned long long)d << shift);
-      st.mask = mask | (255ull << shift);
-      st.need = need;
-      st.done = ((int)st.hist[d] == need);
-    }
-    __syncthreads();
-    if (st.done) break;
-  }
-
-  // ---- collect exactly kk keys, then sort them descending --------------
-  {
-    const unsigned long long prefix = st.prefix, mask = st.mask;
-    for (int i = tid; i < N; i += NT) {
-      const unsigned long long key = sort_key(sc[i], (unsigned)i);
-      if ((key & mask) >= prefix) {
-        const int pos = atomicAdd(&st.count, 1);
-        if (pos < kkp) ckey[pos] = key;
-      }
-    }
-  }
-  __syncthreads();
-  bitonic_desc(ckey, kkp);
 }
 
 struct ClusterShared {
@@ -591,30 +568,108 @@ ivf_candidates_select_kernel(const float* __restrict__ scores,
   cluster.sync();                 // rank 0's keys outlive every reader
 }
 
-// Kernel E's select pass: one CTA per (probe, query). Lanes < k as in D,
-// within the probe; lanes k..127 hold -1e30 and slot 0.
-__global__ void __launch_bounds__(TOPK_THREADS)
-ivf_topk_select_kernel(const float* __restrict__ scores,
-                       const float* __restrict__ aux,
-                       const int* __restrict__ top_c,
-                       float* __restrict__ out_s, int* __restrict__ out_slot,
-                       int C, int P, int k, int kp) {
-  __shared__ unsigned long long ckey[KPAD];        // [kp], kp <= KPAD
-  __shared__ SelectShared st;
-  const long row = (long)blockIdx.y * P + blockIdx.x;
-  const float* sc = scores + row * C;
-  select_topkk<TOPK_THREADS>(sc, C, k, kp, ckey, st);
-  const float* a = aux + (long)top_c[row] * 8 * C;
-  for (int j = threadIdx.x; j < KPAD; j += TOPK_THREADS) {
-    float s = NEG_INF_F;
-    int slot = 0;
-    if (j < k) {
-      const unsigned c = key_index(ckey[j]);
-      s = sc[c];
-      slot = (int)a[2 * C + c];
+// How many keys CTA r of E's cluster hands to rank 0: the top min(k, n)
+// of its share of n rows.
+__device__ __forceinline__ int share_keys(int r, int C, int chunk, int k) {
+  const int lo = min(C, r * chunk);
+  return min(k, min(C, lo + chunk) - lo);
+}
+
+// Kernel E: the exact top-k of each probe (0 < k <= min(KPAD, C)) on a
+// cluster of CLUSTER CTAs per (probe, query), grid (CLUSTER, P, B). Lanes
+// < k hold the keys sort_key(score, c) in descending order (ties to the
+// lowest c; dead entries fill in once the live ones run out, as in the
+// plain version), with their bank slots; lanes k..KPAD-1 hold -1e30 and
+// slot 0.
+__global__ void __launch_bounds__(COARSE_THREADS)
+ivf_topk_kernel(const __nv_bfloat16* __restrict__ clustered,
+                const float* __restrict__ aux, const float* __restrict__ qn,
+                const int* __restrict__ top_c, float* __restrict__ out_s,
+                int* __restrict__ out_slot, int C, int D, int P, int k) {
+  constexpr int NT = COARSE_THREADS;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  // keys[0, KPAD): the top-k of the share's earlier pieces; keys[KPAD,
+  // KPAD + TOPK_PIECE): the piece being scored; merged: rank 0's, every
+  // CTA's top-k
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(dyn);
+  unsigned long long* merged = keys + KPAD + TOPK_PIECE;    // [CLUSTER * k]
+  float* sq = reinterpret_cast<float*>(merged + CLUSTER * k);       // [D]
+  cg::cluster_group cluster = cg::this_cluster();
+  // every CTA of the cluster must have started before rank 0's shared
+  // memory is written: arrive now, wait just before the first remote store
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const long row = (long)blockIdx.z * P + blockIdx.y;        // (query, probe)
+  const int chunk = (C + CLUSTER - 1) / CLUSTER;
+  const int lo = min(C, rank * chunk);
+  const int n = min(C, lo + chunk) - lo;
+  for (int d = tid; d < D; d += NT)
+    sq[d] = __bfloat162float(
+        __float2bfloat16_rn(qn[(long)blockIdx.z * D + d]));
+  const long cid = top_c[row];
+  const __nv_bfloat16* blk = clustered + cid * C * (long)D;
+  const float* a = aux + cid * 8 * C;
+  // this CTA's keys go to merged[at, at + share_keys(rank)) in rank 0
+  int at = 0;
+  for (int r = 0; r < rank; ++r) at += share_keys(r, C, chunk, k);
+  unsigned long long* dst = cluster.map_shared_rank(merged, 0) + at;
+  __syncthreads();
+
+  int kept = 0;                  // keys[0, kept): top of the earlier pieces
+  for (int i0 = 0;; i0 += TOPK_PIECE) {
+    const int m = max(0, min(TOPK_PIECE, n - i0));
+    for (int i = warp; i < m; i += NT / 32) {
+      const int c = lo + i0 + i;
+      float a0 = 0.f, a1 = 0.f;
+      if (lane == 0) { a0 = a[c]; a1 = a[C + c]; }
+      const float cos = row_dot(blk + (long)c * D, sq, D, lane);
+      if (lane == 0)
+        keys[KPAD + i] = sort_key(__fadd_rn(__fmul_rn(a0, cos), a1),
+                                  (unsigned)c);
     }
-    out_s[row * KPAD + j] = s;
-    out_slot[row * KPAD + j] = slot;
+    __syncthreads();
+    // rank the nc candidates, keys[0, kept) then keys[KPAD, KPAD + m), by
+    // counting: candidate j's T threads count the candidates above it
+    const int nc = kept + m;
+    auto cand = [&](int j) { return keys[j < kept ? j : KPAD + j - kept]; };
+    int T = 32;
+    while (T > 1 && T * nc > NT) T >>= 1;
+    const int j = tid / T;
+    const unsigned long long kj = j < nc ? cand(j) : 0ull;
+    const int r = rank_desc(nc, T, [&](int i) { return cand(i) > kj; });
+    const bool keep = j < nc && tid % T == 0 && r < k;
+    if (i0 + TOPK_PIECE >= n) {                       // the share's last piece
+      asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+      if (keep) dst[r] = kj;
+      break;
+    }
+    __syncthreads();                    // every count has read keys[0, kept)
+    if (keep) keys[r] = kj;
+    kept = min(k, nc);
+    __syncthreads();
+  }
+  cluster.sync();                       // every CTA's keys are in rank 0
+  if (rank != 0) return;
+
+  // ---- rank 0: the n0 >= k keys ranked by counting; a key's rank is its
+  // lane ------------------------------------------------------------------
+  int n0 = 0;
+  for (int r = 0; r < CLUSTER; ++r) n0 += share_keys(r, C, chunk, k);
+  int T = 32;
+  while (T > 1 && T * n0 > NT) T >>= 1;
+  for (int j0 = 0; j0 < n0; j0 += NT / T) {
+    const int j = j0 + tid / T;
+    const unsigned long long kj = j < n0 ? merged[j] : 0ull;
+    const int r = rank_desc(n0, T, [&](int i) { return merged[i] > kj; });
+    if (j < n0 && tid % T == 0 && r < k) {
+      out_s[row * KPAD + r] = key_score(kj);
+      out_slot[row * KPAD + r] = (int)a[2 * C + key_index(kj)];
+    }
+  }
+  for (int t = k + tid; t < KPAD; t += NT) {
+    out_s[row * KPAD + t] = NEG_INF_F;
+    out_slot[row * KPAD + t] = 0;
   }
 }
 
@@ -635,16 +690,56 @@ cudaError_t launch_coarse(const void* clustered, const float* aux,
   return cudaGetLastError();
 }
 
+// Raises `kernel`'s limit of dynamic shared memory to `smem` bytes when a
+// launch needs more than `*done`, the limit set so far (the 48 KB default
+// counts static shared memory too), so the attribute is set once per
+// kernel and size, not on every call. Returns the error, cleared.
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, size_t smem, size_t* done) {
+  if (smem <= *done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) { cudaGetLastError(); return err; }
+  *done = smem;
+  return cudaSuccess;
+}
+
+// Launches `kernel` on clusters of CLUSTER CTAs along x, after the
+// previous kernel with programmatic stream serialisation when `pdl`.
+// Returns the launch's error, read and cleared so the next launch does not
+// see it; nothing retries another way.
+template <typename Kernel, typename... Args>
+cudaError_t launch_cluster(Kernel kernel, dim3 grid, int threads, size_t smem,
+                           bool pdl, cudaStream_t s, Args... args) {
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 2 : 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
 // Launches a select kernel on a cluster of CLUSTER CTAs per query (grid
 // B * CLUSTER), with programmatic stream serialisation after the coarse
 // pass: `in_smem` when a CTA's share of the N scores fits in shared memory
 // beside `fixed` bytes, else `in_l2`, which reads them from the scratch.
-// Returns the launch's error; nothing retries another way.
 template <typename Kernel, typename... Args>
 cudaError_t launch_select(Kernel in_smem, Kernel in_l2, size_t fixed, int N,
                           int B, cudaStream_t s, Args... args) {
   static int optin = 0;                // per-block limit, static + dynamic
   static size_t static_smem = 0;
+  static size_t done[2] = {0, 0};      // opt-in set: in_smem, in_l2
   cudaError_t err = cudaSuccess;
   if (optin == 0) {
     int dev = 0;
@@ -661,28 +756,11 @@ cudaError_t launch_select(Kernel in_smem, Kernel in_l2, size_t fixed, int N,
   const bool fits = static_smem + fixed + share <= (size_t)optin;
   const Kernel kernel = fits ? in_smem : in_l2;
   const size_t smem = fixed + (fits ? share : 0);
-  // the 48 KB default counts the static ClusterShared too: always opt in
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) { cudaGetLastError(); return err; }
-  cudaLaunchAttribute attr[2];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CLUSTER;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[1].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * CLUSTER);
-  cfg.blockDim = dim3(SEL_THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cfg.attrs = attr;
-  cfg.numAttrs = 2;
-  err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  // read and clear the launch's error, so the next launch does not see it
-  const cudaError_t last = cudaGetLastError();
-  return err != cudaSuccess ? err : last;
+  // the static ClusterShared alone is ~28 KB: every size opts in
+  err = opt_in(kernel, smem, &done[fits ? 0 : 1]);
+  if (err != cudaSuccess) return err;
+  return launch_cluster(kernel, dim3(B * CLUSTER), SEL_THREADS, smem, true,
+                        s, args...);
 }
 
 }  // namespace
@@ -733,14 +811,18 @@ extern "C" int ivf_candidates_launch(const void* clustered, const float* aux,
 
 extern "C" int ivf_topk_scores_launch(const void* clustered, const float* aux,
                                       const float* qn, const int* top_c,
-                                      float* scratch, float* out_s,
-                                      int* out_slot, int C, int D, int B,
-                                      int P, int k, void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_coarse<true>(clustered, aux, qn, top_c, scratch, C,
-                                        D, B, P, s);
+                                      float* out_s, int* out_slot, int C,
+                                      int D, int B, int P, int k,
+                                      void* stream) {
+  static size_t done = 0;
+  // the kept keys, a piece's keys and rank 0's merged keys, then the query
+  const size_t smem =
+      (size_t)(KPAD + TOPK_PIECE + CLUSTER * k) * 8 + (size_t)D * 4;
+  const cudaError_t err = opt_in(ivf_topk_kernel, smem, &done);
   if (err != cudaSuccess) return (int)err;
-  ivf_topk_select_kernel<<<dim3(P, B), TOPK_THREADS, 0, s>>>(
-      scratch, aux, top_c, out_s, out_slot, C, P, k, pow2_at_least(k));
-  return (int)cudaGetLastError();
+  return (int)launch_cluster(
+      ivf_topk_kernel, dim3(CLUSTER, P, B), COARSE_THREADS, smem, false,
+      reinterpret_cast<cudaStream_t>(stream),
+      static_cast<const __nv_bfloat16*>(clustered), aux, qn, top_c, out_s,
+      out_slot, C, D, P, k);
 }

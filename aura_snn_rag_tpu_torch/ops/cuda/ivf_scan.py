@@ -17,7 +17,8 @@
   probe, sorted descending, ties to the lowest c.
 
 All four launch `csrc/ivf_scan.cu` for CUDA tensors (bound and design in
-its header) and run the `_plain` versions below for CPU tensors.
+its header; B and D in two launches through a [B, P*C] scratch, C and E in
+one) and run the `_plain` versions below for CPU tensors.
 
 Output conventions:
 - `ivf_retrieve_fused`: lanes < k hold the final top-k sorted by exact
@@ -33,7 +34,7 @@ Output conventions:
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -154,10 +155,26 @@ def _ivf_args(name, clustered, aux, qn, top_c, features=None):
     return qn, top_c
 
 
-def _launch(name: str, argtypes, *args) -> None:
-    fn = getattr(_build.load("ivf_scan"), f"{name}_launch")
-    fn.argtypes = argtypes + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+# each launcher's C arguments before the stream
+_ARGTYPES = {
+    "ivf_scan_scores": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4,
+    "ivf_retrieve_fused": [ctypes.c_void_p] * 8 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_long] + [ctypes.c_int] * 5,
+    "ivf_candidates": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5,
+    "ivf_topk_scores": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5,
+}
+_bound: Dict[str, Callable[..., int]] = {}
+
+
+def _launch(name: str, *args) -> None:
+    """Calls `<name>_launch` on the current stream; the function is looked
+    up and its argument types set once per process."""
+    fn = _bound.get(name)
+    if fn is None:
+        fn = getattr(_build.load("ivf_scan"), f"{name}_launch")
+        fn.argtypes = _ARGTYPES[name] + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _bound[name] = fn
     _build.check(fn(*args, _build.stream()), name)
     _build.launch_counts[name] += 1
 
@@ -172,9 +189,8 @@ def ivf_scan_scores(clustered: torch.Tensor, qn: torch.Tensor,
     B, P = top_c.shape
     qn, top_c = _ivf_args("ivf_scan_scores", clustered, None, qn, top_c)
     out = torch.empty((B, P, C), dtype=torch.float32, device=qn.device)
-    _launch("ivf_scan_scores", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4,
-            _build.ptr(clustered), _build.ptr(qn), _build.ptr(top_c),
-            _build.ptr(out), C, D, B, P)
+    _launch("ivf_scan_scores", _build.ptr(clustered), _build.ptr(qn),
+            _build.ptr(top_c), _build.ptr(out), C, D, B, P)
     return out
 
 
@@ -199,13 +215,10 @@ def ivf_retrieve_fused(clustered: torch.Tensor, aux: torch.Tensor,
     scratch = torch.empty((B, P * C), dtype=torch.float32, device=qn.device)
     out_s = torch.empty((B, KPAD), dtype=torch.float32, device=qn.device)
     out_slot = torch.empty((B, KPAD), dtype=torch.int32, device=qn.device)
-    _launch("ivf_retrieve_fused",
-            [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_long] + [ctypes.c_int] * 5,
-            _build.ptr(clustered), _build.ptr(aux), _build.ptr(features),
-            _build.ptr(qn), _build.ptr(top_c), _build.ptr(scratch),
-            _build.ptr(out_s), _build.ptr(out_slot), C, D, M, B, P, kk, k,
-            KPAD)
+    _launch("ivf_retrieve_fused", _build.ptr(clustered), _build.ptr(aux),
+            _build.ptr(features), _build.ptr(qn), _build.ptr(top_c),
+            _build.ptr(scratch), _build.ptr(out_s), _build.ptr(out_slot), C,
+            D, M, B, P, kk, k, KPAD)
     return out_s, out_slot
 
 
@@ -216,7 +229,7 @@ def ivf_candidates(clustered: torch.Tensor, aux: torch.Tensor,
     L2-normalised; top_c [B, P]; kk a multiple of 128, at most P*C and
     16384. Returns (scores [B, kk] f32, slots [B, kk] i32), sorted
     descending."""
-    C = clustered.shape[1]
+    _, C, D = clustered.shape
     B, P = top_c.shape
     if not (0 < kk <= min(P * C, KK_MAX_CANDIDATES) and kk % KPAD == 0):
         raise ValueError(f"ivf_candidates: kk={kk} must be a multiple of "
@@ -224,8 +237,15 @@ def ivf_candidates(clustered: torch.Tensor, aux: torch.Tensor,
                          f"{KK_MAX_CANDIDATES})]")
     if not clustered.is_cuda:
         return ivf_candidates_plain(clustered, aux, qn, top_c, kk)
-    return _select_launch("ivf_candidates", clustered, aux, qn, top_c, kk,
-                          (B, kk))
+    qn, top_c = _ivf_args("ivf_candidates", clustered, aux, qn, top_c)
+    # the coarse pass's scores, which the select pass reads
+    scratch = torch.empty((B, P * C), dtype=torch.float32, device=qn.device)
+    out_s = torch.empty((B, kk), dtype=torch.float32, device=qn.device)
+    out_slot = torch.empty((B, kk), dtype=torch.int32, device=qn.device)
+    _launch("ivf_candidates", _build.ptr(clustered), _build.ptr(aux),
+            _build.ptr(qn), _build.ptr(top_c), _build.ptr(scratch),
+            _build.ptr(out_s), _build.ptr(out_slot), C, D, B, P, kk)
+    return out_s, out_slot
 
 
 def ivf_topk_scores(clustered: torch.Tensor, aux: torch.Tensor,
@@ -234,32 +254,21 @@ def ivf_topk_scores(clustered: torch.Tensor, aux: torch.Tensor,
     """clustered [K, C, D] bf16; aux [K, 8, C] f32; qn [B, D] f32
     L2-normalised; top_c [B, P]; 0 < k <= min(128, C). Returns
     (scores [B, P, 128] f32, slots [B, P, 128] i32); lanes < k hold each
-    probe's top-k sorted descending. Shared memory holds only the 128
-    selected keys, so it puts no bound on C; the 32-bit index in the keys
-    does (P*C < 2^31)."""
-    C = clustered.shape[1]
+    probe's top-k sorted descending. One launch, no scratch: a CTA scores
+    its share of a probe's rows 128 at a time and keeps only their top-k
+    keys in shared memory, so shared memory puts no bound on C; the keys'
+    32-bit index does (P*C < 2^31)."""
+    _, C, D = clustered.shape
     B, P = top_c.shape
     if not 0 < k <= min(KPAD, C):
         raise ValueError(f"ivf_topk_scores: k={k} must be in "
                          f"(0, min({KPAD}, C={C})]")
     if not clustered.is_cuda:
         return ivf_topk_scores_plain(clustered, aux, qn, top_c, k)
-    return _select_launch("ivf_topk_scores", clustered, aux, qn, top_c, k,
-                          (B, P, KPAD))
-
-
-def _select_launch(name, clustered, aux, qn, top_c, width,
-                   out_shape) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernels D and E: coarse pass into a [B, P*C] scratch, then the
-    select pass that keeps `width` entries per query (D) or probe (E)."""
-    _, C, D = clustered.shape
-    B, P = top_c.shape
-    qn, top_c = _ivf_args(name, clustered, aux, qn, top_c)
-    scratch = torch.empty((B, P * C), dtype=torch.float32, device=qn.device)
-    out_s = torch.empty(out_shape, dtype=torch.float32, device=qn.device)
-    out_slot = torch.empty(out_shape, dtype=torch.int32, device=qn.device)
-    _launch(name, [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5,
-            _build.ptr(clustered), _build.ptr(aux), _build.ptr(qn),
-            _build.ptr(top_c), _build.ptr(scratch), _build.ptr(out_s),
-            _build.ptr(out_slot), C, D, B, P, width)
+    qn, top_c = _ivf_args("ivf_topk_scores", clustered, aux, qn, top_c)
+    out_s = torch.empty((B, P, KPAD), dtype=torch.float32, device=qn.device)
+    out_slot = torch.empty((B, P, KPAD), dtype=torch.int32, device=qn.device)
+    _launch("ivf_topk_scores", _build.ptr(clustered), _build.ptr(aux),
+            _build.ptr(qn), _build.ptr(top_c), _build.ptr(out_s),
+            _build.ptr(out_slot), C, D, B, P, k)
     return out_s, out_slot

@@ -10,16 +10,21 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
    full-width shapes on random inputs, each held against its plain
    PyTorch version on the same inputs and timed with CUDA events beside
    the plain version, a PyTorch library yardstick where one exists, and
-   the least time the card could take (`bound_ms`); for kernel A also a
+   the least time the card could take (`bound_ms`); E is also held bit
+   for bit against the per-probe top-k of the coarse scores derived from
+   kernel C's cosines on the same inputs; for kernel A also a
    ~2 s sustained run with the SM clock and power draw sampled, and at
    int8 the bare `torch._int_mm` product without its epilogue (context
    for how close A comes to cuBLAS's GEMM, not the yardstick). B-E run
-   at B = 1 and 8 (C alone is their shared coarse pass, so B - C and
-   D - C are the select passes' time); besides their CUDA-event time
+   at B = 1 and 8 (C alone is the coarse pass that B and D run before
+   their select pass, so B - C and D - C are the select passes' time; E
+   scores and selects in one launch, so E - C is its select's cost over
+   the same byte stream); besides their CUDA-event time
    over back-to-back calls (`ms`, which the host's enqueue rate can set
    at B = 1) they are timed by CUDA-graph replay (`graph_ms`, device
-   time). Then `torch.topk` of 128 over [B, 32768] as context for the
-   select;
+   time), and at B = 1 by the host's median time per call up to its
+   enqueue (`host_us`, the wrapper's own cost). Then `torch.topk` of 128
+   over [B, 32768] as context for the select;
 2. engine phase: the episodic-memory engine in bench.py's configuration
    (1,000,000 x 768, K = 4096, probe 64, int8 coarse bank): bulk_load,
    write_memories, rebuild_centroids, a write on the live index, then
@@ -137,6 +142,27 @@ def graph_ms(fns, iters=20, replays=5):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (iters * replays)
+
+
+def host_us(fns, iters=200):
+    """Median host microseconds per call over `iters` back-to-back calls
+    (no sync between them): the wrapper's own cost up to its enqueue
+    (checks, allocations, ctypes, launches), which sets `ms` at B = 1
+    where the card finishes each call sooner. The median, since a call
+    the host's scheduler stalls would swing a mean."""
+    import statistics
+    import torch
+    fns = list(fns)
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    per_call = []
+    for i in range(iters):
+        t0 = time.perf_counter()
+        fns[i % len(fns)]()
+        per_call.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(per_call) * 1e6
 
 
 def sustained(fn, seconds=2.0):
@@ -338,6 +364,7 @@ def kernel_B_C(ivf, K, C, D, M, P, kk, k, cases_B, cases_C):
         calls = [lambda q=q, t=t: ivf_retrieve_fused(
             cl, aux, feats, q, t, kk, k) for q, t in bsets]
         ms, g_ms = time_ms(calls, iters=20), graph_ms(calls)
+        h_us = host_us(calls) if B == 1 else None
         plain_ms = time_ms([lambda q=q, t=t: ivf_retrieve_fused_plain(
             cl, aux, feats, q, t, kk, k) for q, t in bsets], iters=4,
             warmup=1)
@@ -352,11 +379,11 @@ def kernel_B_C(ivf, K, C, D, M, P, kk, k, cases_B, cases_C):
         ops = B * 2 * P * C * D + n_live * 4 * D
         b_ms, b_by = bound_ms(nbytes, ops, "bf16")
         res[("ivf_retrieve_fused", B)] = dict(
-            max_abs_err=err, ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
-            library_ms=None, bound_ms=b_ms, bound_by=b_by)
+            max_abs_err=err, ms=ms, graph_ms=g_ms, host_us=h_us,
+            plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
         log(f"kernel ivf_retrieve_fused B={B} K={K} C={C} P={P} D={D} "
             f"kk={kk}: max_abs_err={err:.3g} ms={ms:.4f} "
-            f"graph_ms={g_ms:.4f} "
+            f"graph_ms={g_ms:.4f} host_us={h_us} "
             f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
 
     for B in cases_C:
@@ -371,15 +398,17 @@ def kernel_B_C(ivf, K, C, D, M, P, kk, k, cases_B, cases_C):
         calls = [lambda q=q, t=t: ivf_scan_scores(cl, q, t)
                  for q, t in bsets]
         ms, g_ms = time_ms(calls, iters=20), graph_ms(calls)
+        h_us = host_us(calls) if B == 1 else None
         plain_ms = time_ms([lambda q=q, t=t: ivf_scan_scores_plain(cl, q, t)
                             for q, t in bsets], iters=4, warmup=1)
         nbytes = B * (P * C * D * 2 + D * 4 + P * 4 + P * C * 4)
         b_ms, b_by = bound_ms(nbytes, 2 * B * P * C * D, "bf16")
         res[("ivf_scan_scores", B)] = dict(
-            max_abs_err=err, ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
-            library_ms=None, bound_ms=b_ms, bound_by=b_by)
+            max_abs_err=err, ms=ms, graph_ms=g_ms, host_us=h_us,
+            plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
         log(f"kernel ivf_scan_scores B={B} K={K} C={C} P={P} D={D}: "
             f"max_abs_err={err:.3g} ms={ms:.4f} graph_ms={g_ms:.4f} "
+            f"host_us={h_us} "
             f"plain_ms={plain_ms:.4f} "
             f"bound_ms={b_ms:.4f} ({b_by})")
     return res
@@ -406,6 +435,24 @@ def kernel_D_E(ivf, K, C, D, P, kk, k, cases_B):
             qn, tc = bsets[0]
             s, sl = fn(cl, aux, qn, tc, width)
             ps, psl = plain(cl, aux, qn, tc, width)
+            if name == "ivf_topk_scores":
+                # E scores an entry as kernel C's pass does (`row_dot`): its
+                # lanes are bit for bit the per-probe top-k of aux0 * cos +
+                # aux1 from C's cosines, one rounding per operation as in E
+                cos = ivf_scan.ivf_scan_scores(cl, qn, tc)
+                a = aux[tc.long()]
+                coarse = a[:, :, 0] * cos + a[:, :, 1]
+                order = torch.argsort(coarse, dim=2, descending=True,
+                                      stable=True)[..., :width]
+                bit_err = (s[..., :width] - coarse.gather(2, order)).abs() \
+                    .max().item()
+                check(bit_err == 0.0 and torch.equal(
+                    sl[..., :width], a[:, :, 2].gather(2, order).int()),
+                    f"{name} B={B}: not kernel C's scores bit for bit "
+                    f"(err {bit_err})")
+                check(bool((s[..., width:] == NEG_INF).all())
+                      and bool((sl[..., width:] == 0).all()),
+                      f"{name} B={B}: pad lanes")
             torch.cuda.synchronize()
             # rows of `width` selected lanes: one per query (D) or probe (E)
             s, sl, ps, psl = (t.reshape(-1, t.shape[-1])[:, :width]
@@ -420,6 +467,7 @@ def kernel_D_E(ivf, K, C, D, P, kk, k, cases_B):
             calls = [lambda q=q, t=t: fn(cl, aux, q, t, width)
                      for q, t in bsets]
             ms, g_ms = time_ms(calls, iters=20), graph_ms(calls)
+            h_us = host_us(calls) if B == 1 else None
             plain_ms = time_ms([lambda q=q, t=t: plain(cl, aux, q, t, width)
                                 for q, t in bsets], iters=4, warmup=1)
             # the probed bf16 blocks and aux rows 0-1 once, the query, the
@@ -429,12 +477,12 @@ def kernel_D_E(ivf, K, C, D, P, kk, k, cases_B):
                           + picked * 4 + lanes * 8)
             b_ms, b_by = bound_ms(nbytes, B * 2 * P * C * D, "bf16")
             res[(name, B)] = dict(
-                max_abs_err=err, ms=ms, graph_ms=g_ms,
+                max_abs_err=err, ms=ms, graph_ms=g_ms, host_us=h_us,
                 plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
                 bound_by=b_by)
             log(f"kernel {name} B={B} K={K} C={C} P={P} D={D} "
                 f"width={width}: max_abs_err={err:.3g} ms={ms:.4f} "
-                f"graph_ms={g_ms:.4f} "
+                f"graph_ms={g_ms:.4f} host_us={h_us} "
                 f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
     return res
 
@@ -760,10 +808,11 @@ def main() -> int:
     for name, (src, replaces) in SOURCES.items():
         row = dict(name=name, route="cuda", source=src, replaces=replaces,
                    launches=launches[name], **main_shape[name])
+        row.pop("host_us", None)
         if (name, 1) in res_ivf:
             b1 = res_ivf[(name, 1)]
             row.update(ms_b1=b1["ms"], graph_ms_b1=b1["graph_ms"],
-                       bound_ms_b1=b1["bound_ms"])
+                       bound_ms_b1=b1["bound_ms"], host_us_b1=b1["host_us"])
         kernels.append(row)
     log(json.dumps({"torch_topk_ms": topk_ms}))
     log(json.dumps({"engine": stats}))

@@ -135,16 +135,17 @@ def _assert_select_matches(s, sl, ps, psl, rows):
     return s, sl, psl
 
 
-def _tied_inputs(seed, C, B, P, K=40, D=128, M=4096):
+def _tied_inputs(seed, C, B, P, K=40, D=128, M=4096, at=None):
     """_ivf_inputs with exact ties planted at the top of every query's
-    ranking: its own direction stored three times (probe 0 at c = 2b and
-    2b + 1, probe 1 at c = 2b), each with aux0 = 1, aux1 = 0.5 and its
-    own slot, so the three coarse scores are equal and far above the
-    random entries (|score| < 0.8)."""
+    ranking: its own direction stored three times (probe 0 at c = at(b)
+    and at(b) + 1, at(b) = 2b unless given; probe 1 at c = 2b), each with
+    aux0 = 1, aux1 = 0.5 and its own slot, so the three coarse scores are
+    equal and far above the random entries (|score| < 0.96)."""
     cl, aux, feats, qn, top_c = _ivf_inputs(np.random.RandomState(seed), K,
                                             C, D, B, P, M)
+    at = at or (lambda b: 2 * b)
     for b in range(B):
-        for n, (p, c) in enumerate(((0, 2 * b), (0, 2 * b + 1),
+        for n, (p, c) in enumerate(((0, at(b)), (0, at(b) + 1),
                                     (1, 2 * b))):
             cid = int(top_c[b, p])
             cl[cid, c] = qn[b].to(torch.bfloat16)
@@ -210,28 +211,59 @@ def test_ivf_retrieve_fused_kernel_matches_plain(dev, B, kk, k, P, C, D,
                 sl[b, :lead], 4096 + 3 * b + np.arange(lead))
 
 
-@pytest.mark.parametrize("k", [1, 10, 128])
-@pytest.mark.parametrize("C", [128, 384, 896])
-@pytest.mark.parametrize("B", [1, 5])
-def test_ivf_topk_scores_kernel_matches_plain(dev, B, C, k):
-    P = 4
-    cl, aux, qn, top_c = (t.to(dev) for t in _tied_inputs(C + k, C, B, P))
+# Kernel E runs a cluster of G = 8 CTAs per (probe, query), each over a
+# contiguous share of ceil(C/8) rows, which it scores 128 rows at a time.
+# C = 385 ends in a ragged share; C = 8 gives shares of one row; C = 128
+# with k = 128 shares of 16 rows, fewer than k; B = 17 with P = 64 needs
+# more clusters than fit on the card at once; C = 600,000 gives shares of
+# 75,000 rows, far beyond shared memory, kept as a running top-k over
+# pieces. `boundary` plants query b's tie in probe 0 on either side of a
+# share boundary, at c = ceil(C/8) * (b + 1) - 1 and c + 1.
+@pytest.mark.parametrize("B,C,k,P,K,D,boundary", [
+    (B, C, k, 4, 40, 128, False) for B in (1, 5) for C in (128, 384, 896)
+    for k in (1, 10, 128)] + [
+    (1, 385, 10, 4, 40, 128, False), (3, 385, 128, 4, 40, 128, False),
+    (1, 8, 8, 4, 40, 128, False), (2, 128, 128, 4, 40, 128, False),
+    (17, 512, 10, 64, 80, 128, False), (1, 600_000, 128, 2, 4, 8, False),
+    (1, 385, 10, 4, 40, 128, True), (3, 512, 2, 4, 40, 128, True),
+    (2, 600_000, 10, 2, 4, 8, True)])
+def test_ivf_topk_scores_kernel_matches_plain(dev, B, C, k, P, K, D,
+                                              boundary):
+    chunk = -(-C // 8)
+    at = (lambda b: chunk * (b + 1) - 1) if boundary else None
+    cl, aux, qn, top_c = (t.to(dev) for t in _tied_inputs(
+        C + k, C, B, P, K=K, D=D, at=at))
     n0 = launch_counts["ivf_topk_scores"]
     s, sl = ivf_topk_scores(cl, aux, qn, top_c, k)
     ps, psl = ivf_topk_scores_plain(cl, aux, qn, top_c, k)
     torch.cuda.synchronize()
     assert launch_counts["ivf_topk_scores"] == n0 + 1
     assert s.shape == sl.shape == (B, P, 128) and sl.dtype == torch.int32
+    assert (s[..., k:] == -1e30).all() and (sl[..., k:] == 0).all()
     s, sl, psl = _assert_select_matches(s[..., :k], sl[..., :k], ps[..., :k],
                                         psl[..., :k], B * P)
+    assert (np.diff(s, axis=1) <= 0).all()
     # the tie in probe 0 goes to the lower c, as in the TPU kernel
     lead = min(k, 2)
     for b in range(B):
         np.testing.assert_array_equal(sl[b * P, :lead], psl[b * P, :lead])
         np.testing.assert_array_equal(sl[b * P, :lead],
                                       [4096 + 3 * b, 4096 + 3 * b + 1][:lead])
-    s_all, sl_all = ivf_topk_scores(cl, aux, qn, top_c, k)
-    assert (s_all[..., k:] == -1e30).all() and (sl_all[..., k:] == 0).all()
+
+
+def test_ivf_topk_scores_kernel_is_kernel_c_bit_for_bit(dev):
+    """E scores an entry as the coarse pass of kernel C does (`row_dot`),
+    so its lanes are exactly the per-probe top-k of aux0 * cos + aux1
+    computed from C's cosines, one rounding per operation as in E."""
+    B, C, P, k = 3, 385, 4, 10
+    cl, aux, qn, top_c = (t.to(dev) for t in _tied_inputs(7, C, B, P))
+    s, sl = ivf_topk_scores(cl, aux, qn, top_c, k)
+    cos = ivf_scan_scores(cl, qn, top_c)
+    a = aux[top_c.long()]                                    # [B, P, 8, C]
+    coarse = a[:, :, 0] * cos + a[:, :, 1]
+    order = torch.argsort(coarse, dim=2, descending=True, stable=True)[..., :k]
+    assert (s[..., :k] - coarse.gather(2, order)).abs().max().item() == 0.0
+    assert torch.equal(sl[..., :k], a[:, :, 2].gather(2, order).int())
 
 
 # (2, 512, 32, 16384): the largest kk kernel D takes, 128 KB of keys in

@@ -57,7 +57,7 @@ def _live_match(ts, tsl, js, jsl):
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("k", [10, 128])
-@pytest.mark.parametrize("C", [128, 256])
+@pytest.mark.parametrize("C", [128, 200, 256])     # 200: not a multiple of 64
 def test_ivf_topk_scores_plain_matches_pallas_kernel(k, C):
     jx, tx = ivf_kernel_inputs(C + k, C=C)
     cl, aux, _, qn, top_c = jx
