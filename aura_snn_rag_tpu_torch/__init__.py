@@ -4,10 +4,23 @@ This package imports torch and never JAX or the JAX package; the JAX
 package beside it is the reference its tests hold it against. Entry
 points run on the CUDA card unless the caller passes device="cpu".
 Ported so far: the episodic-memory engine (`memory`) and its five
-kernels (`ops.cuda`).
+kernels (`ops.cuda`); the LM's serving path: the spiking and encoding
+ops it runs (`ops`), the model (`models`), the sampler and the batched
+server (`generation`) and the one-shot memorisation helpers
+(`services`).
 """
 
-from aura_snn_rag_tpu_torch.config import MemoryConfig  # noqa: F401
+from aura_snn_rag_tpu_torch.config import (  # noqa: F401
+    AuraConfig,
+    MemoryConfig,
+    ModelConfig,
+    get_debug_config,
+    get_full_config,
+    get_medium_config,
+    get_small_config,
+    get_test_config,
+    get_xl_config,
+)
 from aura_snn_rag_tpu_torch.memory import (  # noqa: F401
     CognitiveMapParams,
     HippocampalFormation,
@@ -27,6 +40,17 @@ from aura_snn_rag_tpu_torch.memory import (  # noqa: F401
     state_to_numpy,
     time_cell_rates,
     write_memories,
+)
+from aura_snn_rag_tpu_torch.models import (  # noqa: F401
+    HippocampalTransformer,
+    SNNRAGTransformer,
+    TransformerOutput,
+    params_from_numpy,
+)
+from aura_snn_rag_tpu_torch.generation import (  # noqa: F401
+    BatchedGenerator,
+    GenerationRequest,
+    generate,
 )
 
 __version__ = "0.1.0"

@@ -1,10 +1,12 @@
-"""Configuration of the episodic-memory engine.
+"""Configuration of the episodic-memory engine and of the LM.
 
-A copy of `MemoryConfig` from `aura_snn_rag_tpu/config.py` with the same
-field names and defaults, so one configuration drives either package.
-The port keeps its own copy because importing the JAX package pulls in JAX.
+Copies of `MemoryConfig` and `ModelConfig` from `aura_snn_rag_tpu/config.py`
+with the same field names and defaults, so one configuration drives
+either package, and the same presets (`get_debug_config` ...
+`get_xl_config`) with their model and memory parts. The port keeps its
+own copy because importing the JAX package pulls in JAX.
 
-What the fields mean in the port:
+What the `MemoryConfig` fields mean in the port:
 
 - `use_pallas_ivf` selects the hand-written IVF kernel path (kernels B, C,
   D and E in `ops/cuda/ivf_scan.py`); False takes the plain gather path.
@@ -25,7 +27,9 @@ What the fields mean in the port:
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Tuple
 
 
 @dataclass(frozen=True)
@@ -88,3 +92,130 @@ class MemoryConfig:
         cap = int(self.bucket_overprovision * self.max_memories
                   / self.k_centroids)
         return max(8, ((cap + 127) // 128) * 128)
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Hippocampal transformer model configuration.
+
+    What the fields mean in the port: `dropout`, `use_gradient_checkpointing`
+    and `gradient_checkpoint_policy` belong to training, which is not
+    ported yet; the port's modules run as the JAX package's do with
+    `deterministic=True` (no dropout). `dtype` is the compute dtype:
+    parameters stay f32 and are cast at every use, as flax does.
+    """
+
+    vocab_size: int = 32_000
+    embedding_dim: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_seq_len: int = 512
+    dropout: float = 0.1
+
+    # Place-cell encoder
+    n_place_cells: int = 2000
+    place_cell_sparsity: float = 0.03
+    place_residual_scale: float = 0.1
+
+    # Theta-gamma positional encoding
+    theta_freq: float = 8.0
+    gamma_freq: float = 40.0
+
+    # Memory-augmented (RAG) layers
+    use_rag: bool = False
+    memory_injection: str = "gate"       # "gate" | "cross_attention" | "concat"
+    num_retrieved: int = 5
+
+    # Spiking FFN. `snn_layers` lists layer indices using a HybridFFN;
+    # empty tuple = standard GELU MLP everywhere.
+    snn_layers: Tuple[int, ...] = ()
+    snn_timesteps: int = 4
+    snn_levels: int = 8                  # multi-bit spike levels L
+    snn_ratio: float = 0.5
+
+    use_gradient_checkpointing: bool = False
+    gradient_checkpoint_policy: str = "full"
+    tie_word_embeddings: bool = True
+    dtype: str = "bfloat16"              # computation dtype
+
+    @property
+    def head_dim(self) -> int:
+        return self.embedding_dim // self.num_heads
+
+    @property
+    def place_k(self) -> int:
+        return max(1, int(self.n_place_cells * self.place_cell_sparsity))
+
+
+@dataclass(frozen=True)
+class AuraConfig:
+    """The model and memory parts of the JAX package's `AuraConfig`. The
+    `training`, `mesh` and `parallel` parts come with the slices that
+    port training and the parallel runtime."""
+
+    model: ModelConfig = field(default_factory=ModelConfig)
+    memory: MemoryConfig = field(default_factory=MemoryConfig)
+
+    def replace(self, **kw) -> "AuraConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def _cfg(model_kw, memory_kw) -> AuraConfig:
+    return AuraConfig(model=ModelConfig(**model_kw),
+                      memory=MemoryConfig(**memory_kw))
+
+
+def get_test_config() -> AuraConfig:
+    """Small config for fast runs (512D/6L/8H, seq 256)."""
+    return _cfg(
+        dict(vocab_size=32_000, embedding_dim=512, num_layers=6, num_heads=8,
+             intermediate_size=2048, max_seq_len=256, n_place_cells=1000),
+        dict(max_memories=10_000, feature_dim=512, k_centroids=64,
+             rebuild_interval=128, n_place_cells=1000),
+    )
+
+
+def get_debug_config() -> AuraConfig:
+    """Tiny config for unit tests."""
+    return _cfg(
+        dict(vocab_size=512, embedding_dim=64, num_layers=2, num_heads=4,
+             intermediate_size=128, max_seq_len=32, n_place_cells=128),
+        dict(max_memories=256, feature_dim=64, k_centroids=8,
+             rebuild_interval=32, n_place_cells=64, n_grid_cells=16,
+             n_time_cells=8),
+    )
+
+
+def get_small_config() -> AuraConfig:
+    return _cfg(
+        dict(embedding_dim=512, num_layers=6, num_heads=8,
+             intermediate_size=2048, n_place_cells=1000),
+        dict(feature_dim=512),
+    )
+
+
+def get_medium_config() -> AuraConfig:
+    """12L/768D, the reference's 'medium' preset."""
+    return _cfg(dict(), dict())
+
+
+def get_full_config() -> AuraConfig:
+    """Flagship preset: 768D/12L/12H/3072, seq 512, SNN FFN on even
+    layers, RAG on, 100k memories."""
+    return _cfg(
+        dict(embedding_dim=768, num_layers=12, num_heads=12,
+             intermediate_size=3072, max_seq_len=512, n_place_cells=2000,
+             use_rag=True, snn_layers=(0, 2, 4, 6, 8, 10)),
+        dict(max_memories=100_000, feature_dim=768),
+    )
+
+
+def get_xl_config() -> AuraConfig:
+    """Beyond-reference scale (1024D/16L)."""
+    return _cfg(
+        dict(embedding_dim=1024, num_layers=16, num_heads=16,
+             intermediate_size=4096, n_place_cells=2000, use_rag=True,
+             snn_layers=(2, 6, 10, 14)),
+        dict(feature_dim=1024),
+    )

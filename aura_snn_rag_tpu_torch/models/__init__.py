@@ -1,0 +1,26 @@
+"""Model stack: the hippocampal transformer LM and its building blocks
+(counterpart of `aura_snn_rag_tpu.models`). The language-zone and brain
+models come in a later slice."""
+
+from aura_snn_rag_tpu_torch.models.transformer import (  # noqa: F401
+    HippocampalTransformer,
+    TransformerOutput,
+)
+from aura_snn_rag_tpu_torch.models.layers import (  # noqa: F401
+    PlaceCellEncoder,
+    ThetaGammaPositional,
+    ProsodyGatedAttention,
+    TransformerLayer,
+    MemoryAugmentedLayer,
+    Synapsis,
+    MLP,
+    SNNFFN,
+    HybridFFN,
+)
+from aura_snn_rag_tpu_torch.models.snn_rag import (  # noqa: F401
+    SNNRAGTransformer,
+    snn_rag_config,
+)
+from aura_snn_rag_tpu_torch.models.convert import (  # noqa: F401
+    params_from_numpy,
+)

@@ -1,0 +1,99 @@
+"""Weights carried across from the JAX package.
+
+`params_from_numpy(tree, config, memory_config)` takes the flax parameter
+tree of a `HippocampalTransformer` as nested dicts of numpy arrays (the
+caller does `jax.tree.map(np.asarray, params)`, with or without the outer
+"params" key) and returns the port's `state_dict` (f32 CPU tensors) for a
+model built from the same configs:
+
+    model.load_state_dict(params_from_numpy(tree, config, memory_config))
+
+Names map one to one (`layer_<i>` -> `layers.<i>`); flax's `Dense` kernel
+[in, out] becomes `weight` [out, in]; `Embed.embedding` and
+`LayerNorm.scale` become `weight`; `MultiHeadDotProductAttention`'s
+kernels [D, H, Hd] / [H, Hd, D] flatten to [H*Hd, D] / [D, H*Hd];
+`Synapsis` keeps its [in, out] `kernel`. A key missing from the tree or
+left over, or a shape that differs, raises. The flax tree holds
+`prosody_gate` only if `init` saw `prosody`, and the RAG parameters only
+if it saw a `memory_state`, while the port's model always has them: give
+`init` both.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from aura_snn_rag_tpu_torch.config import MemoryConfig, ModelConfig
+
+_LAYER = re.compile(r"^layer_(\d+)$")
+
+
+def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
+    for name, value in tree.items():
+        path = prefix + (name,)
+        if isinstance(value, Mapping):
+            yield from _flatten(value, path)
+        else:
+            yield path, value
+
+
+def _convert_leaf(path: Tuple[str, ...], value: np.ndarray
+                  ) -> Tuple[str, np.ndarray]:
+    *mods, leaf = path
+    parent = mods[-1] if mods else ""
+    in_mha = len(mods) >= 2 and mods[-2] == "memory_attention"
+    x = np.asarray(value, np.float32)
+    if leaf == "kernel":
+        if parent in ("syn1", "syn2"):                   # Synapsis: [in, out]
+            pass
+        elif in_mha:
+            # query/key/value [D, H, Hd] -> [D, H*Hd]; out [H, Hd, D] ->
+            # [H*Hd, D]; then [out, in]
+            x = (x.reshape(x.shape[0], -1) if parent != "out"
+                 else x.reshape(-1, x.shape[-1])).T
+            leaf = "weight"
+        else:                                            # Dense: [in, out]
+            x = x.T
+            leaf = "weight"
+    elif leaf == "bias" and in_mha and parent != "out":
+        x = x.reshape(-1)                                # [H, Hd] -> [H*Hd]
+    elif leaf in ("embedding", "scale"):
+        leaf = "weight"
+    mods = [("layers." + m[6:]) if _LAYER.match(m) else m for m in mods]
+    return ".".join(mods + [leaf]), np.array(x, np.float32, order="C")
+
+
+def tree_to_state_dict(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The name and layout mapping alone, for any module of
+    `models/layers.py` (no check against a model)."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    return {key: torch.from_numpy(x) for key, x in
+            (_convert_leaf(p, v) for p, v in _flatten(tree))}
+
+
+def params_from_numpy(tree: Mapping[str, Any], config: ModelConfig,
+                      memory_config: Optional[MemoryConfig] = None
+                      ) -> Dict[str, torch.Tensor]:
+    """The state_dict of `HippocampalTransformer(config, memory_config)`
+    from a flax parameter tree; raises on a missing or extra key or a
+    shape that differs."""
+    from aura_snn_rag_tpu_torch.models.transformer import (
+        HippocampalTransformer)
+    sd = tree_to_state_dict(tree)
+    want = HippocampalTransformer(config, memory_config,
+                                  device="meta").state_dict()
+    missing = sorted(set(want) - set(sd))
+    extra = sorted(set(sd) - set(want))
+    if missing or extra:
+        raise KeyError(f"flax tree does not match the model: missing "
+                       f"{missing}, extra {extra}")
+    for key, t in want.items():
+        if tuple(sd[key].shape) != tuple(t.shape):
+            raise ValueError(f"{key}: flax shape {tuple(sd[key].shape)}, "
+                             f"model shape {tuple(t.shape)}")
+    return {key: sd[key] for key in want}

@@ -1,0 +1,127 @@
+"""HippocampalTransformer: the flagship LM (counterpart of
+`aura_snn_rag_tpu/models/transformer.py`).
+
+One module covers both of the JAX package's presets: `config.use_rag`
+with a `memory_config` selects `MemoryAugmentedLayer`s (retrieval +
+injection per layer), `config.snn_layers` selects HybridFFN layers. The
+episodic `MemoryState` is an input; the forward writes nothing to it and
+returns the pooled `memory_summary` for the caller to write.
+
+The module owns its parameters (the JAX package passes a params tree to
+`apply`): they are drawn on `device` from `generator`, or loaded from a
+flax tree with `models/convert.py`. Remat is a training option and comes
+with the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple, Union
+
+import torch
+import torch.nn as nn
+
+from aura_snn_rag_tpu_torch._device import resolve_device
+from aura_snn_rag_tpu_torch.config import MemoryConfig, ModelConfig
+from aura_snn_rag_tpu_torch.models.layers import (
+    Dense, KVCache, LayerNorm, MemoryAugmentedLayer, PlaceCellEncoder,
+    RetrieveFn, ThetaGammaPositional, TransformerLayer, compute_dtype,
+    initialize)
+
+
+class TransformerOutput(NamedTuple):
+    logits: torch.Tensor           # [B, L, V] f32
+    place_activity: torch.Tensor   # [B, L, n_place_cells]
+    memory_summary: torch.Tensor   # [B, D] f32 mean-pooled features for writes
+    hidden: torch.Tensor           # [B, L, D] final hidden states
+
+
+class HippocampalTransformer(nn.Module):
+    """The LM. Parameters are f32 on `device` (CUDA unless the caller asks
+    for the CPU), drawn from `generator` (a `torch.Generator` on that
+    device; seed 0 when None); `device="meta"` builds the shapes only."""
+
+    def __init__(self, config: ModelConfig,
+                 memory_config: Optional[MemoryConfig] = None,
+                 retrieve_fn: Optional[RetrieveFn] = None,
+                 device: Union[str, torch.device, None] = "cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.config = cfg = config
+        self.memory_config = memory_config
+        dt = compute_dtype(cfg)
+        self.semantic_encoder = PlaceCellEncoder(cfg, dev)
+        self.pos_encoder = ThetaGammaPositional(cfg, dev)
+        self.input_norm = LayerNorm(cfg.embedding_dim, dt, dev)
+        rag = cfg.use_rag and memory_config is not None
+        self.layers = nn.ModuleList([
+            MemoryAugmentedLayer(cfg, memory_config, use_snn_ffn=i in
+                                 cfg.snn_layers, retrieve_fn=retrieve_fn,
+                                 device=dev) if rag else
+            TransformerLayer(cfg, use_snn_ffn=i in cfg.snn_layers,
+                             device=dev)
+            for i in range(cfg.num_layers)])
+        self.final_norm = LayerNorm(cfg.embedding_dim, dt, dev)
+        if not cfg.tie_word_embeddings:
+            self.lm_head = Dense(cfg.embedding_dim, cfg.vocab_size, dt, dev)
+        if dev.type != "meta":
+            if generator is None:
+                generator = torch.Generator(device=dev).manual_seed(0)
+            initialize(self, generator)
+
+    @property
+    def device(self) -> torch.device:
+        return self.input_norm.weight.device
+
+    def forward(self, input_ids: torch.Tensor,
+                prosody: Optional[torch.Tensor] = None,
+                use_memory: bool = True, memory_state=None,
+                positions: Optional[torch.Tensor] = None,
+                kv_caches: Optional[Tuple[KVCache, ...]] = None,
+                cache_index=None
+                ) -> Tuple[TransformerOutput, Optional[Tuple[KVCache, ...]]]:
+        """input_ids [B, L]; positions default to 0..L-1. With `kv_caches`
+        (`init_kv_caches`, updated in place) the L tokens sit at rows
+        [cache_index, cache_index + L) and the caches come back."""
+        cfg = self.config
+        B, L = input_ids.shape
+        hidden, place_activity = self.semantic_encoder(input_ids)
+        if positions is None:
+            positions = torch.arange(L, device=input_ids.device) \
+                .expand(B, L)
+        hidden = self.input_norm(hidden + self.pos_encoder(positions))
+
+        new_caches = [] if kv_caches is not None else None
+        for i, layer in enumerate(self.layers):
+            cache_i = kv_caches[i] if kv_caches is not None else None
+            if isinstance(layer, MemoryAugmentedLayer):
+                hidden, cache_out = layer(hidden, memory_state, prosody,
+                                          use_memory, cache_i, cache_index)
+            else:
+                hidden, cache_out = layer(hidden, prosody, use_memory,
+                                          cache_i, cache_index)
+            if new_caches is not None:
+                new_caches.append(cache_out)
+
+        hidden = self.final_norm(hidden)
+        if cfg.tie_word_embeddings:
+            logits = self.semantic_encoder.attend(hidden)
+        else:
+            logits = self.lm_head(hidden)
+        out = TransformerOutput(
+            logits=logits.float(),
+            place_activity=place_activity,
+            memory_summary=hidden.mean(dim=1).float(),
+            hidden=hidden)
+        return out, (tuple(new_caches) if new_caches is not None else None)
+
+    def init_kv_caches(self, batch_size: int, max_len: int
+                       ) -> Tuple[KVCache, ...]:
+        """Empty per-layer (K, V) caches [B, H, max_len, Hd] in the compute
+        dtype (the JAX package's are [B, max_len, H, Hd])."""
+        cfg = self.config
+        shape = (batch_size, cfg.num_heads, max_len, cfg.head_dim)
+        dt = compute_dtype(cfg)
+        return tuple((torch.zeros(shape, dtype=dt, device=self.device),
+                      torch.zeros(shape, dtype=dt, device=self.device))
+                     for _ in range(cfg.num_layers))

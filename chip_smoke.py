@@ -35,16 +35,33 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
    brute force over 1024 queries;
 3. host-API phase: HippocampalFormation(max_memories=65_536) written in
    batches of 512 through automatic rebuilds, then queried with and
-   without a location.
+   without a location;
+4. LM phase: the LM's serving path at `get_full_config()` (768 wide, 12
+   RAG layers, SNN FFN on even layers, bf16 compute over f32 weights,
+   random weights from a seeded generator) over a 100,000 x 768 bank
+   (bench.py's data recipe, bulk_load + rebuild_centroids): 11 requests
+   through `BatchedGenerator` (batches of 8, prompts padded to 64, up to
+   64 new tokens) under asyncio, one batch with bf16 weights, KV-cached
+   greedy decode against the full-prefix recompute, a prefill at B = 8
+   through kernel B against the same prefill through kernel B's plain
+   version, `one_shot_memorize_and_generate`, and the timings of prefill
+   and decode (ms per step and tokens/s at B = 8, f32 and bf16 weights,
+   and decode with retrieval's host sync or aux rebuild taken out).
+   Kernel B runs in every RAG layer at (K, C, P) = (256, 896, 8), so the
+   kernel phase also holds it to its plain version at that shape.
 
 `--profile` adds a torch.profiler breakdown of one call of each
-retrieval path (device time by kernel, device busy share) to phase 2.
+retrieval path (device time by kernel, device busy share) to phase 2,
+and of decode steps (wall, device, busy, `retrieve_auto`'s share) to
+phase 4.
 
 Launch counters are zeroed just before phase 2 and read after phase 3;
-every kernel must have run there. Any failed check exits non-zero. The
-last lines are the card's name and power limit, one JSON object with the
-per-kernel numbers, and {"ok": true, "device": {...}}. Without a CUDA card
-the script exits 1 and prints no result.
+every kernel must have run there. They are zeroed again before phase 4,
+where kernel B must run 12 times per model call and no other kernel
+runs. Any failed check exits non-zero. The last lines are the card's name
+and power limit, one JSON object with the per-kernel numbers, and
+{"ok": true, "device": {...}}. Without a CUDA card the script exits 1 and
+prints no result.
 """
 
 from __future__ import annotations
@@ -67,6 +84,17 @@ ENGINE = dict(max_memories=1_000_000, feature_dim=768, k_centroids=4096,
               rerank_candidates=128, n_place_cells=16, n_grid_cells=8,
               n_time_cells=4)
 KERNEL_SHAPES = dict(M=1_000_000, D=768, K=4096, C=512, P=64, kk=128, k=10)
+# kernel B as the LM's RAG layers call it (get_full_config's memory: 100k
+# rows, K = 256, capacity 896, probe 8; num_retrieved 5)
+LM_KERNEL_SHAPES = dict(M=100_000, D=768, K=256, C=896, P=8, kk=128, k=5)
+LM_SERVE = dict(batch_size=8, prompt_pad=64, max_new_tokens=64)
+N_REQUESTS = 11
+DECODE_STEPS = 32               # decode steps per timing
+# kernel B vs its plain version, prefill logits: the two retrieve the same
+# slots with scores 3e-8 apart, so the memory context and the logits agree
+# to the last bit; 1e-2 leaves room for one bf16 ulp of that context after
+# another summation order, not for another memory retrieved
+LM_LOGIT_TOL = 1e-2
 N_EVAL = 1024                   # queries for recall@10
 TOPK = 10
 
@@ -740,6 +768,390 @@ def host_api_phase(dev, max_memories=65_536, batch=512, n_batches=4):
     return rebuilds
 
 
+# --------------------------------------------------------------------------
+# LM phase
+# --------------------------------------------------------------------------
+
+def lm_bank(dev, mcfg):
+    """get_full_config's bank at full size: bench.py's data recipe drawn on
+    the card, bulk_load, then the index rebuild."""
+    import torch
+    import aura_snn_rag_tpu_torch as port
+    gen = torch.Generator(device=dev).manual_seed(2)
+    feats, _ = make_data(dev, gen, mcfg.max_memories, mcfg.feature_dim)
+    state = port.init_memory_state(mcfg, dev)
+    state = port.bulk_load(mcfg, state, feats, torch.zeros(
+        mcfg.max_memories, mcfg.spatial_dims, device=dev))
+    state = port.rebuild_centroids(mcfg, state,
+                                   torch.Generator().manual_seed(0))
+    check(bool(state.index_ready)
+          and int(state.active_count()) > mcfg.k_centroids,
+          "LM bank: index not ready")
+    return state
+
+
+def synced(fn):
+    """(result, seconds) of fn() between two device syncs."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def set_retrieve_fn(model, fn):
+    for layer in model.layers:
+        layer.retrieve_fn = fn
+
+
+def serve_requests(server, reqs):
+    """Every request through `submit` while `serve_forever` runs; the loop
+    stops once every future is done. Returns (outputs, [(batch size,
+    tokens decoded, seconds)] per batch, seconds)."""
+    import asyncio
+    batches = []
+    inner = server.generate_batch
+
+    def recording(batch):
+        out, seconds = synced(lambda: inner(batch))
+        batches.append((len(batch), server._bucket(
+            max(r.max_new_tokens for r in batch)), seconds))
+        return out
+
+    async def run():
+        task = asyncio.create_task(server.serve_forever())
+        try:
+            return await asyncio.gather(*[
+                server.submit(ids, n, temp, 0.9) for ids, n, temp in reqs])
+        finally:
+            task.cancel()
+            try:
+                await task
+            except asyncio.CancelledError:
+                pass
+
+    server.generate_batch = recording
+    try:
+        outs, seconds = synced(lambda: asyncio.run(run()))
+    finally:
+        del server.generate_batch
+    return outs, batches, seconds
+
+
+def decode_ms(model, ids, gen, state, steps=DECODE_STEPS, **kw):
+    """Device-synced ms per decode step at ids' batch through `generate`:
+    (time of 1 + steps tokens - time of 1 token) / steps, after a
+    warm-up."""
+    from aura_snn_rag_tpu_torch.generation import generate
+    kw = dict(dict(memory_state=state, use_memory=state is not None), **kw)
+    generate(model, ids, 2, gen, **kw)
+    _, t1 = synced(lambda: generate(model, ids, 1, gen, **kw))
+    _, tn = synced(lambda: generate(model, ids, 1 + steps, gen, **kw))
+    return (tn - t1) / steps * 1e3
+
+
+def profile_decode(model, ids, state, gen, reps=4):
+    """torch.profiler over `reps` decode steps at ids' batch (prefill
+    outside the window): wall and device ms per step, busy share, and the
+    share of each step spent inside `retrieve_auto` (host time in the
+    scope; the engine's function is wrapped in a record_function scope for
+    the window only)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from aura_snn_rag_tpu_torch.generation.sampler import sample_token
+    from aura_snn_rag_tpu_torch.memory import engine
+
+    B, L = ids.shape
+    real = engine.retrieve_auto
+
+    def scoped(*a, **kw):
+        with record_function("retrieve_auto"):
+            return real(*a, **kw)
+
+    def step(tok, pos, caches):
+        out, caches = model(tok[:, None], memory_state=state,
+                            positions=torch.full((B, 1), pos,
+                                                 device=ids.device),
+                            kv_caches=caches, cache_index=pos)
+        return sample_token(gen, out.logits[:, 0], 0.8, 50, 0.9), caches
+
+    with torch.no_grad():
+        caches = model.init_kv_caches(B, model.config.max_seq_len)
+        out, caches = model(ids, memory_state=state, kv_caches=caches,
+                            cache_index=0)
+        tok = out.logits[:, -1].argmax(-1)
+        tok, caches = step(tok, L, caches)             # warm-up
+        torch.cuda.synchronize()
+        engine.retrieve_auto = scoped
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for i in range(reps):
+                    tok, caches = step(tok, L + 1 + i, caches)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        finally:
+            engine.retrieve_auto = real
+    rows = prof.key_averages()
+    # kernels only: the scope's own row spans its device time again
+    kernels = [e for e in rows if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0 and e.key != "retrieve_auto"]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    ret = [e for e in rows if e.key == "retrieve_auto"
+           and e.device_type == DeviceType.CPU]
+    ret_ms = ret[0].cpu_time_total / 1e3 / reps if ret else None
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:8]
+    port_b = [e for e in kernels if "ivf_" in e.key
+              and "namespace)::" in e.key]
+    res = dict(wall_ms=wall_ms, device_ms=dev_ms, busy=dev_ms / wall_ms,
+               retrieve_auto_host_ms=ret_ms,
+               retrieve_auto_share=None if ret_ms is None
+               else ret_ms / wall_ms,
+               kernel_launches_per_step=sum(e.count for e in kernels) / reps,
+               top=[(e.key[:60], e.self_device_time_total / 1e3 / reps,
+                     e.count // reps) for e in top],
+               kernel_B=[(e.key[:60], e.self_device_time_total / 1e3 / reps,
+                          e.count // reps) for e in port_b])
+    log(f"profile decode B={B}: wall {wall_ms:.3f} ms/step, device "
+        f"{dev_ms:.3f} ms/step, busy {dev_ms / wall_ms:.3f}, retrieve_auto "
+        f"host {ret_ms} ms/step, {res['kernel_launches_per_step']:.0f} "
+        f"kernels/step")
+    for key, ms, n in res["top"] + res["kernel_B"]:
+        log(f"    {ms:9.4f} ms  x{n:<4d} {key}")
+    return res
+
+
+def greedy_cached_vs_recompute(model, ids, n=8):
+    """KV-cached greedy decode (top_k = 1) against recomputing the whole
+    prefix for each token, without memory (the retrieval query is the
+    mean of the chunk, which the two schedules take over different
+    chunks). Returns (identical, smallest top-2 logit gap of the
+    recompute)."""
+    import torch
+    from aura_snn_rag_tpu_torch.generation import generate
+    L = ids.shape[1]
+    got = generate(model, ids, n, None, top_k=1, repetition_penalty=1.0)
+    seq, gaps = ids, []
+    with torch.no_grad():
+        for _ in range(n):
+            out, _ = model(seq, use_memory=False)
+            top2 = torch.topk(out.logits[:, -1], 2).values
+            gaps.append(float(top2[0, 0] - top2[0, 1]))
+            seq = torch.cat([seq, out.logits[:, -1].argmax(-1)[:, None]], 1)
+    return bool(torch.equal(got[:, L:], seq[:, L:])), min(gaps)
+
+
+def kernel_vs_plain_prefill(model, ids, state):
+    """One prefill at ids' batch through the engine (kernel B), then the
+    same prefill with a retrieve_fn that runs the same retrieval with
+    kernel B's plain version. Returns (max |logit difference|, how many
+    of the retrieved slots differ, layers x rows x k)."""
+    import torch
+    from aura_snn_rag_tpu_torch.memory import engine
+    from aura_snn_rag_tpu_torch.ops.cuda import ivf_scan
+
+    real_auto, real_kernel = engine.retrieve_auto, engine.ivf_retrieve_fused
+    got = {"kernel": [], "plain": []}
+
+    def recording(*a, **kw):
+        res = real_auto(*a, **kw)
+        got["kernel"].append(res.indices)
+        return res
+
+    def plain(cfg, st, q, k):
+        engine.ivf_retrieve_fused = ivf_scan.ivf_retrieve_fused_plain
+        try:
+            res = real_auto(cfg, st, q, None, k)
+        finally:
+            engine.ivf_retrieve_fused = real_kernel
+        got["plain"].append(res.indices)
+        return res
+
+    with torch.no_grad():
+        engine.retrieve_auto = recording
+        try:
+            a, _ = model(ids, memory_state=state)
+        finally:
+            engine.retrieve_auto = real_auto
+        set_retrieve_fn(model, plain)
+        try:
+            b, _ = model(ids, memory_state=state)
+        finally:
+            set_retrieve_fn(model, None)
+    ka, kb = torch.stack(got["kernel"]), torch.stack(got["plain"])
+    return ((a.logits - b.logits).abs().max().item(),
+            int((ka != kb).sum()), ka.numel())
+
+
+def lm_phase(dev, profile=False):
+    """The LM's serving path at get_full_config(); see the module doc."""
+    import torch
+    import aura_snn_rag_tpu_torch as port
+    from aura_snn_rag_tpu_torch.generation import (
+        BatchedGenerator, GenerationRequest)
+    from aura_snn_rag_tpu_torch.memory import engine
+    from aura_snn_rag_tpu_torch.ops.cuda import _build
+    from aura_snn_rag_tpu_torch.services import one_shot
+
+    cfg = port.get_full_config()
+    mcfg, n_layers = cfg.memory, cfg.model.num_layers
+    stats = {}
+    model = port.SNNRAGTransformer.create(
+        cfg.model, mcfg, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(7))
+    stats["params"] = sum(p.numel() for p in model.parameters())
+    state, stats["bank_s"] = synced(lambda: lm_bank(dev, mcfg))
+    log(f"LM: {stats['params']} parameters, bank of {mcfg.max_memories} x "
+        f"{mcfg.feature_dim} with K={mcfg.k_centroids}, C="
+        f"{mcfg.bucket_capacity}, probe {mcfg.probe_centroids} built in "
+        f"{stats['bank_s']:.2f} s")
+    g = torch.Generator().manual_seed(11)          # request contents
+    counts = _build.launch_counts
+
+    def b_launches():
+        return counts["ivf_retrieve_fused"]
+
+    # 1. 11 requests through the server under asyncio
+    reqs = [(torch.randint(0, cfg.model.vocab_size,
+                           (int(torch.randint(5, 65, (1,), generator=g)),),
+                           generator=g).numpy(),
+             int(torch.randint(8, 65, (1,), generator=g)),
+             float(0.5 + torch.rand(1, generator=g))) for _ in range(
+                 N_REQUESTS)]
+    server = BatchedGenerator(model, memory_state=state,
+                              generator=torch.Generator(device=dev)
+                              .manual_seed(3), **LM_SERVE)
+    n0 = b_launches()
+    outs, batches, serve_s = serve_requests(server, reqs)
+    want = n_layers * sum(tokens for _, tokens, _ in batches)
+    check(b_launches() - n0 == want,
+          f"LM serving: kernel B launched {b_launches() - n0} times, "
+          f"expected 12 x (1 + steps) per batch = {want} ({batches})")
+    for out, (ids, n, _) in zip(outs, reqs):
+        check(out.shape == (n,) and ((out >= 0)
+                                     & (out < cfg.model.vocab_size)).all(),
+              f"LM serving: output {out.shape} for {n} tokens")
+    check([b for b, _, _ in batches] == [8, 3],
+          f"LM serving: batches {batches}, expected 8 then 3")
+    stats["serve"] = dict(requests=len(reqs), batches=batches, seconds=serve_s,
+                          tokens=server.stats["tokens"],
+                          tokens_per_s=server.stats["tokens"] / serve_s,
+                          kernel_B_launches=want)
+    log(f"LM serving: {len(reqs)} requests in batches {batches} (size, "
+        f"tokens, s) in {serve_s:.2f} s, {server.stats['tokens']} tokens "
+        f"returned, kernel B launched {want} = {n_layers} x (1 + steps) "
+        f"per batch")
+
+    # 2. one batch again with bf16 weights
+    bserver = BatchedGenerator(model, memory_state=state,
+                               weights_dtype="bfloat16",
+                               generator=torch.Generator(device=dev)
+                               .manual_seed(4), **LM_SERVE)
+    check(all(p.dtype == torch.bfloat16 for p in bserver.model.parameters()),
+          "bf16 server holds f32 weights")
+    n0 = b_launches()
+    breqs = [GenerationRequest(ids, n, t) for ids, n, t in reqs[:8]]
+    bouts, bf16_s = synced(lambda: bserver.generate_batch(breqs))
+    want_b = n_layers * bserver._bucket(max(r.max_new_tokens for r in breqs))
+    check(b_launches() - n0 == want_b,
+          f"LM bf16 batch: kernel B launched {b_launches() - n0} times, "
+          f"expected {want_b}")
+    check([o.shape for o in bouts] == [(r.max_new_tokens,) for r in breqs],
+          "LM bf16 batch: output shapes")
+    stats["serve_bf16_weights"] = dict(seconds=bf16_s,
+                                       kernel_B_launches=want_b)
+    log(f"LM bf16-weight batch: {bf16_s:.2f} s, kernel B launched {want_b}")
+
+    # 3. KV-cached greedy decode against the full-prefix recompute, B = 1
+    ids1 = torch.randint(0, cfg.model.vocab_size, (1, 16), generator=g) \
+        .to(dev)
+    same, gap = greedy_cached_vs_recompute(model, ids1)
+    check(same, f"LM: cached greedy decode differs from the recompute "
+          f"(smallest top-2 gap {gap})")
+    stats["greedy_cached_equals_recompute"] = same
+    stats["greedy_min_top2_gap"] = gap
+    log(f"LM: cached greedy decode of 8 tokens at B=1 equals the full "
+        f"recompute (smallest top-2 logit gap {gap:.4f})")
+
+    # 4. a prefill at B = 8 through kernel B and through its plain version
+    ids8 = torch.randint(0, cfg.model.vocab_size,
+                         (LM_SERVE["batch_size"], LM_SERVE["prompt_pad"]),
+                         generator=g).to(dev)
+    gap_logit, slot_diff, n_slots = kernel_vs_plain_prefill(model, ids8,
+                                                            state)
+    check(gap_logit <= LM_LOGIT_TOL,
+          f"LM prefill: kernel B vs plain logits differ by {gap_logit} > "
+          f"{LM_LOGIT_TOL} ({slot_diff} of {n_slots} slots differ)")
+    stats["kernel_vs_plain_max_logit_diff"] = gap_logit
+    stats["kernel_vs_plain_slots_differ"] = slot_diff
+    log(f"LM prefill B=8 L=64: kernel B vs its plain version: max logit "
+        f"diff {gap_logit:.3g} (tolerance {LM_LOGIT_TOL}), {slot_diff} of "
+        f"{n_slots} retrieved slots differ")
+
+    # 5. one-shot memorisation on a HippocampalFormation
+    hippo = port.HippocampalFormation(mcfg, device=dev)
+    mid, out = one_shot.one_shot_memorize_and_generate(
+        model, hippo, torch.randint(0, cfg.model.vocab_size, (32,),
+                                    generator=g),
+        torch.randint(0, cfg.model.vocab_size, (8,), generator=g),
+        max_new_tokens=8)
+    check(hippo.memory_count == 1 and out.shape == (1, 16)
+          and mid.startswith("oneshot-"), "one_shot_memorize_and_generate")
+    log(f"LM: one_shot_memorize_and_generate wrote {mid}, generated "
+        f"{tuple(out.shape)}")
+    del hippo
+
+    # 6. timings at B = 8
+    gen = torch.Generator(device=dev).manual_seed(5)
+    with torch.no_grad():
+        caches = model.init_kv_caches(*ids8.shape[:1],
+                                      cfg.model.max_seq_len)
+        prefill = [synced(lambda: model(ids8, memory_state=state,
+                                        kv_caches=caches,
+                                        cache_index=0))[1]
+                   for _ in range(4)][1:]
+    stats["prefill_ms_b8_l64"] = 1e3 * sum(prefill) / len(prefill)
+    aux = engine.build_ivf_aux(mcfg, state)
+    # decode variants, each in two rounds (in this order, then reversed):
+    # the host's pace moves from run to run
+    variants = {
+        "f32_weights": (model, state, None),
+        "bf16_weights": (bserver.model, state, None),
+        # the dispatch's host sync taken out (retrieve directly)
+        "no_dispatch_sync": (model, state, lambda c, s, q, k:
+                             engine.retrieve(c, s, q, None, k)),
+        # the sync and the per-call aux rebuild taken out
+        "no_sync_aux_cached": (model, state, lambda c, s, q, k:
+                               engine.retrieve(c, s, q, None, k, aux=aux)),
+        "no_memory": (model, None, None),
+    }
+    runs = {name: [] for name in variants}
+    for order in (list(variants), list(variants)[::-1]):
+        for name in order:
+            m, st, fn = variants[name]
+            set_retrieve_fn(m, fn)
+            try:
+                runs[name].append(decode_ms(m, ids8, gen, st))
+            finally:
+                set_retrieve_fn(m, None)
+    for name, ms in runs.items():
+        stats[f"decode_ms_b8_{name}"] = ms
+    for w in ("f32", "bf16"):
+        stats[f"tokens_per_s_b8_{w}_weights"] = [
+            LM_SERVE["batch_size"] * 1e3 / ms
+            for ms in runs[f"{w}_weights"]]
+    log(f"LM timings: prefill_ms_b8_l64 {stats['prefill_ms_b8_l64']:.3f}; "
+        "decode ms/step at B=8 (two rounds): " + ", ".join(
+            f"{name} {ms[0]:.3f} / {ms[1]:.3f}" for name, ms in runs.items()))
+    stats["profile"] = profile_decode(model, ids8, state, gen) \
+        if profile else None
+    return stats
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -783,6 +1195,13 @@ def main() -> int:
                         s["k"], cases_B=(1, 8))
     del ivf
     topk_ms = topk_context(dev, gen, s["P"] * s["C"], s["kk"], (1, 8))
+    # kernel B at the LM's shape: P*C = 7168 keys over the select's 8 CTAs
+    ls = LM_KERNEL_SHAPES
+    ivf = ivf_inputs(dev, gen, ls["K"], ls["C"], ls["D"], ls["M"], ls["P"],
+                     8, 4)
+    res_lm_b = kernel_B_C(ivf, ls["K"], ls["C"], ls["D"], ls["M"], ls["P"],
+                          ls["kk"], ls["k"], cases_B=(1, 8), cases_C=())
+    del ivf
     torch.cuda.empty_cache()
 
     # ---- the main path: counts from zero, read after the last phase ----
@@ -796,6 +1215,18 @@ def main() -> int:
         check(launches.get(name, 0) > 0, f"{name} never launched on the "
               f"main path ({launches})")
     log(f"main-path launches: {launches}")
+    torch.cuda.empty_cache()
+
+    # ---- the LM's serving path: counts from zero again ----
+    _build.reset_launch_counts()
+    lm = lm_phase(dev, profile="--profile" in sys.argv[1:])
+    launches_lm = dict(_build.launch_counts)
+    check(launches_lm.get("ivf_retrieve_fused", 0) > 0
+          and all(launches_lm.get(name, 0) == 0 for name in SOURCES
+                  if name != "ivf_retrieve_fused"),
+          f"LM path launches {launches_lm}: kernel B only, at least once")
+    lm["launches"] = launches_lm
+    log(f"LM-path launches: {launches_lm}")
 
     main_shape = {"flat_blockmax": res_a[("int8", 1024)],
                   "ivf_retrieve_fused": res_bc[("ivf_retrieve_fused", 8)],
@@ -813,9 +1244,18 @@ def main() -> int:
             b1 = res_ivf[(name, 1)]
             row.update(ms_b1=b1["ms"], graph_ms_b1=b1["graph_ms"],
                        bound_ms_b1=b1["bound_ms"], host_us_b1=b1["host_us"])
+        if name == "ivf_retrieve_fused":
+            # the LM's shape, and its launches on the LM path
+            row["launches_lm"] = launches_lm[name]
+            for B, suffix in ((8, ""), (1, "_b1")):
+                r = res_lm_b[(name, B)]
+                row.update({f"lm_{key}{suffix}": r[key] for key in (
+                    "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
+                    "bound_by", "host_us") if r[key] is not None})
         kernels.append(row)
     log(json.dumps({"torch_topk_ms": topk_ms}))
     log(json.dumps({"engine": stats}))
+    log(json.dumps({"lm": lm}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

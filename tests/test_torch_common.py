@@ -211,13 +211,19 @@ def test_init_memory_state_matches(coarse):
 
 def test_entry_points_default_to_cuda():
     _, tcfg = configs()
+    lm = port.get_debug_config().model
     if torch.cuda.is_available():
         assert port.init_memory_state(tcfg).features.is_cuda
+        assert port.HippocampalTransformer(lm).device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             port.init_memory_state(tcfg)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             port.HippocampalFormation(tcfg)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            port.HippocampalTransformer(lm)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            port.SNNRAGTransformer.create(lm, tcfg)
 
 
 def test_state_numpy_round_trip_from_jax():

@@ -296,3 +296,66 @@ def test_ivf_candidates_kernel_matches_plain(dev, B, C, P, kk, K, D):
         np.testing.assert_array_equal(sl[b, :3], psl[b, :3])
         np.testing.assert_array_equal(sl[b, :3], 4096 + 3 * b + np.arange(3))
 
+
+
+# Kernel B as the LM's RAG layers call it at get_full_config(): K = 256
+# clusters of C = 896 slots (not a multiple of 512), probe 8, so the
+# select's 8 CTAs split P*C = 7168 keys; a 100,000-row bank, kk = 128,
+# k = 5 (num_retrieved), at the server's B = 8 and at B = 1.
+@pytest.mark.parametrize("B", [1, 8])
+def test_ivf_retrieve_fused_kernel_at_the_lm_shape(dev, B):
+    cl, aux, feats, qn, top_c = (t.to(dev) for t in _ivf_inputs(
+        np.random.RandomState(60 + B), 256, 896, 768, B, 8, 100_000))
+    s, sl = ivf_retrieve_fused(cl, aux, feats, qn, top_c, 128, 5)
+    ps, psl = ivf_retrieve_fused_plain(cl, aux, feats, qn, top_c, 128, 5)
+    torch.cuda.synchronize()
+    assert (sl[:, 5:] == -1).all() and (s[:, 5:] == -1e30).all()
+    _assert_select_matches(s[:, :5], sl[:, :5], ps[:, :5], psl[:, :5], B)
+
+
+def test_lm_prefill_through_kernel_b_matches_its_plain_version(dev):
+    """A small LM (f32 compute) over a bank whose batches of 2 take IVF
+    v3r: the prefill's logits through kernel B equal, within 1e-4, those
+    of a retrieve_fn that runs the same retrieval with kernel B's plain
+    version, and every RAG layer launched kernel B once."""
+    import aura_snn_rag_tpu_torch as port
+    from aura_snn_rag_tpu_torch.memory import engine
+
+    mcfg = port.MemoryConfig(max_memories=16384, feature_dim=128,
+                             k_centroids=128, probe_centroids=4)
+    cfg = port.ModelConfig(vocab_size=512, embedding_dim=128, num_layers=3,
+                           num_heads=4, intermediate_size=256,
+                           n_place_cells=128, use_rag=True,
+                           snn_layers=(0, 2), dtype="float32")
+    rng = np.random.RandomState(70)
+    centres = rng.randn(64, 128).astype(np.float32) * 2
+    feats = centres[rng.randint(0, 64, 16384)] + rng.randn(
+        16384, 128).astype(np.float32)
+    state = port.bulk_load(mcfg, port.init_memory_state(mcfg, dev),
+                           torch.from_numpy(feats).to(dev),
+                           torch.zeros(16384, 2, device=dev))
+    state = port.rebuild_centroids(mcfg, state,
+                                   torch.Generator().manual_seed(0))
+    model = port.HippocampalTransformer(
+        cfg, mcfg, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(1))
+    ids = torch.from_numpy(rng.randint(0, 512, (2, 24))).to(dev)
+    real = engine.ivf_retrieve_fused
+
+    def plain(c, s, q, k):
+        engine.ivf_retrieve_fused = ivf_retrieve_fused_plain
+        try:
+            return engine.retrieve_auto(c, s, q, None, k)
+        finally:
+            engine.ivf_retrieve_fused = real
+
+    with torch.no_grad():
+        n0 = launch_counts["ivf_retrieve_fused"]
+        a, _ = model(ids, memory_state=state)
+        torch.cuda.synchronize()
+        assert launch_counts["ivf_retrieve_fused"] == n0 + 3
+        for layer in model.layers:
+            layer.retrieve_fn = plain
+        b, _ = model(ids, memory_state=state)
+    assert launch_counts["ivf_retrieve_fused"] == n0 + 3
+    assert (a.logits - b.logits).abs().max().item() <= 1e-4
