@@ -7,13 +7,16 @@ Ported so far: the episodic-memory engine (`memory`) and its five
 kernels (`ops.cuda`); the LM's serving path: the spiking and encoding
 ops it runs (`ops`), the model (`models`), the sampler and the batched
 server (`generation`) and the one-shot memorisation helpers
-(`services`).
+(`services`); the LM's training path: the trainer, loss, schedule,
+optimizer and data (`training`), the modulators it runs
+(`models.brain`) and its telemetry (`zones`).
 """
 
 from aura_snn_rag_tpu_torch.config import (  # noqa: F401
     AuraConfig,
     MemoryConfig,
     ModelConfig,
+    TrainingConfig,
     get_debug_config,
     get_full_config,
     get_medium_config,
@@ -51,6 +54,11 @@ from aura_snn_rag_tpu_torch.generation import (  # noqa: F401
     BatchedGenerator,
     GenerationRequest,
     generate,
+)
+from aura_snn_rag_tpu_torch.training import (  # noqa: F401
+    Trainer,
+    hippocampal_loss,
+    warmup_cosine_schedule,
 )
 
 __version__ = "0.1.0"

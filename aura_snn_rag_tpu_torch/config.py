@@ -1,9 +1,10 @@
 """Configuration of the episodic-memory engine and of the LM.
 
-Copies of `MemoryConfig` and `ModelConfig` from `aura_snn_rag_tpu/config.py`
-with the same field names and defaults, so one configuration drives
-either package, and the same presets (`get_debug_config` ...
-`get_xl_config`) with their model and memory parts. The port keeps its
+Copies of `MemoryConfig`, `ModelConfig` and `TrainingConfig` from
+`aura_snn_rag_tpu/config.py` with the same field names and defaults, so
+one configuration drives either package, and the same presets
+(`get_debug_config` ... `get_xl_config`) with their model, memory and
+training parts. The port keeps its
 own copy because importing the JAX package pulls in JAX.
 
 What the `MemoryConfig` fields mean in the port:
@@ -98,11 +99,15 @@ class MemoryConfig:
 class ModelConfig:
     """Hippocampal transformer model configuration.
 
-    What the fields mean in the port: `dropout`, `use_gradient_checkpointing`
-    and `gradient_checkpoint_policy` belong to training, which is not
-    ported yet; the port's modules run as the JAX package's do with
-    `deterministic=True` (no dropout). `dtype` is the compute dtype:
-    parameters stay f32 and are cast at every use, as flax does.
+    What the fields mean in the port: `dropout` applies only in a
+    forward that is given a `dropout_seed` in training mode (the
+    trainer's); without one the modules run as the JAX package's do with
+    `deterministic=True`. `use_gradient_checkpointing` recomputes each
+    layer in the backward (`torch.utils.checkpoint`), under
+    `gradient_checkpoint_policy` "full" (the whole layer) or "dots"
+    (selective: matmul and attention outputs are saved). `dtype` is the
+    compute dtype: parameters stay f32 and are cast at every use, as flax
+    does.
     """
 
     vocab_size: int = 32_000
@@ -149,21 +154,77 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class TrainingConfig:
+    """Training hyperparameters, as the JAX package's `TrainingConfig`.
+
+    In the port: `optimizer_mu_dtype` "bfloat16" keeps AdamW's first
+    moment in bf16; `metrics_fetch_interval` is how often `train_step`
+    reads a step's metrics back from the device (one step late);
+    `save_steps` belongs to checkpointing, which is not ported yet.
+    """
+
+    batch_size: int = 32
+    gradient_accumulation_steps: int = 1
+    max_steps: int = 100_000
+
+    lr: float = 1e-4
+    warmup_steps: int = 2000
+    min_lr_ratio: float = 0.1
+    weight_decay: float = 0.01
+    gradient_clip: float = 1.0
+    optimizer_mu_dtype: str = "float32"
+
+    label_smoothing: float = 0.1
+    entropy_lambda: float = 0.05
+    sparsity_lambda: float = 0.02
+    target_sparsity: float = 0.03
+
+    # Memory system
+    memory_warmup_steps: int = 5000
+    memory_store_interval: int = 10      # store memories every N steps
+    memory_decay_rate: float = 0.001
+    replay_buffer_size: int = 50_000
+    ewc_lambda: float = 0.4
+
+    # Sleep-wake cycle
+    sleep_interval: int = 1000
+    sleep_replay_batches: int = 4
+
+    save_steps: int = 1000
+    eval_steps: int = 500
+    logging_steps: int = 100
+    metrics_fetch_interval: int = 1
+
+    # Modulators
+    enable_amygdala: bool = True
+    enable_endocrine: bool = True
+    enable_thalamus: bool = True
+    # Let the endocrine memory gate (x[0.8, 1.2]) veto episodic memory
+    # when it drops the use_memory product below 0.9; False keeps the
+    # hormone-driven LR scaling but not the veto.
+    endocrine_memory_gating: bool = True
+
+    seed: int = 42
+
+
+@dataclass(frozen=True)
 class AuraConfig:
-    """The model and memory parts of the JAX package's `AuraConfig`. The
-    `training`, `mesh` and `parallel` parts come with the slices that
-    port training and the parallel runtime."""
+    """The model, memory and training parts of the JAX package's
+    `AuraConfig`. The `mesh` and `parallel` parts come with the slice that
+    ports the parallel runtime."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
     memory: MemoryConfig = field(default_factory=MemoryConfig)
+    training: TrainingConfig = field(default_factory=TrainingConfig)
 
     def replace(self, **kw) -> "AuraConfig":
         return dataclasses.replace(self, **kw)
 
 
-def _cfg(model_kw, memory_kw) -> AuraConfig:
+def _cfg(model_kw, memory_kw, training_kw) -> AuraConfig:
     return AuraConfig(model=ModelConfig(**model_kw),
-                      memory=MemoryConfig(**memory_kw))
+                      memory=MemoryConfig(**memory_kw),
+                      training=TrainingConfig(**training_kw))
 
 
 def get_test_config() -> AuraConfig:
@@ -173,6 +234,8 @@ def get_test_config() -> AuraConfig:
              intermediate_size=2048, max_seq_len=256, n_place_cells=1000),
         dict(max_memories=10_000, feature_dim=512, k_centroids=64,
              rebuild_interval=128, n_place_cells=1000),
+        dict(batch_size=16, max_steps=5000, warmup_steps=200,
+             memory_warmup_steps=500, sleep_interval=500),
     )
 
 
@@ -184,6 +247,8 @@ def get_debug_config() -> AuraConfig:
         dict(max_memories=256, feature_dim=64, k_centroids=8,
              rebuild_interval=32, n_place_cells=64, n_grid_cells=16,
              n_time_cells=8),
+        dict(batch_size=4, max_steps=100, warmup_steps=10,
+             memory_warmup_steps=10, sleep_interval=50),
     )
 
 
@@ -192,12 +257,13 @@ def get_small_config() -> AuraConfig:
         dict(embedding_dim=512, num_layers=6, num_heads=8,
              intermediate_size=2048, n_place_cells=1000),
         dict(feature_dim=512),
+        dict(batch_size=16),
     )
 
 
 def get_medium_config() -> AuraConfig:
     """12L/768D, the reference's 'medium' preset."""
-    return _cfg(dict(), dict())
+    return _cfg(dict(), dict(), dict(batch_size=32, max_steps=20_000))
 
 
 def get_full_config() -> AuraConfig:
@@ -208,6 +274,12 @@ def get_full_config() -> AuraConfig:
              intermediate_size=3072, max_seq_len=512, n_place_cells=2000,
              use_rag=True, snn_layers=(0, 2, 4, 6, 8, 10)),
         dict(max_memories=100_000, feature_dim=768),
+        # batch 16, not the reference's 32. At this batch `retrieve_auto`
+        # takes the flat scan (16 x probe 8 x capacity 896 >= 100k rows);
+        # gradient_accumulation_steps = 2 gives micro-batches of 8, which
+        # retrieve through IVF v3r (kernel B).
+        dict(batch_size=16, max_steps=50_000, warmup_steps=2000,
+             memory_warmup_steps=5000),
     )
 
 
@@ -218,4 +290,5 @@ def get_xl_config() -> AuraConfig:
              intermediate_size=4096, n_place_cells=2000, use_rag=True,
              snn_layers=(2, 6, 10, 14)),
         dict(feature_dim=1024),
+        dict(batch_size=64, max_steps=50_000),
     )

@@ -28,8 +28,8 @@ from aura_snn_rag_tpu_torch.memory.state import MemoryState
 from aura_snn_rag_tpu_torch.ops.cuda.flat_scan import (
     BLOCK_R, block_member_slots, flat_blockmax, pack_row_terms)
 from aura_snn_rag_tpu_torch.ops.cuda.ivf_scan import (
-    KPAD, ivf_candidates, ivf_retrieve_fused, ivf_scan_scores,
-    ivf_topk_scores)
+    KPAD, ivf_candidates, ivf_retrieve_fused, ivf_retrieve_fused_grad,
+    ivf_scan_scores, ivf_topk_scores)
 
 NEG_INF = -1e30
 
@@ -388,10 +388,13 @@ def _retrieve_v3r(config: MemoryConfig, state: MemoryState, qn: torch.Tensor,
                   top_c: torch.Tensor, aux: torch.Tensor, kk: int,
                   k: int) -> RetrievalResult:
     """Kernel B does the coarse scan, funnel, exact rerank and top-k; the
-    annex's coarse top-kk is reranked here and merged by score."""
+    annex's coarse top-kk is reranked here and merged by score. The
+    scores carry a gradient into `qn` (`ivf_retrieve_fused_grad`, the
+    gradient of the JAX package's XLA path), as the annex's do."""
     kk3 = -(-kk // KPAD) * KPAD
-    s, sl = ivf_retrieve_fused(state.clustered, aux, state.features, qn,
-                               top_c, kk3, k)
+    s, sl = ivf_retrieve_fused_grad(state.clustered, aux, state.features,
+                                    state.strength, config.w_cosine, qn,
+                                    top_c, kk3, k, fused=ivf_retrieve_fused)
     scores, out_slots = s[:, :k], sl[:, :k].long()
     annex = _annex_coarse(config, state, qn, None, kk3)
     if annex is not None:

@@ -1,6 +1,7 @@
 """Model stack: the hippocampal transformer LM and its building blocks
-(counterpart of `aura_snn_rag_tpu.models`). The language-zone and brain
-models come in a later slice."""
+(counterpart of `aura_snn_rag_tpu.models`). The trainer's modulators are
+in `models.brain`; the language-zone models and the rest of the brain
+come in a later slice."""
 
 from aura_snn_rag_tpu_torch.models.transformer import (  # noqa: F401
     HippocampalTransformer,
@@ -22,5 +23,7 @@ from aura_snn_rag_tpu_torch.models.snn_rag import (  # noqa: F401
     snn_rag_config,
 )
 from aura_snn_rag_tpu_torch.models.convert import (  # noqa: F401
+    module_from_numpy,
     params_from_numpy,
+    trainer_from_numpy,
 )

@@ -17,6 +17,12 @@ left over, or a shape that differs, raises. The flax tree holds
 `prosody_gate` only if `init` saw `prosody`, and the RAG parameters only
 if it saw a `memory_state`, while the port's model always has them: give
 `init` both.
+
+`module_from_numpy(module, tree)` loads any port module whose names
+mirror a flax module's (the trainer's `Amygdala` and `Thalamus` among
+them), and `trainer_from_numpy` builds a port `Trainer` from the numpy
+trees of a JAX `Trainer` (model, amygdala, thalamus and bank), so both
+packages train from the same weights.
 """
 
 from __future__ import annotations
@@ -97,3 +103,50 @@ def params_from_numpy(tree: Mapping[str, Any], config: ModelConfig,
             raise ValueError(f"{key}: flax shape {tuple(sd[key].shape)}, "
                              f"model shape {tuple(t.shape)}")
     return {key: sd[key] for key in want}
+
+
+def module_from_numpy(module: torch.nn.Module,
+                      tree: Mapping[str, Any]) -> torch.nn.Module:
+    """Loads a flax tree into a port module of the same names (strict:
+    a missing or extra key or a shape that differs raises); returns the
+    module."""
+    sd = tree_to_state_dict(tree)
+    want = module.state_dict()
+    if set(sd) != set(want):
+        raise KeyError(f"flax tree does not match {type(module).__name__}: "
+                       f"missing {sorted(set(want) - set(sd))}, extra "
+                       f"{sorted(set(sd) - set(want))}")
+    module.load_state_dict(sd)
+    return module
+
+
+def trainer_from_numpy(config, params: Mapping[str, Any],
+                       amygdala: Optional[Mapping[str, Any]] = None,
+                       thalamus: Optional[Mapping[str, Any]] = None,
+                       memory_state=None, seed: int = 0, device="cuda"):
+    """A port `Trainer` (`training/trainer.py`) holding a JAX `Trainer`'s
+    weights: `params` is `jax.tree.map(np.asarray, trainer.state.params)`,
+    `amygdala` / `thalamus` the same of `trainer.amygdala_params` /
+    `trainer.thalamus_params` (required when the config enables them),
+    `memory_state` the bank as numpy (`jax.tree.map(np.asarray,
+    trainer.hippocampus.state)`), or None to keep the new empty bank.
+    The optimizer state starts fresh, as a new JAX `Trainer`'s does."""
+    from aura_snn_rag_tpu_torch.memory.state import state_from_numpy
+    from aura_snn_rag_tpu_torch.training.trainer import Trainer
+    trainer = Trainer(config, seed=seed, device=device)
+    sd = params_from_numpy(params, config.model,
+                           config.memory if config.model.use_rag else None)
+    with torch.no_grad():
+        for name, p in trainer.model.named_parameters():
+            p.copy_(sd[name])                    # into the optimizer's buffer
+    for mod, tree in ((trainer.amygdala, amygdala),
+                      (trainer.thalamus, thalamus)):
+        if mod is not None:
+            if tree is None:
+                raise ValueError(f"{type(mod).__name__} is enabled but no "
+                                 f"tree was given")
+            module_from_numpy(mod, tree)
+    if memory_state is not None:
+        trainer.hippocampus._set_state(
+            state_from_numpy(memory_state, trainer.device))
+    return trainer

@@ -21,11 +21,17 @@ does it). Where flax and PyTorch differ, the port follows flax:
   the embedding, normal(1/sqrt(fan_in * 0.3)) on `Synapsis`, normal(0.1)
   on the theta/gamma offsets, logit(`snn_ratio`) on the hybrid gate.
   Every module draws from the `torch.Generator` it is given.
+- Dropout (`Dropout`, at flax's sites: after the attention's `o_proj`,
+  the MLP's `down`, the spiking FFN's time mean, and the model's input
+  norm) runs only when a forward is given a `dropout_seed` in training
+  mode; without one a module runs as flax's with `deterministic=True`.
+  Each site draws its mask from a generator seeded with the seed and the
+  site's index, so a recompute (remat) draws the same mask; flax's masks
+  come from JAX's PRNG and are not the same bits.
 
-Training pieces are not here yet: dropout (the modules run as flax's do
-with `deterministic=True`), remat, `Synapsis` plasticity traces and
-`stdp_update`. Ring attention comes with the parallel slice, so no module
-takes a mesh.
+Not here yet: `Synapsis` plasticity traces and `stdp_update` (no module
+of the LM's training path calls them). Ring attention comes with the
+parallel slice, so no module takes a mesh.
 """
 
 from __future__ import annotations
@@ -72,6 +78,34 @@ def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
     multiply by the f32 constant. A 0-dim CPU tensor, so no copy to the
     card."""
     return torch.tensor(value, dtype=like.dtype)
+
+
+class Dropout(nn.Module):
+    """flax `nn.Dropout(rate)` with an explicit seed: where a uniform draw
+    is below 1 - rate the input is kept and divided by 1 - rate (rounded
+    to the input's dtype first, as JAX does), elsewhere it is 0. The
+    draw comes from a `torch.Generator` on the input's device seeded with
+    `dropout_seed` and the module's `site` (its index among the model's
+    dropout sites, set by `HippocampalTransformer`), so the same seed
+    gives the same mask, in a recompute too. Identity with no seed, in
+    eval mode or at rate 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.site = 0
+
+    def forward(self, x: torch.Tensor,
+                dropout_seed: Optional[int] = None) -> torch.Tensor:
+        if dropout_seed is None or not self.training or self.rate <= 0:
+            return x
+        gen = torch.Generator(device=x.device)
+        gen.manual_seed((int(dropout_seed) * 1_000_003 + self.site)
+                        % (2 ** 63))
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=gen, device=x.device) \
+            < keep_prob
+        return torch.where(keep, x / _scalar(keep_prob, x), 0.0)
 
 
 def initialize(module: nn.Module,
@@ -230,12 +264,14 @@ class ProsodyGatedAttention(nn.Module):
         self.prosody_gate = Dense(PROSODY_DIM, H, dt, device)
         self.memory_gate = Dense(D, 1, dt, device)
         self.o_proj = Dense(D, D, dt, device)
+        self.dropout = Dropout(config.dropout)
 
     def forward(self, hidden: torch.Tensor,
                 prosody: Optional[torch.Tensor] = None,
                 use_memory: bool = True,
                 kv_cache: Optional[KVCache] = None,
-                cache_index=None) -> Tuple[torch.Tensor, Optional[KVCache]]:
+                cache_index=None, dropout_seed: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Optional[KVCache]]:
         """hidden [B, L, D]; with `kv_cache` ([B, H, T, Hd] each, updated in
         place) the L new keys and values go to rows [cache_index,
         cache_index + L) and the queries attend rows [0, their position]."""
@@ -281,7 +317,7 @@ class ProsodyGatedAttention(nn.Module):
             ctx = F.scaled_dot_product_attention(q, k, v, is_causal=True)
 
         ctx = ctx.transpose(1, 2).reshape(B, L, D)
-        return self.o_proj(ctx), new_cache
+        return self.dropout(self.o_proj(ctx), dropout_seed), new_cache
 
 
 class MLP(nn.Module):
@@ -294,9 +330,12 @@ class MLP(nn.Module):
                         device)
         self.down = Dense(config.intermediate_size, config.embedding_dim, dt,
                           device)
+        self.dropout = Dropout(config.dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down(F.gelu(self.up(x), approximate="tanh"))
+    def forward(self, x: torch.Tensor,
+                dropout_seed: Optional[int] = None) -> torch.Tensor:
+        return self.dropout(
+            self.down(F.gelu(self.up(x), approximate="tanh")), dropout_seed)
 
 
 class Synapsis(nn.Module):
@@ -343,8 +382,10 @@ class SNNFFN(nn.Module):
         self.gif2_in = Dense(D, D, dt, device)
         # GIF dynamics run in the compute dtype, as in the JAX package
         self.gif = gif_params(levels=config.snn_levels, dtype=dt)
+        self.dropout = Dropout(config.dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                dropout_seed: Optional[int] = None) -> torch.Tensor:
         B, L, D = x.shape
         dt = self.dtype
         h1 = self.gif1_in(self.syn1(x.reshape(B * L, D)))
@@ -352,7 +393,8 @@ class SNNFFN(nn.Module):
                                self.config.snn_timesteps)         # [N, T, I]
         h2 = self.gif2_in(self.syn2(s1))
         s2, _ = gif_scan(self.gif, h2.to(dt))                     # [N, T, D]
-        return s2.float().mean(dim=1).reshape(B, L, D).to(dt)
+        return self.dropout(s2.float().mean(dim=1).reshape(B, L, D).to(dt),
+                            dropout_seed)
 
 
 class HybridFFN(nn.Module):
@@ -369,9 +411,10 @@ class HybridFFN(nn.Module):
         r = self.config.snn_ratio
         nn.init.constant_(self.gate, math.log(r / (1 - r)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mlp_out = self.mlp(x)
-        snn_out = self.snn(x)
+    def forward(self, x: torch.Tensor,
+                dropout_seed: Optional[int] = None) -> torch.Tensor:
+        mlp_out = self.mlp(x, dropout_seed)
+        snn_out = self.snn(x, dropout_seed)
         g = torch.sigmoid(self.gate).to(mlp_out.dtype)
         return (1.0 - g) * mlp_out + g * snn_out
 
@@ -393,12 +436,13 @@ class TransformerLayer(nn.Module):
         self.ffn = _ffn(config, use_snn_ffn, device)
 
     def forward(self, hidden, prosody=None, use_memory: bool = True,
-                kv_cache=None, cache_index=None):
+                kv_cache=None, cache_index=None, dropout_seed=None):
         attn_out, new_cache = self.attention(
             self.attention_norm(hidden), prosody, use_memory, kv_cache,
-            cache_index)
+            cache_index, dropout_seed)
         hidden = hidden + attn_out
-        return hidden + self.ffn(self.ffn_norm(hidden)), new_cache
+        return (hidden + self.ffn(self.ffn_norm(hidden), dropout_seed),
+                new_cache)
 
 
 class MultiHeadDotProductAttention(nn.Module):
@@ -469,12 +513,13 @@ class MemoryAugmentedLayer(nn.Module):
         self.ffn = _ffn(config, use_snn_ffn, device)
 
     def forward(self, hidden, memory_state=None, prosody=None,
-                use_memory: bool = True, kv_cache=None, cache_index=None):
+                use_memory: bool = True, kv_cache=None, cache_index=None,
+                dropout_seed=None):
         cfg = self.config
         dt = self.dtype
         attn_out, new_cache = self.attention(
             self.attention_norm(hidden), prosody, use_memory, kv_cache,
-            cache_index)
+            cache_index, dropout_seed)
         hidden = hidden + attn_out
 
         if use_memory and memory_state is not None:
@@ -504,4 +549,5 @@ class MemoryAugmentedLayer(nn.Module):
                         torch.cat([hidden, ctx], dim=-1)))
                     hidden = hidden + gate * ctx
 
-        return hidden + self.ffn(self.ffn_norm(hidden)), new_cache
+        return (hidden + self.ffn(self.ffn_norm(hidden), dropout_seed),
+                new_cache)

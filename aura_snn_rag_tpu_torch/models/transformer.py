@@ -9,23 +9,56 @@ returns the pooled `memory_summary` for the caller to write.
 
 The module owns its parameters (the JAX package passes a params tree to
 `apply`): they are drawn on `device` from `generator`, or loaded from a
-flax tree with `models/convert.py`. Remat is a training option and comes
-with the training slice.
+flax tree with `models/convert.py`.
+
+Training options: a forward given a `dropout_seed` in training mode runs
+dropout at flax's sites (`layers.Dropout`); `use_gradient_checkpointing`
+recomputes each layer in the backward when gradients are on and no KV
+cache is passed, as the JAX package's `nn.remat` does: policy "full"
+with `torch.utils.checkpoint`, "dots" with selective checkpointing that
+saves the outputs of the matmuls and of attention (`_SAVED_OPS`) and
+recomputes the rest (norms, gates, GIF steps). A recompute sees the same
+seed, so it draws the same dropout masks.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from aura_snn_rag_tpu_torch._device import resolve_device
 from aura_snn_rag_tpu_torch.config import MemoryConfig, ModelConfig
 from aura_snn_rag_tpu_torch.models.layers import (
-    Dense, KVCache, LayerNorm, MemoryAugmentedLayer, PlaceCellEncoder,
-    RetrieveFn, ThetaGammaPositional, TransformerLayer, compute_dtype,
-    initialize)
+    Dense, Dropout, KVCache, LayerNorm, MemoryAugmentedLayer,
+    PlaceCellEncoder, RetrieveFn, ThetaGammaPositional, TransformerLayer,
+    compute_dtype, initialize)
+
+# remat policy "dots": the ops whose outputs are saved (the Dense products
+# and the attention core); everything else is recomputed
+_SAVED_OPS = ("mm", "addmm", "bmm", "baddbmm",
+              "_scaled_dot_product_flash_attention",
+              "_scaled_dot_product_efficient_attention",
+              "_scaled_dot_product_cudnn_attention",
+              "_scaled_dot_product_flash_attention_for_cpu")
+
+
+def _dots_context():
+    """The selective-checkpoint context of policy "dots" (PyTorch >= 2.4
+    names imported here, so the model imports without them)."""
+    from torch.utils.checkpoint import (
+        CheckpointPolicy, create_selective_checkpoint_contexts)
+    aten = torch.ops.aten
+    saved = frozenset(getattr(aten, name).default for name in _SAVED_OPS
+                      if hasattr(aten, name))
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
 class TransformerOutput(NamedTuple):
@@ -64,6 +97,11 @@ class HippocampalTransformer(nn.Module):
         self.final_norm = LayerNorm(cfg.embedding_dim, dt, dev)
         if not cfg.tie_word_embeddings:
             self.lm_head = Dense(cfg.embedding_dim, cfg.vocab_size, dt, dev)
+        self.input_dropout = Dropout(cfg.dropout)
+        # every dropout site gets its own index: its masks' seed
+        sites = [m for m in self.modules() if isinstance(m, Dropout)]
+        for i, m in enumerate(sites):
+            m.site = i
         if dev.type != "meta":
             if generator is None:
                 generator = torch.Generator(device=dev).manual_seed(0)
@@ -78,11 +116,12 @@ class HippocampalTransformer(nn.Module):
                 use_memory: bool = True, memory_state=None,
                 positions: Optional[torch.Tensor] = None,
                 kv_caches: Optional[Tuple[KVCache, ...]] = None,
-                cache_index=None
+                cache_index=None, dropout_seed: Optional[int] = None
                 ) -> Tuple[TransformerOutput, Optional[Tuple[KVCache, ...]]]:
         """input_ids [B, L]; positions default to 0..L-1. With `kv_caches`
         (`init_kv_caches`, updated in place) the L tokens sit at rows
-        [cache_index, cache_index + L) and the caches come back."""
+        [cache_index, cache_index + L) and the caches come back. In
+        training mode a `dropout_seed` turns dropout on."""
         cfg = self.config
         B, L = input_ids.shape
         hidden, place_activity = self.semantic_encoder(input_ids)
@@ -90,16 +129,28 @@ class HippocampalTransformer(nn.Module):
             positions = torch.arange(L, device=input_ids.device) \
                 .expand(B, L)
         hidden = self.input_norm(hidden + self.pos_encoder(positions))
+        hidden = self.input_dropout(hidden, dropout_seed)
 
+        remat = (cfg.use_gradient_checkpointing and kv_caches is None
+                 and torch.is_grad_enabled())
+        context = (_dots_context() if remat
+                   and cfg.gradient_checkpoint_policy == "dots"
+                   else noop_context_fn)
         new_caches = [] if kv_caches is not None else None
         for i, layer in enumerate(self.layers):
             cache_i = kv_caches[i] if kv_caches is not None else None
             if isinstance(layer, MemoryAugmentedLayer):
-                hidden, cache_out = layer(hidden, memory_state, prosody,
-                                          use_memory, cache_i, cache_index)
+                args = (hidden, memory_state, prosody, use_memory, cache_i,
+                        cache_index, dropout_seed)
             else:
-                hidden, cache_out = layer(hidden, prosody, use_memory,
-                                          cache_i, cache_index)
+                args = (hidden, prosody, use_memory, cache_i, cache_index,
+                        dropout_seed)
+            if remat:
+                hidden, cache_out = checkpoint(layer, *args,
+                                               use_reentrant=False,
+                                               context_fn=context)
+            else:
+                hidden, cache_out = layer(*args)
             if new_caches is not None:
                 new_caches.append(cache_out)
 

@@ -19,6 +19,8 @@
 All four launch `csrc/ivf_scan.cu` for CUDA tensors (bound and design in
 its header; B and D in two launches through a [B, P*C] scratch, C and E in
 one) and run the `_plain` versions below for CPU tensors.
+`ivf_retrieve_fused_grad` is kernel B with a gradient into the queries
+(plain PyTorch backward, on either device), which training needs.
 
 Output conventions:
 - `ivf_retrieve_fused`: lanes < k hold the final top-k sorted by exact
@@ -220,6 +222,60 @@ def ivf_retrieve_fused(clustered: torch.Tensor, aux: torch.Tensor,
             _build.ptr(scratch), _build.ptr(out_s), _build.ptr(out_slot), C,
             D, M, B, P, kk, k, KPAD)
     return out_s, out_slot
+
+
+class _RetrieveFused(torch.autograd.Function):
+    """Kernel B with a gradient into the queries. The selection (probes,
+    funnel, top-k) is piecewise constant, so a lane's exact score
+    w_cos * strength[slot] * <f_hat[slot], qn> + const is linear in qn
+    where the slots do not change: d score / d qn = w_cos *
+    strength[slot] * f_hat[slot], with f_hat = row * rsqrt(|row|^2 +
+    1e-12) as in the kernel's rerank. This is the gradient of the JAX
+    package's XLA path (its exact rerank einsum); its Pallas kernel B
+    has no VJP."""
+
+    @staticmethod
+    def forward(ctx, qn, clustered, aux, features, strength, top_c, kk, k,
+                w_cosine, fused):
+        with torch.no_grad():
+            s, sl = fused(clustered, aux, features, qn.detach(), top_c, kk,
+                          k)
+        ctx.mark_non_differentiable(sl)
+        ctx.save_for_backward(features, strength, sl)
+        ctx.k, ctx.w_cosine = k, w_cosine
+        return s, sl
+
+    @staticmethod
+    def backward(ctx, g_s, g_sl):
+        features, strength, sl = ctx.saved_tensors
+        slots = sl[:, :ctx.k].long()                             # [B, k]
+        hit = slots >= 0
+        safe = slots.clamp(min=0)
+        rows = features[safe]                                    # [B, k, D]
+        # the plain version's order: the lane's multiplier and 1/|row|
+        # scale g, then one batched product with the raw rows
+        coef = g_s[:, :ctx.k] * (ctx.w_cosine * strength[safe])
+        coef = coef * torch.rsqrt((rows * rows).sum(-1) + 1e-12)
+        coef = torch.where(hit, coef, 0.0)
+        g_qn = torch.einsum("bk,bkd->bd", coef, rows)
+        return g_qn, None, None, None, None, None, None, None, None, None
+
+
+def ivf_retrieve_fused_grad(clustered: torch.Tensor, aux: torch.Tensor,
+                            features: torch.Tensor, strength: torch.Tensor,
+                            w_cosine: float, qn: torch.Tensor,
+                            top_c: torch.Tensor, kk: int, k: int,
+                            fused: Callable = ivf_retrieve_fused
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`fused(clustered, aux, features, qn, top_c, kk, k)` (kernel B, whose
+    wrapper runs the plain version for CPU tensors) under no grad, with
+    the exact score's gradient into `qn`: for each hit lane j < k,
+    g[b, j] * w_cosine * strength[slot] * f_hat[slot] (`_RetrieveFused`).
+    Misses (slot -1) and lanes >= k pass no gradient. strength [M] is
+    the bank's per-slot strength; aux row 0 holds w_cosine times the same
+    strength, as decayed at the cluster entry."""
+    return _RetrieveFused.apply(qn, clustered, aux, features, strength,
+                                top_c, kk, k, w_cosine, fused)
 
 
 def ivf_candidates(clustered: torch.Tensor, aux: torch.Tensor,

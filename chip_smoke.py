@@ -50,15 +50,32 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
    Kernel B runs in every RAG layer at (K, C, P) = (256, 896, 8), so the
    kernel phase also holds it to its plain version at that shape.
 
+5. training phase: the LM's training path at `get_full_config()` with
+   `TRAIN_CHANGES` (batch 16 as 2 micro-batches of 8, which retrieve
+   through kernel B; memory from step 0; warmup 2 steps; max_steps 64),
+   random weights from a seed, over the same 100,000 x 768 bank: 8
+   `Trainer.train_step`s on one repeated batch of 16 x 512 random ids
+   (kernel B launches = 12 layers x 2 micro-batches x the steps with
+   memory, step 0 among them, no other kernel; 16 rows stored at each
+   store step; the loss finite and falling), EWC consolidation through
+   memory and a step with its penalty, a sleep phase (memory off, no
+   kernel B), one micro-batch's loss and gradients through kernel B
+   against the same through kernel B's plain version with autograd
+   (every RAG layer's query_proj gradient nonzero), and ms per step,
+   tokens/s and peak device memory with memory, without, with memory
+   but without `retrieve_auto`'s host sync (aux built once), and with
+   memory and remat ("full").
+
 `--profile` adds a torch.profiler breakdown of one call of each
 retrieval path (device time by kernel, device busy share) to phase 2,
-and of decode steps (wall, device, busy, `retrieve_auto`'s share) to
-phase 4.
+of decode steps (wall, device, busy, `retrieve_auto`'s share) to
+phase 4, and of training steps with memory to phase 5.
 
 Launch counters are zeroed just before phase 2 and read after phase 3;
 every kernel must have run there. They are zeroed again before phase 4,
 where kernel B must run 12 times per model call and no other kernel
-runs. Any failed check exits non-zero. The last lines are the card's name
+runs, and again just before phase 5's 8 counted train_steps. Any
+failed check exits non-zero. The last lines are the card's name
 and power limit, one JSON object with the per-kernel numbers, and
 {"ok": true, "device": {...}}. Without a CUDA card the script exits 1 and
 prints no result.
@@ -68,6 +85,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -97,6 +115,27 @@ DECODE_STEPS = 32               # decode steps per timing
 LM_LOGIT_TOL = 1e-2
 N_EVAL = 1024                   # queries for recall@10
 TOPK = 10
+# the training phase: get_full_config() with these changes (batch 16 as
+# two micro-batches of 8, which retrieve through kernel B; memory from
+# step 0; a short warmup so a few steps move the weights)
+TRAIN_CHANGES = dict(gradient_accumulation_steps=2, memory_warmup_steps=0,
+                     warmup_steps=2, max_steps=64)
+TRAIN_STEPS = 8                 # train_steps on one repeated batch
+TRAIN_SEQ = 512
+TRAIN_TIMED = 3                 # steps per timing, after one warm-up
+# gradients through kernel B (its Function's backward) against autograd
+# through its plain version, at the trained bf16 compute, on each
+# micro-batch of the step: the forward is the same to the last bit (loss
+# within TRAIN_LOSS_RTOL), but the two backwards sum the query's f32
+# gradient in different orders, and an ulp that flips one bf16 rounding
+# moves every gradient below it. So each tensor's gradients are held by
+# their RMS gap against their RMS (at least 1e-3 of the model's largest
+# RMS: the floor of gradients that are zero in exact arithmetic). On the
+# H100 such gaps were 0 on most micro-batches and at most 5.0e-3 (the
+# largest single entry 1.35% of its tensor's largest); a gradient into
+# the queries off by 2x gives 0.5, a missing one 1. 2^-4 sits between.
+TRAIN_GRAD_RTOL = 2.0 ** -4
+TRAIN_LOSS_RTOL = 1e-5
 
 SOURCES = {
     "flat_blockmax": ("aura_snn_rag_tpu_torch/ops/cuda/csrc/flat_scan.cu",
@@ -1152,6 +1191,337 @@ def lm_phase(dev, profile=False):
     return stats
 
 
+# --------------------------------------------------------------------------
+# training phase
+# --------------------------------------------------------------------------
+
+def train_config():
+    import aura_snn_rag_tpu_torch as port
+    cfg = port.get_full_config()
+    return cfg.replace(training=dataclasses.replace(cfg.training,
+                                                    **TRAIN_CHANGES))
+
+
+def grads_kernel_vs_plain(model, tcfg, ids, state):
+    """One micro-batch's loss and gradients (no prosody, no dropout)
+    through kernel B and its Function's backward, then through kernel B's
+    plain version with autograd through its einsum (the retrieve_fn hook
+    swaps the engine's Function for it). Returns (loss kernel, loss
+    plain, {name: (RMS of the gap, RMS of the plain gradient, max |gap|,
+    max |plain gradient|)}, [max |query_proj grad| per layer], kernel B
+    launches in the kernel run and in the plain run)."""
+    from aura_snn_rag_tpu_torch.memory import engine
+    from aura_snn_rag_tpu_torch.ops.cuda import _build, ivf_scan
+    from aura_snn_rag_tpu_torch.training.losses import hippocampal_loss
+
+    def zero_grads():
+        for p in model.parameters():
+            if p.grad is not None:
+                p.grad.zero_()
+
+    def run():
+        zero_grads()
+        out, _ = model(ids, memory_state=state)
+        loss = hippocampal_loss(
+            out.logits[:, :-1], ids[:, 1:], out.place_activity,
+            label_smoothing=tcfg.label_smoothing,
+            entropy_lambda=tcfg.entropy_lambda,
+            sparsity_lambda=tcfg.sparsity_lambda,
+            target_sparsity=tcfg.target_sparsity)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone() for n, p in
+                             model.named_parameters() if p.grad is not None}
+
+    real_fn = engine.ivf_retrieve_fused_grad
+
+    def plain_autograd(cl, aux, f, strength, w, qn, top_c, kk, k, fused):
+        return ivf_scan.ivf_retrieve_fused_plain(cl, aux, f, qn, top_c, kk,
+                                                 k)
+
+    def plain(cfg, st, q, k):
+        engine.ivf_retrieve_fused_grad = plain_autograd
+        try:
+            return engine.retrieve_auto(cfg, st, q, None, k)
+        finally:
+            engine.ivf_retrieve_fused_grad = real_fn
+
+    n0 = _build.launch_counts["ivf_retrieve_fused"]
+    la, ga = run()
+    n1 = _build.launch_counts["ivf_retrieve_fused"]
+    set_retrieve_fn(model, plain)
+    try:
+        lb, gb = run()
+    finally:
+        set_retrieve_fn(model, None)
+    n2 = _build.launch_counts["ivf_retrieve_fused"]
+    zero_grads()
+
+    def rms(x):
+        return x.float().pow(2).mean().sqrt().item()
+    stats = {name: (rms(ga[name] - gb[name]), rms(gb[name]),
+                    (ga[name] - gb[name]).abs().max().item(),
+                    gb[name].abs().max().item()) for name in ga}
+    qp = [ga[f"layers.{i}.query_proj.weight"].abs().max().item()
+          for i in range(len(model.layers))]
+    return la, lb, stats, qp, (n1 - n0, n2 - n1)
+
+
+def grad_check(model, tcfg, micro_batches, state):
+    """grads_kernel_vs_plain on each micro-batch, with its checks (see
+    TRAIN_GRAD_RTOL): the loss, kernel B's launches, every query_proj
+    gradient nonzero, and each tensor's RMS gap. Returns the summaries."""
+    n_layers = len(model.layers)
+    out = []
+    for i, ids in enumerate(micro_batches):
+        la, lb, st, qp, (nk, npl) = grads_kernel_vs_plain(model, tcfg, ids,
+                                                          state)
+        rms_floor = 1e-3 * max(v[1] for v in st.values())
+        max_floor = 1e-3 * max(v[3] for v in st.values())
+        rel = {n: v[0] / max(v[1], rms_floor) for n, v in st.items()}
+        peak = {n: v[2] / max(v[3], max_floor) for n, v in st.items()}
+        worst, worst_peak = max(rel, key=rel.get), max(peak, key=peak.get)
+        q_rel = max(rel[f"layers.{j}.query_proj.weight"]
+                    for j in range(n_layers))
+        check(nk == n_layers and npl == 0,
+              f"gradient check {i}: kernel B launched {nk} / {npl} times")
+        check(abs(la - lb) <= TRAIN_LOSS_RTOL * abs(lb),
+              f"gradient check {i}: loss {la} through kernel B, {lb} through "
+              f"its plain version")
+        check(all(x > 0 for x in qp),
+              f"gradient check {i}: a query_proj gradient is zero ({qp})")
+        check(rel[worst] <= TRAIN_GRAD_RTOL,
+              f"gradient check {i}: {worst}'s gradients through kernel B and "
+              f"its plain version differ by {rel[worst]:.3g} of their RMS "
+              f"(tolerance {TRAIN_GRAD_RTOL})")
+        log(f"training: micro-batch {i} through kernel B and its plain "
+            f"version: loss {la:.6f} / {lb:.6f}; RMS gap at most "
+            f"{rel[worst]:.3g} of a tensor's RMS ({worst}; query_proj "
+            f"{q_rel:.3g}; tolerance {TRAIN_GRAD_RTOL}); largest entry gap "
+            f"{peak[worst_peak]:.3g} of a tensor's largest entry "
+            f"({worst_peak}); |query_proj grad| max per layer "
+            f"{[f'{x:.3g}' for x in qp]}")
+        out.append(dict(loss_kernel=la, loss_plain=lb,
+                        max_rms_gap=rel[worst], worst=worst,
+                        query_proj_max_rms_gap=q_rel,
+                        max_entry_gap=peak[worst_peak],
+                        worst_entry=worst_peak, query_proj_max_abs=qp))
+    return out
+
+
+def time_train_steps(trainer, ids, use_memory, retrieve_fn=None,
+                     steps=TRAIN_TIMED):
+    """ms per optimizer step and peak device memory (GB) of the step
+    `train_step` runs (`Trainer._run_step`, no store), with memory forced
+    on or off: at random weights the thalamus gate turns memory off after
+    step 0. One warm-up step, then `steps` steps between two syncs; with
+    `retrieve_fn` the RAG layers retrieve through it."""
+    import torch
+    set_retrieve_fn(trainer.model, retrieve_fn)
+    try:
+        trainer._run_step(ids, ids, use_memory, False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer._run_step(ids, ids, use_memory, False)
+        torch.cuda.synchronize()
+    finally:
+        set_retrieve_fn(trainer.model, None)
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    return ms, torch.cuda.max_memory_allocated() / 1e9
+
+
+def profile_train(trainer, ids, reps=2):
+    """torch.profiler over `reps` optimizer steps with memory on: wall
+    and device ms per step, busy share, kernel launches per step, and the
+    host time inside `retrieve_auto` (wrapped in a record_function scope
+    for the window only)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from aura_snn_rag_tpu_torch.memory import engine
+
+    real = engine.retrieve_auto
+
+    def scoped(*a, **kw):
+        with record_function("retrieve_auto"):
+            return real(*a, **kw)
+
+    trainer._run_step(ids, ids, True, False)
+    torch.cuda.synchronize()
+    engine.retrieve_auto = scoped
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                trainer._run_step(ids, ids, True, False)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    finally:
+        engine.retrieve_auto = real
+    rows = prof.key_averages()
+    kernels = [e for e in rows if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0 and e.key != "retrieve_auto"]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    ret = [e for e in rows if e.key == "retrieve_auto"
+           and e.device_type == DeviceType.CPU]
+    ret_ms = ret[0].cpu_time_total / 1e3 / reps if ret else None
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:8]
+    port_b = [e for e in kernels if "ivf_" in e.key
+              and "namespace)::" in e.key]
+    res = dict(wall_ms=wall_ms, device_ms=dev_ms, busy=dev_ms / wall_ms,
+               retrieve_auto_host_ms=ret_ms,
+               retrieve_auto_share=None if ret_ms is None
+               else ret_ms / wall_ms,
+               kernel_launches_per_step=sum(e.count for e in kernels) / reps,
+               top=[(e.key[:60], e.self_device_time_total / 1e3 / reps,
+                     e.count // reps) for e in top],
+               kernel_B=[(e.key[:60], e.self_device_time_total / 1e3 / reps,
+                          e.count // reps) for e in port_b])
+    log(f"profile train step (memory on): wall {wall_ms:.1f} ms/step, "
+        f"device {dev_ms:.1f} ms/step, busy {dev_ms / wall_ms:.3f}, "
+        f"retrieve_auto host {ret_ms} ms/step, "
+        f"{res['kernel_launches_per_step']:.0f} kernels/step")
+    for key, ms, n in res["top"] + res["kernel_B"]:
+        log(f"    {ms:9.4f} ms  x{n:<5d} {key}")
+    return res
+
+
+def train_phase(dev, profile=False):
+    """The LM's training path at get_full_config() with TRAIN_CHANGES; see
+    the module doc. Launch counters are zeroed by the caller just before
+    the counted steps run (`train_steps`), so the count the caller reads
+    after this phase holds them alone."""
+    import torch
+    import aura_snn_rag_tpu_torch as port
+    from aura_snn_rag_tpu_torch.memory import engine
+    from aura_snn_rag_tpu_torch.ops.cuda import _build
+
+    cfg = train_config()
+    mcfg, n_layers = cfg.memory, cfg.model.num_layers
+    tcfg = cfg.training
+    accum = tcfg.gradient_accumulation_steps
+    B, L = tcfg.batch_size, TRAIN_SEQ
+    counts = _build.launch_counts
+    stats = {"changes": TRAIN_CHANGES, "batch": B, "seq_len": L}
+    log(f"training: get_full_config() with {TRAIN_CHANGES}; batch {B} x "
+        f"{L} as {accum} micro-batches of {B // accum}")
+    trainer = port.Trainer(cfg, seed=7, device=dev)
+    state, stats["bank_s"] = synced(lambda: lm_bank(dev, mcfg))
+    trainer.hippocampus.state = state
+    stats["params"] = sum(p.numel() for p in trainer.model.parameters())
+    g = torch.Generator(device=dev).manual_seed(12)
+    ids = torch.randint(0, cfg.model.vocab_size, (B, L), device=dev,
+                        generator=g)
+
+    # 1. the counted run: TRAIN_STEPS train_steps on one repeated batch
+    def bank_count():
+        return int(trainer.hippocampus.state.count)
+
+    _build.reset_launch_counts()
+    steps = []
+    for _ in range(TRAIN_STEPS):
+        c0 = bank_count()
+        m = trainer.train_step(ids, ids)
+        steps.append(dict(step=m["step"], use_memory=m["use_memory"],
+                          stored=bank_count() - c0))
+    launches = dict(counts)
+    losses = trainer.history["loss"][1:] + [trainer.latest_metrics()["loss"]]
+    n_mem = sum(s["use_memory"] for s in steps)
+    want_b = n_layers * accum * n_mem
+    check(steps[0]["use_memory"], "training: step 0 took no memory")
+    check(launches.get("ivf_retrieve_fused", 0) == want_b
+          and all(launches.get(name, 0) == 0 for name in SOURCES
+                  if name != "ivf_retrieve_fused"),
+          f"training: launches {launches}, expected kernel B only, "
+          f"{n_layers} x {accum} x {n_mem} = {want_b}")
+    for s in steps:
+        want = B if (s["use_memory"] and s["step"]
+                     % tcfg.memory_store_interval == 0) else 0
+        check(s["stored"] == want, f"training: step {s['step']} stored "
+              f"{s['stored']} rows, expected {want}")
+    check(all(math.isfinite(x) for x in losses),
+          f"training: non-finite loss {losses}")
+    check(losses[-1] < losses[0] and losses[-1] < losses[1],
+          f"training: loss did not fall on the repeated batch {losses}")
+    stats.update(steps=steps, losses=losses, launches=launches,
+                 kernel_B_launches=want_b)
+    log(f"training: {TRAIN_STEPS} train_steps, memory on at steps "
+        f"{[s['step'] for s in steps if s['use_memory']]}, rows stored "
+        f"{[s['stored'] for s in steps]}, kernel B launched "
+        f"{launches.get('ivf_retrieve_fused', 0)} = {n_layers} x {accum} "
+        f"x {n_mem}; losses {[round(x, 4) for x in losses]}")
+
+    # 2. EWC consolidation on one micro-batch, through memory; then one
+    # step with the penalty
+    ids8 = ids[:B // accum]
+    n0 = counts["ivf_retrieve_fused"]
+    trainer.consolidate_ewc([(ids8, ids8)], use_memory=True)
+    ewc_b = counts["ivf_retrieve_fused"] - n0
+    check(ewc_b == n_layers, f"EWC: kernel B launched {ewc_b}, expected "
+          f"{n_layers}")
+    m = trainer.train_step(ids, ids)
+    penalty = trainer.ewc.penalty(trainer.optimizer.flat).item()
+    check(math.isfinite(m["loss"]) and math.isfinite(penalty),
+          f"EWC step: loss {m['loss']}, penalty {penalty}")
+    # 3. a sleep phase: time-reversed replay with memory off
+    n0 = counts["ivf_retrieve_fused"]
+    _, sleep_s = synced(trainer.sleep_phase)
+    sleep_b = counts["ivf_retrieve_fused"] - n0
+    check(sleep_b == 0, f"sleep phase launched kernel B {sleep_b} times")
+    stats.update(ewc_kernel_B_launches=ewc_b, ewc_penalty=penalty,
+                 sleep_s=sleep_s, sleep_kernel_B_launches=sleep_b,
+                 sleep_steps=tcfg.sleep_replay_batches)
+    log(f"training: EWC Fisher on one batch of {B // accum} through memory "
+        f"(kernel B {ewc_b}), then a step with penalty {penalty:.4g}; sleep "
+        f"phase of {tcfg.sleep_replay_batches} reversed replays in "
+        f"{sleep_s:.2f} s (kernel B {sleep_b})")
+
+    # 4. gradients through kernel B against its plain version, on each
+    # micro-batch of the step
+    state = trainer.hippocampus.state
+    mb = B // accum
+    stats["grad_check"] = grad_check(
+        trainer.model, tcfg, [ids[i * mb:(i + 1) * mb] for i in range(accum)],
+        state)
+
+    # 5. timings, each with its peak device memory; "memory_no_sync"
+    # retrieves without `retrieve_auto`'s host sync and with the aux built
+    # once, as the LM phase's decode variant does
+    aux = engine.build_ivf_aux(mcfg, trainer.hippocampus.state)
+    timing = {}
+    for name, use_memory, fn in (
+            ("memory", True, None), ("no_memory", False, None),
+            ("memory_no_sync", True, lambda c, s, q, k: engine.retrieve(
+                c, s, q, None, k, aux=aux))):
+        ms, gb = time_train_steps(trainer, ids, use_memory, fn)
+        timing[name] = dict(ms_per_step=ms, tokens_per_s=B * L * 1e3 / ms,
+                            max_memory_gb=gb)
+    stats["profile"] = profile_train(trainer, ids) if profile else None
+    del trainer
+    torch.cuda.empty_cache()
+    remat_cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, use_gradient_checkpointing=True,
+        gradient_checkpoint_policy="full"))
+    remat = port.Trainer(remat_cfg, seed=7, device=dev)
+    remat.hippocampus.state = state
+    ms, gb = time_train_steps(remat, ids, True)
+    timing["memory_remat_full"] = dict(ms_per_step=ms,
+                                       tokens_per_s=B * L * 1e3 / ms,
+                                       max_memory_gb=gb)
+    del remat
+    torch.cuda.empty_cache()
+    stats["timing"] = timing
+    log(f"training timings (batch {B} x {L} as {accum} x {B // accum}): "
+        + "; ".join(
+        f"{name} {t['ms_per_step']:.1f} ms/step, {t['tokens_per_s']:.0f} "
+        f"tokens/s, peak {t['max_memory_gb']:.2f} GB"
+        for name, t in timing.items()))
+    return stats
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1227,6 +1597,13 @@ def main() -> int:
           f"LM path launches {launches_lm}: kernel B only, at least once")
     lm["launches"] = launches_lm
     log(f"LM-path launches: {launches_lm}")
+    torch.cuda.empty_cache()
+
+    # ---- the LM's training path: counts zeroed inside, just before the
+    # counted train_steps, and read just after them ----
+    train = train_phase(dev, profile="--profile" in sys.argv[1:])
+    launches_train = train["launches"]
+    log(f"training-path launches: {launches_train}")
 
     main_shape = {"flat_blockmax": res_a[("int8", 1024)],
                   "ivf_retrieve_fused": res_bc[("ivf_retrieve_fused", 8)],
@@ -1245,8 +1622,9 @@ def main() -> int:
             row.update(ms_b1=b1["ms"], graph_ms_b1=b1["graph_ms"],
                        bound_ms_b1=b1["bound_ms"], host_us_b1=b1["host_us"])
         if name == "ivf_retrieve_fused":
-            # the LM's shape, and its launches on the LM path
+            # the LM's shape, and its launches on the LM and training paths
             row["launches_lm"] = launches_lm[name]
+            row["launches_train"] = launches_train[name]
             for B, suffix in ((8, ""), (1, "_b1")):
                 r = res_lm_b[(name, B)]
                 row.update({f"lm_{key}{suffix}": r[key] for key in (
@@ -1256,6 +1634,7 @@ def main() -> int:
     log(json.dumps({"torch_topk_ms": topk_ms}))
     log(json.dumps({"engine": stats}))
     log(json.dumps({"lm": lm}))
+    log(json.dumps({"train": train}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -359,3 +359,174 @@ def test_lm_prefill_through_kernel_b_matches_its_plain_version(dev):
         b, _ = model(ids, memory_state=state)
     assert launch_counts["ivf_retrieve_fused"] == n0 + 3
     assert (a.logits - b.logits).abs().max().item() <= 1e-4
+
+
+# Kernel B's autograd Function (`ivf_retrieve_fused_grad`): the forward is
+# the kernel, the backward plain PyTorch; held against autograd through
+# the plain version on the card. aux row 0 is w_cos * strength[slot], so
+# both backwards scale a hit lane's f_hat by the same number. Query 0's
+# probes keep only `n_live` live entries: lanes n_live..k-1 miss (slot
+# -1) and pass no gradient. The LM's shape (K = 256, C = 896, D = 768,
+# P = 8, 100,000 rows, B = 8) and a small odd one (C = 385, D = 72,
+# M = 3001, B = 3).
+@pytest.mark.parametrize("K,C,D,B,P,M,k,n_live", [
+    (256, 896, 768, 8, 8, 100_000, 5, 2),
+    (40, 385, 72, 3, 3, 3001, 10, 0),
+    (40, 385, 72, 3, 3, 3001, 5, 300)])
+def test_ivf_retrieve_fused_grad_matches_plain_autograd(dev, K, C, D, B, P,
+                                                         M, k, n_live):
+    from aura_snn_rag_tpu_torch.ops.cuda.ivf_scan import (
+        ivf_retrieve_fused_grad)
+    rng = np.random.RandomState(K + C + k)
+    cl, aux, feats, qn, top_c = _ivf_inputs(rng, K, C, D, B, P, M)
+    strength = torch.from_numpy(rng.rand(M).astype(np.float32) + 0.5)
+    w_cos = 0.5
+    aux[:, 0] = w_cos * strength[aux[:, 2].long()]
+    probes = top_c[0].long()
+    add = aux[probes, 1]
+    add[:] = -1e30
+    add.view(-1)[:n_live] = 0.1
+    aux[probes, 1] = add
+    cl, aux, feats, qn, top_c, strength = (
+        t.to(dev) for t in (cl, aux, feats, qn, top_c, strength))
+    g = torch.from_numpy(rng.randn(B, k).astype(np.float32)).to(dev)
+
+    def loss(s, sl):
+        return (torch.where(sl[:, :k] >= 0, s[:, :k], 0.0) * g).sum()
+
+    n0 = launch_counts["ivf_retrieve_fused"]
+    q1 = qn.clone().requires_grad_(True)
+    s1, sl1 = ivf_retrieve_fused_grad(cl, aux, feats, strength, w_cos, q1,
+                                      top_c, 128, k)
+    loss(s1, sl1).backward()
+    q2 = qn.clone().requires_grad_(True)
+    s2, sl2 = ivf_retrieve_fused_plain(cl, aux, feats, q2, top_c, 128, k)
+    loss(s2, sl2).backward()
+    torch.cuda.synchronize()
+    assert launch_counts["ivf_retrieve_fused"] == n0 + 1   # backward: none
+    _assert_select_matches(s1.detach()[:, :k], sl1[:, :k],
+                           s2.detach()[:, :k], sl2[:, :k], B)
+    assert int((sl1[0, :k] >= 0).sum()) == min(n_live, k)
+    assert torch.equal(sl1, sl2)
+    # f32 products and sums in another order
+    assert (q1.grad - q2.grad).abs().max().item() <= 1e-5
+    assert q1.grad.abs().sum().item() > 0
+    if n_live == 0:
+        assert not q1.grad[0].any()
+
+
+def test_lm_gradient_through_kernel_b_matches_its_plain_version(dev):
+    """A small LM (f32 compute, RAG in 3 layers, no SNN FFN: kernel B's
+    scores differ from its plain version's by ~3e-8, which at f32 could
+    flip a GIF spike level) over a bank whose batches of 2 take IVF v3r:
+    the loss and gradients of one backward through kernel B (Function
+    backward) equal, within 1e-5 of each tensor's largest entry (at least
+    1e-3 of the model's largest), those through kernel B's plain version
+    with autograd through its einsum, and every RAG layer's query_proj
+    gets a nonzero gradient."""
+    import aura_snn_rag_tpu_torch as port
+    from aura_snn_rag_tpu_torch.memory import engine
+
+    mcfg = port.MemoryConfig(max_memories=16384, feature_dim=128,
+                             k_centroids=128, probe_centroids=4)
+    cfg = port.ModelConfig(vocab_size=512, embedding_dim=128, num_layers=3,
+                           num_heads=4, intermediate_size=256,
+                           n_place_cells=128, use_rag=True, dtype="float32")
+    rng = np.random.RandomState(71)
+    centres = rng.randn(64, 128).astype(np.float32) * 2
+    feats = centres[rng.randint(0, 64, 16384)] + rng.randn(
+        16384, 128).astype(np.float32)
+    state = port.bulk_load(mcfg, port.init_memory_state(mcfg, dev),
+                           torch.from_numpy(feats).to(dev),
+                           torch.zeros(16384, 2, device=dev))
+    state = port.rebuild_centroids(mcfg, state,
+                                   torch.Generator().manual_seed(0))
+    model = port.HippocampalTransformer(
+        cfg, mcfg, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(2))
+    ids = torch.from_numpy(rng.randint(0, 512, (2, 24))).to(dev)
+
+    def grads():
+        for p in model.parameters():
+            p.grad = None
+        out, _ = model(ids, memory_state=state)
+        loss = out.logits.square().mean()
+        loss.backward()
+        return loss.item(), {n: p.grad.clone() for n, p in
+                             model.named_parameters() if p.grad is not None}
+
+    n0 = launch_counts["ivf_retrieve_fused"]
+    la, ga = grads()
+    assert launch_counts["ivf_retrieve_fused"] == n0 + 3
+    real = engine.ivf_retrieve_fused_grad
+
+    def plain_autograd(cl, aux, f, strength, w, qn, top_c, kk, k, fused):
+        return ivf_retrieve_fused_plain(cl, aux, f, qn, top_c, kk, k)
+    engine.ivf_retrieve_fused_grad = plain_autograd
+    try:
+        lb, gb = grads()
+    finally:
+        engine.ivf_retrieve_fused_grad = real
+    assert launch_counts["ivf_retrieve_fused"] == n0 + 3
+    assert abs(la - lb) <= 1e-6 * abs(lb)
+    assert ga.keys() == gb.keys()
+    for i in range(3):
+        assert ga[f"layers.{i}.query_proj.weight"].abs().sum().item() > 0
+    # a gradient that is zero in exact arithmetic (the key biases: softmax
+    # ignores a shift of every key) is f32 cancellation noise, so each
+    # tensor's scale is at least 1e-3 of the model's largest gradient
+    floor = 1e-3 * max(g.abs().max().item() for g in gb.values())
+    for name in ga:
+        scale = max(gb[name].abs().max().item(), floor)
+        assert (ga[name] - gb[name]).abs().max().item() <= 1e-5 * scale, \
+            name
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_remat_with_dropout_on_the_card(dev, policy):
+    """Remat on the card, dropout on (masks from CUDA generators seeded
+    per site) and memory through kernel B: a recompute draws the same
+    masks and launches kernel B again, and the gradients equal those of
+    no remat bit for bit."""
+    import dataclasses
+    import aura_snn_rag_tpu_torch as port
+
+    mcfg = port.MemoryConfig(max_memories=16384, feature_dim=128,
+                             k_centroids=128, probe_centroids=4)
+    cfg = port.ModelConfig(vocab_size=512, embedding_dim=128, num_layers=2,
+                           num_heads=4, intermediate_size=256,
+                           n_place_cells=128, use_rag=True, snn_layers=(0,),
+                           dtype="float32", dropout=0.1)
+    rng = np.random.RandomState(72)
+    feats = rng.randn(16384, 128).astype(np.float32)
+    state = port.bulk_load(mcfg, port.init_memory_state(mcfg, dev),
+                           torch.from_numpy(feats).to(dev),
+                           torch.zeros(16384, 2, device=dev))
+    state = port.rebuild_centroids(mcfg, state,
+                                   torch.Generator().manual_seed(0))
+    base = port.HippocampalTransformer(
+        cfg, mcfg, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(3))
+    remat = port.HippocampalTransformer(
+        dataclasses.replace(cfg, use_gradient_checkpointing=True,
+                            gradient_checkpoint_policy=policy), mcfg,
+        device=dev)
+    remat.load_state_dict(base.state_dict())
+    ids = torch.from_numpy(rng.randint(0, 512, (2, 24))).to(dev)
+
+    def grads(model):
+        out, _ = model(ids, memory_state=state, dropout_seed=11)
+        out.logits.square().mean().backward()
+        return out.logits.detach(), {n: p.grad for n, p in
+                                     model.named_parameters()
+                                     if p.grad is not None}
+
+    n0 = launch_counts["ivf_retrieve_fused"]
+    la, ga = grads(base)
+    n1 = launch_counts["ivf_retrieve_fused"]
+    lb, gb = grads(remat)
+    torch.cuda.synchronize()
+    assert n1 - n0 == 2 and launch_counts["ivf_retrieve_fused"] - n1 == 4
+    assert torch.equal(la, lb) and ga.keys() == gb.keys()
+    for name in ga:
+        assert torch.equal(ga[name], gb[name]), name

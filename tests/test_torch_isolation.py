@@ -34,3 +34,28 @@ def test_port_imports_without_jax_or_the_jax_package():
     # every module file but the package's own __init__
     files = list((ROOT / "aura_snn_rag_tpu_torch").rglob("*.py"))
     assert int(n) == len(files) - 1 >= 10
+
+
+# the training path's modules, each imported by the probe above with
+# `jax` blocked
+TRAINING_MODULES = (
+    "training.losses", "training.schedule", "training.optim",
+    "training.trainer", "training.tokenizer", "training.data",
+    "models.brain.amygdala", "models.brain.endocrine",
+    "models.brain.liquid_moe", "models.brain.thalamus", "zones.events",
+    "zones.stats")
+
+
+def test_training_modules_are_in_the_probe():
+    import pkgutil
+    import aura_snn_rag_tpu_torch as pkg
+    names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                   pkg.__name__ + ".")}
+    for mod in TRAINING_MODULES:
+        assert f"aura_snn_rag_tpu_torch.{mod}" in names, mod
+        path = ROOT / "aura_snn_rag_tpu_torch" / (mod.replace(".", "/")
+                                                  + ".py")
+        src = path.read_text()
+        assert "import jax" not in src and "from jax" not in src, mod
+        assert "aura_snn_rag_tpu." not in src.replace(
+            "aura_snn_rag_tpu_torch.", ""), mod
