@@ -9,7 +9,11 @@ ops it runs (`ops`), the model (`models`), the sampler and the batched
 server (`generation`) and the one-shot memorisation helpers
 (`services`); the LM's training path: the trainer, loss, schedule,
 optimizer and data (`training`), the modulators it runs
-(`models.brain`) and its telemetry (`zones`).
+(`models.brain`) and its telemetry (`zones`); the operator's path:
+checkpoints and online learning (`training`), the hash embedder
+(`encoders`, native C++ through `_native`), corpus ingestion and the
+continuous-learning orchestrator (`services`) and the command line
+(`python -m aura_snn_rag_tpu_torch.cli`).
 """
 
 from aura_snn_rag_tpu_torch.config import (  # noqa: F401

@@ -160,7 +160,8 @@ class TrainingConfig:
     In the port: `optimizer_mu_dtype` "bfloat16" keeps AdamW's first
     moment in bf16; `metrics_fetch_interval` is how often `train_step`
     reads a step's metrics back from the device (one step late);
-    `save_steps` belongs to checkpointing, which is not ported yet.
+    `save_steps` is how often the CLI's `train` saves a checkpoint
+    (`training/checkpoint.py`).
     """
 
     batch_size: int = 32

@@ -208,15 +208,21 @@ class HippocampalFormation:
     # ------------------------------------------------------------------
     # checkpointing (id table included)
     # ------------------------------------------------------------------
+    def host_state_dict(self) -> Dict[str, Any]:
+        """The host-side part of `state_dict` (string ids, location,
+        rebuild counter), without copying the bank off the device."""
+        return {
+            "slot_ids": [i if i is not None else "" for i in self._slot_ids],
+            "current_location": self.current_location,
+            "writes_since_rebuild": self._writes_since_rebuild,
+        }
+
     def state_dict(self) -> Dict[str, Any]:
-        ids = [i if i is not None else "" for i in self._slot_ids]
         return {
             "memory_state": state_to_numpy(self.state),
             "cognitive_map": CognitiveMapParams(
                 *[t.cpu().numpy() for t in self.cognitive_map]),
-            "slot_ids": ids,
-            "current_location": self.current_location,
-            "writes_since_rebuild": self._writes_since_rebuild,
+            **self.host_state_dict(),
         }
 
     def load_state_dict(self, sd: Dict[str, Any]) -> None:

@@ -21,8 +21,8 @@ if it saw a `memory_state`, while the port's model always has them: give
 `module_from_numpy(module, tree)` loads any port module whose names
 mirror a flax module's (the trainer's `Amygdala` and `Thalamus` among
 them), and `trainer_from_numpy` builds a port `Trainer` from the numpy
-trees of a JAX `Trainer` (model, amygdala, thalamus and bank), so both
-packages train from the same weights.
+trees of a JAX `Trainer` (model, amygdala, thalamus, bank, optimizer
+state and step), so both packages train, or resume, from the same state.
 """
 
 from __future__ import annotations
@@ -120,17 +120,50 @@ def module_from_numpy(module: torch.nn.Module,
     return module
 
 
+def _flat_like(trainer, tree: Mapping[str, Any]) -> torch.Tensor:
+    """A flax tree shaped like the parameters (an Adam moment), flattened
+    in the order of the optimizer's flat buffer (the model's parameters)
+    as f32."""
+    cfg = trainer.config
+    sd = params_from_numpy(tree, cfg.model,
+                           cfg.memory if cfg.model.use_rag else None)
+    return torch.cat([sd[name].reshape(-1)
+                      for name, _ in trainer.model.named_parameters()])
+
+
+def _load_opt_state(trainer, opt_state) -> None:
+    """optax's `chain(clip_by_global_norm, adamw(schedule))` state, as the
+    JAX package's trainer holds it: `opt_state[1][0]` is
+    `ScaleByAdamState(count, mu, nu)` and the schedule's count sits
+    further along `opt_state[1]`. The port's one `count` stands for both,
+    so they must agree."""
+    adam, *rest = opt_state[1]
+    counts = {int(np.asarray(adam.count))} | {
+        int(np.asarray(s.count)) for s in rest
+        if "count" in getattr(s, "_fields", ())}
+    if len(counts) != 1:
+        raise ValueError(f"optimizer counts disagree: {sorted(counts)}")
+    count, mu, nu = trainer.optimizer.state
+    with torch.no_grad():
+        count.fill_(counts.pop())
+        mu.copy_(_flat_like(trainer, adam.mu).to(mu.dtype))
+        nu.copy_(_flat_like(trainer, adam.nu))
+
+
 def trainer_from_numpy(config, params: Mapping[str, Any],
                        amygdala: Optional[Mapping[str, Any]] = None,
                        thalamus: Optional[Mapping[str, Any]] = None,
-                       memory_state=None, seed: int = 0, device="cuda"):
+                       memory_state=None, seed: int = 0, device="cuda",
+                       opt_state=None, step: int = 0):
     """A port `Trainer` (`training/trainer.py`) holding a JAX `Trainer`'s
-    weights: `params` is `jax.tree.map(np.asarray, trainer.state.params)`,
+    state: `params` is `jax.tree.map(np.asarray, trainer.state.params)`,
     `amygdala` / `thalamus` the same of `trainer.amygdala_params` /
     `trainer.thalamus_params` (required when the config enables them),
     `memory_state` the bank as numpy (`jax.tree.map(np.asarray,
-    trainer.hippocampus.state)`), or None to keep the new empty bank.
-    The optimizer state starts fresh, as a new JAX `Trainer`'s does."""
+    trainer.hippocampus.state)`), or None to keep the new empty bank,
+    `opt_state` the same of `trainer.state.opt_state` (its count, first
+    moment in `optimizer_mu_dtype` and second moment), or None for a
+    fresh optimizer, and `step` `int(trainer.state.step)`."""
     from aura_snn_rag_tpu_torch.memory.state import state_from_numpy
     from aura_snn_rag_tpu_torch.training.trainer import Trainer
     trainer = Trainer(config, seed=seed, device=device)
@@ -149,4 +182,7 @@ def trainer_from_numpy(config, params: Mapping[str, Any],
     if memory_state is not None:
         trainer.hippocampus._set_state(
             state_from_numpy(memory_state, trainer.device))
+    if opt_state is not None:
+        _load_opt_state(trainer, opt_state)
+    trainer._step = int(step)
     return trainer

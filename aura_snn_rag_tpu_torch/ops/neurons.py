@@ -2,10 +2,11 @@
 
 Counterpart of `aura_snn_rag_tpu/ops/neurons.py`. Ported so far: the
 generalised integrate-and-fire neuron (`GIFParams`, `gif_params`,
-`gif_scan`, `gif_scan_const`), which the spiking FFN of the LM runs. The
-JAX package scans time with `lax.scan`; here each time step is a few
-elementwise PyTorch ops in a Python loop (T = 4 in the LM). LIF,
-Izhikevich, AdEx and `leaky_integrate` come in a later slice.
+`gif_scan`, `gif_scan_const`), which the spiking FFN of the LM runs, and
+the linear leaky integrator `leaky_integrate` (the STDP learner's
+eligibility traces). The JAX package scans time with `lax.scan`; here
+each time step is a few elementwise PyTorch ops in a Python loop (T = 4
+in the LM). LIF, Izhikevich and AdEx come in a later slice.
 
 The parameters are 0-dim tensors of the compute dtype, as in the JAX
 package, so in bf16 every step rounds to bf16 as there.
@@ -87,3 +88,22 @@ def gif_scan_const(params: GIFParams, current: torch.Tensor, timesteps: int,
         v, theta, spk = _gif_step(params, v, theta, current)
         spikes.append(spk)
     return torch.stack(spikes, dim=-2), (v, theta)
+
+
+def leaky_integrate(decay, x: torch.Tensor, axis: int = -2) -> torch.Tensor:
+    """Linear leaky integrator v_t = decay * v_{t-1} + x_t along `axis`.
+
+    The recurrence is linear, so it runs as an inclusive scan of
+    (d, v) pairs under (d1, v1) . (d2, v2) = (d1 d2, v2 + d2 v1), the
+    JAX package's `associative_scan` operator, in log2(T) Hillis-Steele
+    steps of whole-tensor ops. `decay` broadcasts against x with `axis`
+    moved to the front, as there."""
+    v = x.movedim(axis, 0)
+    d = torch.broadcast_to(torch.as_tensor(decay, dtype=v.dtype,
+                                           device=v.device), v.shape)
+    shift = 1
+    while shift < v.shape[0]:
+        v = torch.cat([v[:shift], v[shift:] + d[shift:] * v[:-shift]])
+        d = torch.cat([d[:shift], d[shift:] * d[:-shift]])
+        shift *= 2
+    return v.movedim(0, axis)

@@ -1,7 +1,7 @@
 """Training (counterpart of `aura_snn_rag_tpu.training`): the loss, the LR
 schedule, the optimizer, the trainer with replay, sleep phase and EWC,
-the tokenizer and the data loaders. Checkpoints, online learning and
-the STDP dictionary come in a later slice."""
+checkpoints, online learning (Oja, STDP, whitener, NLMS), the STDP
+dictionary, the tokenizer and the data loaders."""
 
 from aura_snn_rag_tpu_torch.training.losses import (  # noqa: F401
     hippocampal_loss, perplexity)
@@ -11,3 +11,5 @@ from aura_snn_rag_tpu_torch.training.optim import (  # noqa: F401
     AdamWState, ClippedAdamW)
 from aura_snn_rag_tpu_torch.training.trainer import (  # noqa: F401
     EWCConsolidator, ReplayBuffer, Trainer, TrainState)
+from aura_snn_rag_tpu_torch.training.checkpoint import (  # noqa: F401
+    CheckpointManager)

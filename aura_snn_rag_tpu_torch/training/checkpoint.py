@@ -1,0 +1,210 @@
+"""Checkpoints of the trainer: parameters, optimizer, step, memory bank and
+id table (counterpart of `aura_snn_rag_tpu/training/checkpoint.py`, which
+is built on orbax and needs JAX).
+
+A checkpoint holds what the JAX package's holds, and nothing more:
+- the parameters (the optimizer's flat f32 buffer);
+- the optimizer state `AdamWState(count, mu, nu)`;
+- the step given to `save`;
+- the bank's `MemoryState` and the cognitive map;
+- the amygdala's and the thalamus's weights (empty when disabled);
+- a `meta_{step}.json` sidecar with `loss`, `slot_ids`,
+  `current_location` and `writes_since_rebuild`, as the JAX package
+  writes it.
+The hormones, the thalamus gate's last reading, the replay buffer, EWC
+and the dropout seed stream are not saved, as in the JAX package.
+
+Format: `ckpt_{step}.pt`, `torch.save` of a dict of CPU tensors (in
+their own dtypes) and Python scalars, read back with
+`torch.load(..., map_location="cpu", weights_only=True)`. Each file is
+written under a temporary name, flushed to disk and moved into place
+with `os.replace`, the sidecar first and the tensors last: a save cut
+short leaves no `ckpt_{step}.pt`, so it never becomes `latest_step()`.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from aura_snn_rag_tpu_torch.memory.cognitive_map import CognitiveMapParams
+from aura_snn_rag_tpu_torch.memory.state import MemoryState
+
+_CKPT = re.compile(r"^ckpt_(\d+)\.pt$")
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A CPU copy that owns its storage (a view would save its base)."""
+    return t.detach().to("cpu", copy=True)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """The numpy form `HippocampalFormation.load_state_dict` takes: bf16
+    as f32 (exact; numpy has no bfloat16)."""
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _write_atomic(path: str, write) -> None:
+    tmp = f"{path}.tmp-{os.getpid()}"
+    try:
+        with open(tmp, "wb") as f:
+            write(f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def _expect(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    if not torch.is_tensor(got):
+        raise ValueError(f"checkpoint {name}: not a tensor")
+    if tuple(got.shape) != tuple(want.shape) or got.dtype != want.dtype:
+        raise ValueError(
+            f"checkpoint {name}: {tuple(got.shape)} {got.dtype}, trainer "
+            f"{tuple(want.shape)} {want.dtype}")
+
+
+def _expect_modules(name: str, got: Dict[str, Any], module) -> None:
+    want = {} if module is None else module.state_dict()
+    if set(got) != set(want):
+        raise ValueError(f"checkpoint {name}: keys {sorted(got)}, trainer "
+                         f"{sorted(want)}")
+    for key, t in want.items():
+        _expect(f"{name}.{key}", got[key], t)
+
+
+class CheckpointManager:
+    """Saves and restores a port `Trainer` (`training/trainer.py`) under
+    `directory`, keeping the newest `max_to_keep` steps."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        self.max_to_keep = max_to_keep
+
+    def path(self, step: int) -> str:
+        return os.path.join(self.directory, f"ckpt_{step}.pt")
+
+    def meta_path(self, step: int) -> str:
+        return os.path.join(self.directory, f"meta_{step}.json")
+
+    def all_steps(self) -> List[int]:
+        return sorted(int(m.group(1)) for m in
+                      map(_CKPT.match, os.listdir(self.directory)) if m)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, trainer, loss: float = 0.0) -> None:
+        opt, hippo = trainer.optimizer, trainer.hippocampus
+        count, mu, nu = opt.state
+        payload = {
+            "params": _host(opt.flat),
+            "count": _host(count),
+            "mu": _host(mu),
+            "nu": _host(nu),
+            "step": int(step),
+            "memory_state": {name: _host(t) for name, t in
+                             zip(MemoryState._fields, hippo.state)},
+            "cognitive_map": {name: _host(t) for name, t in
+                              zip(CognitiveMapParams._fields,
+                                  hippo.cognitive_map)},
+            "amygdala": ({} if trainer.amygdala is None else
+                         {k: _host(t) for k, t in
+                          trainer.amygdala.state_dict().items()}),
+            "thalamus": ({} if trainer.thalamus is None else
+                         {k: _host(t) for k, t in
+                          trainer.thalamus.state_dict().items()}),
+        }
+        sd = hippo.host_state_dict()
+        meta = {
+            "loss": float(loss),
+            "slot_ids": list(sd["slot_ids"]),
+            "current_location": np.asarray(sd["current_location"]).tolist(),
+            "writes_since_rebuild": sd["writes_since_rebuild"],
+        }
+        _write_atomic(self.meta_path(step),
+                      lambda f: f.write(json.dumps(meta).encode()))
+        _write_atomic(self.path(step), lambda f: torch.save(payload, f))
+        for old in self.all_steps()[:-self.max_to_keep]:
+            for p in (self.path(old), self.meta_path(old)):
+                if os.path.exists(p):
+                    os.remove(p)
+
+    def restore(self, trainer, step: Optional[int] = None,
+                load_optimizer: bool = True) -> int:
+        """Restore `step` (the latest when None) into `trainer`; returns
+        the step, or 0 when the directory holds no checkpoint.
+
+        The whole checkpoint is read and checked on the host before the
+        trainer is touched, so a missing, corrupt or mis-shaped one
+        raises and leaves the trainer as it was (the JAX package's
+        `via_host=True` contract; the port has only that path, so there
+        is no `via_host` argument). The parameters, moments and count
+        are copied into the optimizer's buffers in place: every
+        `Parameter` stays a view of `optimizer.flat`. With
+        `load_optimizer=False` the trainer keeps its optimizer state."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return 0
+        payload = torch.load(self.path(step), map_location="cpu",
+                             weights_only=True)
+        with open(self.meta_path(step)) as f:
+            meta = json.load(f)
+
+        opt, hippo = trainer.optimizer, trainer.hippocampus
+        count, mu, nu = opt.state
+        for name, want in (("params", opt.flat), ("count", count),
+                           ("mu", mu), ("nu", nu)):
+            _expect(name, payload[name], want)
+        for group, fields, state in (
+                ("memory_state", MemoryState._fields, hippo.state),
+                ("cognitive_map", CognitiveMapParams._fields,
+                 hippo.cognitive_map)):
+            if set(payload[group]) != set(fields):
+                raise ValueError(f"checkpoint {group}: fields "
+                                 f"{sorted(payload[group])}")
+            for name, want in zip(fields, state):
+                _expect(f"{group}.{name}", payload[group][name], want)
+        _expect_modules("amygdala", payload["amygdala"], trainer.amygdala)
+        _expect_modules("thalamus", payload["thalamus"], trainer.thalamus)
+        mcfg = hippo.config
+        if (len(meta["slot_ids"]) != mcfg.max_memories
+                or len(meta["current_location"]) != mcfg.spatial_dims):
+            raise ValueError(f"checkpoint {self.meta_path(step)}: "
+                             f"{len(meta['slot_ids'])} slot ids and a "
+                             f"location of {len(meta['current_location'])}, "
+                             f"bank of {mcfg.max_memories} in "
+                             f"{mcfg.spatial_dims} dims")
+
+        with torch.no_grad():
+            opt.flat.copy_(payload["params"])
+            if load_optimizer:
+                count.copy_(payload["count"])
+                mu.copy_(payload["mu"])
+                nu.copy_(payload["nu"])
+        trainer._step = int(payload["step"])
+        trainer._pending = trainer._last_fetched = None
+        hippo.load_state_dict({
+            "memory_state": [_numpy(payload["memory_state"][name])
+                             for name in MemoryState._fields],
+            "cognitive_map": [_numpy(payload["cognitive_map"][name])
+                              for name in CognitiveMapParams._fields],
+            "slot_ids": meta["slot_ids"],
+            "current_location": np.asarray(meta["current_location"],
+                                           np.float32),
+            "writes_since_rebuild": meta["writes_since_rebuild"],
+        })
+        for module, sd in ((trainer.amygdala, payload["amygdala"]),
+                           (trainer.thalamus, payload["thalamus"])):
+            if module is not None:
+                module.load_state_dict(sd)
+        return int(payload["step"])

@@ -66,6 +66,25 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
    but without `retrieve_auto`'s host sync (aux built once), and with
    memory and remat ("full").
 
+6. operator phase: what an operator of the system does, at
+   `get_full_config()` with `TRAIN_CHANGES`, dropout 0 and the thalamus
+   and endocrine gates off (`operator_config`), in a temporary directory
+   it deletes: a JSONL corpus of 100,000 distinct synthetic texts (from a
+   seed) through the CLI's `ingest` into the preset's 100,000 x 768 bank
+   (the native hash embedder; rebuilds timed; embedding alone timed),
+   then self-recall@1 of 1024 ingested texts at B = 8 (>= 0.99, kernel B
+   once per batch); a `Trainer` over that bank takes 2 `train_step`s
+   with memory (kernel B 12 x 2 per step), `CheckpointManager.save`,
+   restore into a fresh `Trainer` (every tensor, `_step` and the slot ids
+   equal bit for bit, every parameter still a view of the optimizer's
+   flat buffer; a truncated copy raises and changes nothing); one more
+   `train_step` on both, equal bit for bit; 8 requests served from each
+   by `BatchedGenerator` with its bank under asyncio (greedy tokens
+   equal; kernel B 12 x (1 + steps) per batch); then the CLI in
+   subprocesses at `--preset full`: `train --steps 2`, `generate` and
+   `serve` (one POST /generate and one GET /stats over a socket), with
+   no kernel built again.
+
 `--profile` adds a torch.profiler breakdown of one call of each
 retrieval path (device time by kernel, device busy share) to phase 2,
 of decode steps (wall, device, busy, `retrieve_auto`'s share) to
@@ -74,7 +93,8 @@ phase 4, and of training steps with memory to phase 5.
 Launch counters are zeroed just before phase 2 and read after phase 3;
 every kernel must have run there. They are zeroed again before phase 4,
 where kernel B must run 12 times per model call and no other kernel
-runs, and again just before phase 5's 8 counted train_steps. Any
+runs, again just before phase 5's 8 counted train_steps, and again
+before phase 6, after which kernel B alone must have run. Any
 failed check exits non-zero. The last lines are the card's name
 and power limit, one JSON object with the per-kernel numbers, and
 {"ok": true, "device": {...}}. Without a CUDA card the script exits 1 and
@@ -83,9 +103,11 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -136,6 +158,19 @@ TRAIN_TIMED = 3                 # steps per timing, after one warm-up
 # the queries off by 2x gives 0.5, a missing one 1. 2^-4 sits between.
 TRAIN_GRAD_RTOL = 2.0 ** -4
 TRAIN_LOSS_RTOL = 1e-5
+
+# the operator phase: get_full_config() with TRAIN_CHANGES (see
+# operator_config); a corpus of the preset's bank size, ingested through
+# the CLI's `ingest`; self-recall@1 of OPERATOR_QUERIES ingested texts at
+# B = 8 at least OPERATOR_RECALL (a text's own row scores cosine 1)
+OPERATOR_TEXTS = 100_000
+OPERATOR_QUERIES = 1024
+OPERATOR_RECALL = 0.99
+OPERATOR_STEPS = 2              # train_steps before the checkpoint
+OPERATOR_REQUESTS = 8           # served from the checkpoint, one batch
+OPERATOR_NEW_TOKENS = 16
+OPERATOR_PRESET = "full"        # the CLI subprocesses' --preset
+OPERATOR_CLI_TIMEOUT = 300      # seconds per CLI subprocess
 
 SOURCES = {
     "flat_blockmax": ("aura_snn_rag_tpu_torch/ops/cuda/csrc/flat_scan.cu",
@@ -1522,6 +1557,466 @@ def train_phase(dev, profile=False):
     return stats
 
 
+# --------------------------------------------------------------------------
+# operator phase: ingest, train, checkpoint, resume, serve, the CLI
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms (where an op has none it
+    raises), without filling new tensors: main() sets the cuBLAS
+    workspace this needs (`:4096:8`, the size PyTorch picks on sm_90)."""
+    import torch
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
+def operator_config():
+    """train_config() with dropout 0 and the thalamus and endocrine
+    modulators off. A checkpoint holds, as the JAX package's, neither the
+    dropout seed stream nor the modulators' last readings (the thalamus
+    gate, the hormones), and a restored trainer starts them anew: so the
+    original and the restored trainer take bit-equal steps only at
+    dropout 0 and without those two gates. Without the thalamus gate
+    (0.5 at random weights) memory is on at every step."""
+    cfg = train_config()
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, dropout=0.0),
+        training=dataclasses.replace(cfg.training, enable_thalamus=False,
+                                     enable_endocrine=False))
+
+
+def synthetic_corpus(path, n, seed):
+    """n distinct texts written to `path` as JSONL {"text": ...}: 8 to 40
+    words drawn with Zipf weights from 20,000 random lowercase words,
+    then the text's number. Returns the texts."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    letters = rng.randint(97, 123, (20_000, 10)).astype(np.uint8)
+    lengths = rng.randint(3, 11, 20_000)
+    vocab = [bytes(w[:k]).decode() for w, k in zip(letters, lengths)]
+    p = 1.0 / np.arange(1, len(vocab) + 1)
+    counts = rng.randint(8, 41, n)
+    words = rng.choice(len(vocab), int(counts.sum()), p=p / p.sum())
+    ends = np.cumsum(counts)
+    texts = [" ".join(vocab[w] for w in words[e - c:e]) + f" ({i})"
+             for i, (e, c) in enumerate(zip(ends, counts))]
+    with open(path, "w") as f:
+        for t in texts:
+            f.write(json.dumps({"text": t}) + "\n")
+    return texts
+
+
+def ingest_phase(dev, tmp, counts, feature_dim):
+    """The corpus through the CLI's `ingest` (rebuilds timed), embedding
+    alone timed, and self-retrieval of OPERATOR_QUERIES ingested texts at
+    B = 8. Returns (bank, stats)."""
+    import numpy as np
+    import torch
+    from aura_snn_rag_tpu_torch import cli
+    from aura_snn_rag_tpu_torch.memory.hippocampus import HippocampalFormation
+
+    path = f"{tmp}/corpus.jsonl"
+    texts, gen_s = synced(lambda: synthetic_corpus(path, OPERATOR_TEXTS, 21))
+    rebuilds = []
+    real = HippocampalFormation.rebuild_centroids
+
+    def timed(self):
+        _, s = synced(lambda: real(self))
+        rebuilds.append(s)
+
+    HippocampalFormation.rebuild_centroids = timed
+    try:
+        (hf, embedder, n), ingest_s = synced(lambda: cli.ingest(
+            path, "jsonl", None, feature_dim, device=dev))
+    finally:
+        HippocampalFormation.rebuild_centroids = real
+    check(embedder.native, "ingest: the hash embedder took its numpy path "
+          "(the native library did not build or load)")
+    check(n == hf.memory_count == OPERATOR_TEXTS,
+          f"ingest: stored {n}, bank count {hf.memory_count}, expected "
+          f"{OPERATOR_TEXTS}")
+    check(hf.index_ready, "ingest: index not built")
+    _, embed_s = synced(lambda: embedder.embed_batch(texts))
+
+    pick = np.random.RandomState(5).choice(OPERATOR_TEXTS, OPERATOR_QUERIES,
+                                           replace=False)
+    q = torch.from_numpy(embedder.embed_batch([texts[i] for i in pick])) \
+        .to(dev)
+    want = torch.tensor([hf._id_to_slot[f"jsonl-{i}"] for i in pick],
+                        device=dev)
+    b0 = counts["ivf_retrieve_fused"]
+
+    def query():
+        return torch.cat([hf.retrieve_batch(q[i:i + 8]).indices[:, 0]
+                          for i in range(0, OPERATOR_QUERIES, 8)])
+    top1, query_s = synced(query)
+    recall = float((top1 == want).float().mean())
+    launches = counts["ivf_retrieve_fused"] - b0
+    check(launches == OPERATOR_QUERIES // 8,
+          f"ingest retrieval: kernel B launched {launches} times, expected "
+          f"{OPERATOR_QUERIES // 8}")
+    check(recall >= OPERATOR_RECALL, f"ingest: self-recall@1 {recall} < "
+          f"{OPERATOR_RECALL}")
+    stats = dict(texts=n, corpus_s=gen_s, ingest_s=ingest_s,
+                 ingest_rows_per_s=n / ingest_s, embed_s=embed_s,
+                 embed_rows_per_s=n / embed_s, rebuilds=len(rebuilds),
+                 rebuild_s=sum(rebuilds), native_embedder=embedder.native,
+                 self_recall_at_1=recall, queries=OPERATOR_QUERIES,
+                 query_s=query_s, kernel_B_launches=launches)
+    log(f"operator ingest: {n} texts in {ingest_s:.2f} s "
+        f"({n / ingest_s:.0f} rows/s; {len(rebuilds)} rebuilds, "
+        f"{sum(rebuilds):.2f} s), embedding alone {embed_s:.3f} s "
+        f"({n / embed_s:.0f} rows/s, native), self-recall@1 {recall:.4f} "
+        f"over {OPERATOR_QUERIES} queries at B=8 ({query_s:.2f} s, kernel "
+        f"B {launches})")
+    return hf, stats
+
+
+def trainer_tensors(trainer):
+    """Every tensor a checkpoint restores, by name, with `_step`."""
+    from aura_snn_rag_tpu_torch.memory.state import MemoryState
+    count, mu, nu = trainer.optimizer.state
+    out = {"params": trainer.optimizer.flat, "count": count, "mu": mu,
+           "nu": nu}
+    out.update({f"memory_state.{k}": t for k, t in
+                zip(MemoryState._fields, trainer.hippocampus.state)})
+    out.update({f"cognitive_map.{i}": t for i, t in
+                enumerate(trainer.hippocampus.cognitive_map)})
+    for name in ("amygdala", "thalamus"):
+        mod = getattr(trainer, name)
+        if mod is not None:
+            out.update({f"{name}.{k}": t for k, t in
+                        mod.state_dict().items()})
+    return out
+
+
+def tensors_differ(a, b):
+    """Names whose tensors are not equal bit for bit (dtype included),
+    and `_step` when the steps differ."""
+    import torch
+    a_t, b_t = trainer_tensors(a), trainer_tensors(b)
+    out = sorted(k for k in set(a_t) | set(b_t)
+                 if k not in a_t or k not in b_t
+                 or a_t[k].dtype != b_t[k].dtype
+                 or not torch.equal(a_t[k], b_t[k]))
+    return out + (["_step"] if a.state.step != b.state.step else [])
+
+
+def views_flat(trainer):
+    """True when every Parameter's storage lies inside optimizer.flat's."""
+    flat = trainer.optimizer.flat
+    lo = flat.data_ptr()
+    hi = lo + flat.numel() * flat.element_size()
+    return all(p.untyped_storage().data_ptr()
+               == flat.untyped_storage().data_ptr()
+               and lo <= p.data_ptr() < hi
+               for p in trainer.model.parameters())
+
+
+def cli_run(args, timeout):
+    """stdout and seconds of `python -m aura_snn_rag_tpu_torch.cli args`
+    from this checkout; a non-zero exit fails the phase."""
+    from pathlib import Path
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "aura_snn_rag_tpu_torch.cli", *args],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=timeout)
+    seconds = time.perf_counter() - t0
+    check(out.returncode == 0, f"cli {' '.join(args)}: exit "
+          f"{out.returncode}\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    return out.stdout, seconds
+
+
+def cli_serve(args, tmp, n_tokens, timeout):
+    """`cli serve args --port 0` in a subprocess: one POST /generate for
+    n_tokens and one GET /stats over a socket, then the server is
+    terminated. Returns (generate status, tokens, stats status, stats,
+    seconds to ready, seconds of the request)."""
+    import http.client
+    import queue
+    import threading
+    from pathlib import Path
+    t0 = time.perf_counter()
+    err = open(f"{tmp}/serve.err", "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "aura_snn_rag_tpu_torch.cli", "serve", *args,
+         "--port", "0"], cwd=Path(__file__).resolve().parent,
+        stdout=subprocess.PIPE, stderr=err, text=True)
+    lines = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(x)
+                                              for x in proc.stdout],
+                              daemon=True)
+    reader.start()
+    try:
+        try:
+            line = lines.get(timeout=timeout)
+        except queue.Empty:
+            line = ""
+        if not line.startswith("serving on http://"):
+            err.seek(0)
+            raise CheckFailed(f"cli serve did not start (exit {proc.poll()})"
+                              f": {line!r}\n{err.read()[-4000:]}")
+        ready_s = time.perf_counter() - t0
+        host, port = line.split("//", 1)[1].strip().rsplit(":", 1)
+        conn = http.client.HTTPConnection(host, int(port), timeout=timeout)
+        t1 = time.perf_counter()
+        conn.request("POST", "/generate", json.dumps(
+            {"prompt_ids": [5, 6, 7, 8], "max_new_tokens": n_tokens,
+             "temperature": 0.8, "top_p": 0.9}))
+        r = conn.getresponse()
+        body = json.loads(r.read())
+        request_s = time.perf_counter() - t1
+        conn.close()
+        conn.request("GET", "/stats")
+        r2 = conn.getresponse()
+        stats = json.loads(r2.read())
+        conn.close()
+        return (r.status, body.get("tokens"), r2.status, stats, ready_s,
+                request_s)
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=10)
+        err.close()
+
+
+def operator_phase(dev):
+    """The operator's path at get_full_config() (see the module doc):
+    ingest, train, checkpoint and restore, resume, serve from the
+    checkpoint, and the CLI in subprocesses. Launch counters are zeroed
+    by the caller just before this phase and read just after it."""
+    import shutil
+    import tempfile
+    import torch
+    import aura_snn_rag_tpu_torch as port
+    from aura_snn_rag_tpu_torch.generation import BatchedGenerator
+    from aura_snn_rag_tpu_torch.ops.cuda import _build
+    from aura_snn_rag_tpu_torch.training.checkpoint import CheckpointManager
+
+    cfg = operator_config()
+    mcfg, n_layers = cfg.memory, cfg.model.num_layers
+    tcfg = cfg.training
+    accum = tcfg.gradient_accumulation_steps
+    counts = _build.launch_counts
+    stats = {"steps": {}}
+    tmp = tempfile.mkdtemp(prefix="aura_operator_")
+    t_phase = time.perf_counter()
+
+    def kernel_b():
+        return counts["ivf_retrieve_fused"]
+
+    try:
+        # 1. ingest a corpus into the bank the preset's trainer holds
+        hf, stats["ingest"] = ingest_phase(dev, tmp, counts,
+                                           mcfg.feature_dim)
+        check(hf.config == mcfg, f"ingest built {hf.config}, the preset's "
+              f"bank is {mcfg}")
+        stats["steps"]["ingest_s"] = stats["ingest"]["ingest_s"]
+
+        # 2. train 2 steps with memory over the ingested bank, save,
+        # restore into a fresh trainer
+        trainer, t = synced(lambda: port.Trainer(cfg, seed=7, device=dev))
+        trainer.hippocampus = hf
+        g = torch.Generator(device=dev).manual_seed(13)
+        ids = torch.randint(0, cfg.model.vocab_size,
+                            (tcfg.batch_size, TRAIN_SEQ), device=dev,
+                            generator=g)
+        b0, c0 = kernel_b(), int(hf.state.count)
+
+        def train(tr, n):
+            return [tr.train_step(ids, ids) for _ in range(n)]
+        ms, train_s = synced(lambda: train(trainer, OPERATOR_STEPS))
+        launches = kernel_b() - b0
+        want_b = n_layers * accum * OPERATOR_STEPS
+        check(all(m["use_memory"] for m in ms) and launches == want_b,
+              f"operator training: memory {[m['use_memory'] for m in ms]}, "
+              f"kernel B launched {launches}, expected {n_layers} x {accum} "
+              f"x {OPERATOR_STEPS} = {want_b}")
+        stored = int(hf.state.count) - c0
+        check(stored == tcfg.batch_size, f"operator training stored "
+              f"{stored} rows, expected {tcfg.batch_size} (step 0)")
+        loss = trainer.latest_metrics()["loss"]
+        check(math.isfinite(loss), f"operator training: loss {loss}")
+        stats["train"] = dict(steps=OPERATOR_STEPS, seconds=train_s,
+                              trainer_init_s=t, kernel_B_launches=launches,
+                              loss=loss, rows_stored=stored)
+        stats["steps"]["train_s"] = train_s
+        log(f"operator training: {OPERATOR_STEPS} train_steps with memory "
+            f"over the ingested bank in {train_s:.2f} s (trainer built in "
+            f"{t:.2f} s), kernel B {launches} = {n_layers} x {accum} x "
+            f"{OPERATOR_STEPS}, loss {loss:.4f}")
+
+        ckpt = CheckpointManager(f"{tmp}/ckpt")
+        _, save_s = synced(lambda: ckpt.save(OPERATOR_STEPS, trainer, loss))
+        nbytes = (os.path.getsize(ckpt.path(OPERATOR_STEPS))
+                  + os.path.getsize(ckpt.meta_path(OPERATOR_STEPS)))
+        restored = port.Trainer(cfg, seed=8, device=dev)
+        step, restore_s = synced(lambda: ckpt.restore(restored))
+        differ = tensors_differ(trainer, restored)
+        check(step == OPERATOR_STEPS and restored.state.step == OPERATOR_STEPS
+              and not differ, f"restore: step {step}, tensors that differ "
+              f"{differ}")
+        ids_equal = (restored.hippocampus.host_state_dict()["slot_ids"]
+                     == hf.host_state_dict()["slot_ids"])
+        check(ids_equal, "restore: slot ids differ")
+        check(views_flat(restored), "restore: a parameter is no longer a "
+              "view of the optimizer's flat buffer")
+        # a corrupted copy (the first half of the file) raises and leaves
+        # the trainer as it was
+        bad = CheckpointManager(f"{tmp}/bad")
+        with open(ckpt.path(OPERATOR_STEPS), "rb") as src, \
+                open(bad.path(OPERATOR_STEPS), "wb") as dst:
+            dst.write(src.read(os.path.getsize(ckpt.path(OPERATOR_STEPS))
+                               // 2))
+        shutil.copy(ckpt.meta_path(OPERATOR_STEPS),
+                    bad.meta_path(OPERATOR_STEPS))
+        try:
+            bad.restore(restored)
+            corrupt_raised = None
+        except (RuntimeError, ValueError, OSError, EOFError) as e:
+            corrupt_raised = type(e).__name__
+        shutil.rmtree(f"{tmp}/bad")
+        differ_after = tensors_differ(trainer, restored)
+        check(corrupt_raised is not None and not differ_after,
+              f"corrupt restore: raised {corrupt_raised}, tensors that "
+              f"differ afterwards {differ_after}")
+        stats["checkpoint"] = dict(
+            save_s=save_s, restore_s=restore_s, bytes=nbytes,
+            tensors_checked=len(trainer_tensors(trainer)),
+            slot_ids_equal=ids_equal, views_flat=True,
+            corrupt_copy_raised=corrupt_raised)
+        stats["steps"].update(save_s=save_s, restore_s=restore_s)
+        log(f"operator checkpoint: saved {nbytes} bytes in {save_s:.2f} s, "
+            f"restored in {restore_s:.2f} s; "
+            f"{len(trainer_tensors(trainer))} tensors, _step and slot ids "
+            f"equal bit for bit, parameters view the flat buffer; a "
+            f"truncated copy raised {corrupt_raised} and changed nothing")
+
+        # 3. resume: one more step on each, at dropout 0 (the dropout
+        # seed stream is not in the checkpoint, as in the JAX package),
+        # under deterministic algorithms: by default the card's attention
+        # backward sums with atomics, in an order that can differ between
+        # two calls on the same inputs
+        b0 = kernel_b()
+        with deterministic():
+            _, resume_s = synced(lambda: (trainer.train_step(ids, ids),
+                                          restored.train_step(ids, ids)))
+        la = trainer.latest_metrics()["loss"]
+        lb = restored.latest_metrics()["loss"]
+        differ = tensors_differ(trainer, restored)
+        launches = kernel_b() - b0
+        check(la == lb and not differ and launches == 2 * n_layers * accum,
+              f"resume: loss {la} / {lb}, tensors that differ {differ}, "
+              f"kernel B {launches}")
+        stats["resume"] = dict(loss=la, loss_restored=lb, seconds=resume_s,
+                               bit_equal=True, kernel_B_launches=launches)
+        stats["steps"]["resume_s"] = resume_s
+        log(f"operator resume: the next step of the original and the "
+            f"restored trainer: loss {la:.6f} / {lb:.6f}, every tensor "
+            f"equal bit for bit ({resume_s:.2f} s for both, kernel B "
+            f"{launches})")
+
+        # 4. serve from the checkpoint with its bank: greedy tokens equal
+        # to the original trainer's model on the same prompts
+        g = torch.Generator().manual_seed(17)
+        reqs = [(torch.randint(0, cfg.model.vocab_size,
+                               (int(torch.randint(5, 65, (1,), generator=g)),),
+                               generator=g).numpy(), OPERATOR_NEW_TOKENS, 0.0)
+                for _ in range(OPERATOR_REQUESTS)]
+        outs = {}
+        for name, tr in (("restored", restored), ("original", trainer)):
+            tr.model.eval()
+            server = BatchedGenerator(
+                tr.model, memory_state=tr.hippocampus.state,
+                generator=torch.Generator(device=dev).manual_seed(3),
+                **LM_SERVE)
+            b0 = kernel_b()
+            out, batches, seconds = serve_requests(server, reqs)
+            launches = kernel_b() - b0
+            want = n_layers * sum(tokens for _, tokens, _ in batches)
+            check(launches == want and [b for b, _, _ in batches]
+                  == [OPERATOR_REQUESTS],
+                  f"operator serving ({name}): batches {batches}, kernel B "
+                  f"{launches}, expected 12 x (1 + steps) per batch = {want}")
+            outs[name] = (out, batches, seconds, launches)
+        same = all(a.shape == (OPERATOR_NEW_TOKENS,) and (a == b).all()
+                   for a, b in zip(outs["restored"][0], outs["original"][0]))
+        check(same, "operator serving: greedy tokens from the restored "
+              "checkpoint differ from the original trainer's")
+        out, batches, seconds, launches = outs["restored"]
+        stats["serve"] = dict(requests=len(reqs), batches=batches,
+                              seconds=seconds, kernel_B_launches=launches,
+                              tokens_equal_original=same,
+                              seconds_original=outs["original"][2])
+        stats["steps"]["serve_s"] = seconds
+        log(f"operator serving from the checkpoint: {len(reqs)} requests "
+            f"in batches {batches} in {seconds:.2f} s, kernel B {launches} "
+            f"= {n_layers} x (1 + steps); greedy tokens equal the original "
+            f"trainer's")
+        del trainer, restored, hf, server
+        shutil.rmtree(f"{tmp}/ckpt")
+        torch.cuda.empty_cache()
+
+        # 5. the CLI in subprocesses, reusing this checkout's kernel build
+        built = sorted(os.listdir(_build.BUILD_DIR))
+        d = f"{tmp}/cli"
+        common = ["--preset", OPERATOR_PRESET, "--device", dev.type,
+                  "--checkpoint-dir", d]
+        out, train_cli_s = cli_run(["train", "--steps",
+                                    str(OPERATOR_STEPS)] + common,
+                                   OPERATOR_CLI_TIMEOUT)
+        latest = CheckpointManager(d).latest_step()
+        check("done" in out and latest == OPERATOR_STEPS,
+              f"cli train: latest_step {latest}\n{out[-2000:]}")
+        out, gen_cli_s = cli_run(["generate", "--max-new-tokens",
+                                  str(OPERATOR_NEW_TOKENS)] + common,
+                                 OPERATOR_CLI_TIMEOUT)
+        toks = json.loads(out.strip().splitlines()[-1])
+        check(len(toks) == 3 + OPERATOR_NEW_TOKENS and all(
+            0 <= t < cfg.model.vocab_size for t in toks),
+            f"cli generate: {toks}")
+        status, served, s_status, s_stats, ready_s, request_s = cli_serve(
+            common + ["--max-new-tokens", str(OPERATOR_NEW_TOKENS)], tmp,
+            OPERATOR_NEW_TOKENS // 2, OPERATOR_CLI_TIMEOUT)
+        check(status == 200 and len(served) == OPERATOR_NEW_TOKENS // 2
+              and s_status == 200 and s_stats.get("requests") == 1,
+              f"cli serve: {status} {served}, stats {s_status} {s_stats}")
+        check(sorted(os.listdir(_build.BUILD_DIR)) == built,
+              f"the CLI built kernels again: {built} -> "
+              f"{sorted(os.listdir(_build.BUILD_DIR))}")
+        stats["cli"] = dict(preset=OPERATOR_PRESET, train_s=train_cli_s,
+                            generate_s=gen_cli_s, serve_ready_s=ready_s,
+                            serve_request_s=request_s,
+                            latest_step=latest, generated=len(toks),
+                            served=len(served))
+        stats["steps"].update(cli_train_s=train_cli_s,
+                              cli_generate_s=gen_cli_s,
+                              cli_serve_s=ready_s + request_s)
+        log(f"operator CLI at --preset {OPERATOR_PRESET}: train --steps "
+            f"{OPERATOR_STEPS} {train_cli_s:.1f} s (latest_step {latest}), "
+            f"generate {gen_cli_s:.1f} s ({len(toks)} tokens), serve ready "
+            f"in {ready_s:.1f} s, POST /generate 200 with {len(served)} "
+            f"tokens in {request_s:.2f} s, GET /stats 200")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    stats["seconds"] = time.perf_counter() - t_phase
+    log(f"operator phase: {stats['seconds']:.1f} s; steps "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stats["steps"].items()))
+    return stats
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1532,6 +2027,9 @@ def card_line():
 
 
 def main() -> int:
+    # the cuBLAS workspace that deterministic algorithms require (phase
+    # 6's resumed steps); the size PyTorch takes on sm_90 anyway
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -1604,6 +2102,19 @@ def main() -> int:
     train = train_phase(dev, profile="--profile" in sys.argv[1:])
     launches_train = train["launches"]
     log(f"training-path launches: {launches_train}")
+    torch.cuda.empty_cache()
+
+    # ---- the operator's path: counts from zero again ----
+    _build.reset_launch_counts()
+    operator = operator_phase(dev)
+    launches_op = dict(_build.launch_counts)
+    check(launches_op.get("ivf_retrieve_fused", 0) > 0
+          and all(launches_op.get(name, 0) == 0 for name in SOURCES
+                  if name != "ivf_retrieve_fused"),
+          f"operator path launches {launches_op}: kernel B only, at least "
+          f"once")
+    operator["launches"] = launches_op
+    log(f"operator-path launches: {launches_op}")
 
     main_shape = {"flat_blockmax": res_a[("int8", 1024)],
                   "ivf_retrieve_fused": res_bc[("ivf_retrieve_fused", 8)],
@@ -1625,6 +2136,7 @@ def main() -> int:
             # the LM's shape, and its launches on the LM and training paths
             row["launches_lm"] = launches_lm[name]
             row["launches_train"] = launches_train[name]
+            row["launches_operator"] = launches_op[name]
             for B, suffix in ((8, ""), (1, "_b1")):
                 r = res_lm_b[(name, B)]
                 row.update({f"lm_{key}{suffix}": r[key] for key in (
@@ -1635,6 +2147,7 @@ def main() -> int:
     log(json.dumps({"engine": stats}))
     log(json.dumps({"lm": lm}))
     log(json.dumps({"train": train}))
+    log(json.dumps({"operator": operator}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

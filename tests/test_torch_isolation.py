@@ -12,7 +12,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 _PROBE = r"""
 import importlib, pkgutil, sys
-sys.modules["jax"] = None            # any `import jax` now raises
+for blocked in ("jax", "click", "orbax", "aiohttp"):
+    sys.modules[blocked] = None      # any `import jax` etc. now raises
 import aura_snn_rag_tpu_torch as pkg
 names = [m.name for m in
          pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -20,7 +21,9 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules
                 if m == "aura_snn_rag_tpu" or m.startswith("aura_snn_rag_tpu.")
-                or (m.startswith("jax") and sys.modules[m] is not None))
+                or (m.split(".")[0] in ("jax", "jaxlib", "click", "orbax",
+                                        "aiohttp", "flax", "optax")
+                    and sys.modules[m] is not None))
 print(len(names), leaked)
 """
 
@@ -59,3 +62,41 @@ def test_training_modules_are_in_the_probe():
         assert "import jax" not in src and "from jax" not in src, mod
         assert "aura_snn_rag_tpu." not in src.replace(
             "aura_snn_rag_tpu_torch.", ""), mod
+
+
+# the operator's path: checkpoints, the CLI, ingestion and online
+# learning; none imports click or orbax, and aiohttp only inside the
+# RSS loop that needs it
+OPERATOR_MODULES = (
+    "training.checkpoint", "models.convert", "_native",
+    "encoders.hash_embedder", "encoders.embedding_cache", "services.ingest",
+    "ops.neurons", "training.online", "training.stdp_dict",
+    "services.continuous_learning", "cli")
+
+
+def test_operator_modules_are_in_the_probe():
+    import ast
+    import pkgutil
+    import aura_snn_rag_tpu_torch as pkg
+    names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                   pkg.__name__ + ".")}
+    for mod in OPERATOR_MODULES:
+        assert f"aura_snn_rag_tpu_torch.{mod}" in names, mod
+        path = ROOT / "aura_snn_rag_tpu_torch" / (mod.replace(".", "/")
+                                                  + ".py")
+        tree = ast.parse(path.read_text())
+        top = set()
+        for node in tree.body:
+            if isinstance(node, ast.Import):
+                top |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                top.add(node.module.split(".")[0])
+        every = set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                every |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                every.add(node.module.split(".")[0])
+        assert not every & {"jax", "flax", "optax", "orbax", "click",
+                            "aura_snn_rag_tpu"}, (mod, every)
+        assert "aiohttp" not in top, mod
