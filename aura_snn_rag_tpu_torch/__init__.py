@@ -32,6 +32,8 @@ from aura_snn_rag_tpu_torch.memory import (  # noqa: F401
     CognitiveMapParams,
     HippocampalFormation,
     MemoryState,
+    SpillDeviceState,
+    SpilledBank,
     bulk_load,
     decay_memories,
     grid_cell_rates,

@@ -18,12 +18,16 @@ What the `MemoryConfig` fields mean in the port:
   (kernel C).
 - `flat_strategy`: "scan" ([B, M] coarse scores + exact top-k funnel) or
   "blockmax" (kernel A, no [B, M]).
-- `flat_rescue_queries`, `flat_wide_funnel` and `flat_exact_funnel` are not
-  ported yet and raise NotImplementedError when enabled.
+- `flat_exact_funnel` and `flat_wide_funnel` are accepted and ignored:
+  the scan's funnel already is the exact top-k that both compute, so the
+  port runs the default scan for them. `flat_rescue_queries` and
+  `flat_rescue_width` re-funnel the riskiest queries of a scan wider.
+- `spill_funnel_rows` and `spill_query_chunk` shape the host-spilled
+  bank's device funnel (`memory/host_spill.py`): its second-stage row
+  funnel, and the query slices kernel A scans the bank for.
 - `ivf_funnel_recall` and `flat_funnel_recall` are kept for parity and
   unused: the port's funnels are exact top-k.
-- `flat_tile_m`, `spill_funnel_rows` and `spill_query_chunk` belong to the
-  TPU kernel's tiling and the host-spilled tier, which is not ported yet.
+- `flat_tile_m` belongs to the TPU kernel's tiling and is unused.
 """
 
 from __future__ import annotations

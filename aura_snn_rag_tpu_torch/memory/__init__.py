@@ -2,8 +2,9 @@
 
 Counterpart of `aura_snn_rag_tpu.memory`: a device-resident vector bank
 with one-shot writes, an IVF centroid index with a clustered candidate
-store, combined cosine/spatial/temporal scoring and k-means rebuilds. The
-sharded engine is not ported yet.
+store, combined cosine/spatial/temporal scoring and k-means rebuilds, and
+the host-spilled bank (`SpilledBank`: int8 coarse rows on the card, exact
+rows in host RAM). The sharded engine is not ported yet.
 """
 
 from aura_snn_rag_tpu_torch.memory.state import (  # noqa: F401
@@ -20,6 +21,8 @@ from aura_snn_rag_tpu_torch.memory.engine import (  # noqa: F401
 )
 from aura_snn_rag_tpu_torch.memory.hippocampus import (  # noqa: F401
     HippocampalFormation)
+from aura_snn_rag_tpu_torch.memory.host_spill import (  # noqa: F401
+    SpillDeviceState, SpilledBank)
 from aura_snn_rag_tpu_torch.memory.cognitive_map import (  # noqa: F401
     CognitiveMapParams,
     init_cognitive_map,

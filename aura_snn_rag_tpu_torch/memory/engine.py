@@ -232,6 +232,15 @@ def _rerank(config: MemoryConfig, state: MemoryState, qn: torch.Tensor,
             query_locations: Optional[torch.Tensor],
             k: int) -> RetrievalResult:
     """Exact f32 rerank of [B, N] candidate slots and the final top-k."""
+    return _finish(*_rerank_raw(config, state, qn, cand_slots, cand_valid,
+                                query_locations, k))
+
+
+def _rerank_raw(config: MemoryConfig, state: MemoryState, qn: torch.Tensor,
+                cand_slots: torch.Tensor, cand_valid: torch.Tensor,
+                query_locations: Optional[torch.Tensor], k: int):
+    """`_rerank` before its misses are masked: (slots, scores, features),
+    a miss scoring -1e30."""
     cand_feats = state.features[cand_slots]                     # [B, N, D]
     exact_cos = torch.einsum("bkd,bd->bk", _l2norm(cand_feats), qn)
     exact = _combined_score(config, state, exact_cos, cand_slots,
@@ -241,7 +250,7 @@ def _rerank(config: MemoryConfig, state: MemoryState, qn: torch.Tensor,
     out_slots = cand_slots.gather(1, pick).long()
     feats = cand_feats.gather(
         1, pick[..., None].expand(-1, -1, cand_feats.shape[-1]))
-    return _finish(out_slots, scores, feats)
+    return out_slots, scores, feats
 
 
 def _finish(out_slots, scores, feats) -> RetrievalResult:
@@ -490,11 +499,15 @@ def _retrieve_flat_scan(config: MemoryConfig, state: MemoryState,
                         queries: torch.Tensor,
                         query_locations: Optional[torch.Tensor],
                         k: int) -> RetrievalResult:
-    if (config.flat_rescue_queries > 0 or config.flat_wide_funnel > 0
-            or config.flat_exact_funnel):
-        raise NotImplementedError(
-            "flat_rescue_queries / flat_wide_funnel / flat_exact_funnel "
-            "are not ported yet")
+    """[B, M] coarse scores, the exact coarse top-kk, the exact f32 rerank.
+
+    The funnel is an exact `torch.topk`, so it already is what
+    `flat_exact_funnel` computes (the exact coarse top-kk through the top
+    blocks) and what `flat_wide_funnel` followed by its exact top-kk
+    computes; both options take it as it is. `flat_rescue_queries` > 0
+    re-funnels the riskiest queries `flat_rescue_width` wide
+    (`_flat_rescue`).
+    """
     M = state.max_memories
     dev = state.device
     qn = _l2norm(queries)
@@ -516,8 +529,46 @@ def _retrieve_flat_scan(config: MemoryConfig, state: MemoryState,
     combined = torch.where(active[None, :], combined,
                            torch.tensor(NEG_INF, dtype=sdt, device=dev))
     kk = min(max(config.rerank_candidates, 4 * k), M)
-    _, pick = torch.topk(combined, kk, dim=1)
-    return _rerank(config, state, qn, pick, active[pick], query_locations, k)
+    cand_coarse, pick = torch.topk(combined, kk, dim=1)
+    out_slots, scores, feats = _rerank_raw(config, state, qn, pick,
+                                           active[pick], query_locations, k)
+    R = min(config.flat_rescue_queries, qn.shape[0])
+    kk2 = min(config.flat_rescue_width, M)
+    if R > 0 and kk2 > kk:
+        out_slots, scores, feats = _flat_rescue(
+            config, state, qn, combined, pick, cand_coarse, out_slots,
+            scores, feats, query_locations, k, R, kk2)
+    return _finish(out_slots, scores, feats)
+
+
+def _flat_rescue(config: MemoryConfig, state: MemoryState, qn: torch.Tensor,
+                 combined: torch.Tensor, pick: torch.Tensor,
+                 cand_coarse: torch.Tensor, out_slots: torch.Tensor,
+                 scores: torch.Tensor, feats: torch.Tensor,
+                 query_locations: Optional[torch.Tensor], k: int, R: int,
+                 kk2: int):
+    """Near-tie rescue: re-funnel the R riskiest queries kk2 wide.
+
+    A true top-k row can be missing from the narrow funnel only when its
+    coarse score fell below the funnel's cutoff, so the queries whose k-th
+    exact score lies closest to their coarse cutoff take kk2 more
+    candidates from their coarse rows. The union of both lanes, each slot
+    scored once, gets the exact rerank, and the rows go back in place."""
+    margin = scores[:, k - 1] - cand_coarse.amin(dim=1).float()     # [B]
+    _, risky = torch.topk(-margin, R)                                # [R]
+    _, pick_w = torch.topk(combined[risky], kk2, dim=1)
+    slots_all = torch.cat([pick[risky], pick_w], dim=1)              # [R, C]
+    valid_all = slots_all < state.active_count()
+    # a slot in both lanes counts once: every occurrence after its first
+    srt, order = slots_all.sort(dim=1, stable=True)
+    dup_sorted = torch.zeros_like(srt, dtype=torch.bool)
+    dup_sorted[:, 1:] = srt[:, 1:] == srt[:, :-1]
+    is_dup = torch.zeros_like(dup_sorted).scatter_(1, order, dup_sorted)
+    loc_r = None if query_locations is None else query_locations[risky]
+    s_w, s_sc, f_w = _rerank_raw(config, state, qn[risky], slots_all,
+                                 valid_all & ~is_dup, loc_r, k)
+    out_slots[risky], scores[risky], feats[risky] = s_w, s_sc, f_w
+    return out_slots, scores, feats
 
 
 def _flat_kernel_ok(state: MemoryState, query_locations) -> bool:

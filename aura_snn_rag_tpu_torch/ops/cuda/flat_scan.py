@@ -33,6 +33,7 @@ from aura_snn_rag_tpu_torch.ops.cuda import _build
 NEG_INF = -1e30
 BLOCK_R = 8                      # rows per funnel block
 INV_127SQ = 1.0 / (127.0 * 127.0)
+PLAIN_SLAB = 1 << 20             # bank rows per slab of the plain version
 
 
 def pack_row_terms(mul: torch.Tensor, add: torch.Tensor,
@@ -56,15 +57,22 @@ def flat_blockmax_plain(bank: torch.Tensor, q: torch.Tensor,
                         q_scale: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """The kernel's function in PyTorch (the CPU path and the kernel's
-    oracle on the card)."""
+    oracle on the card). The bank is taken in slabs of PLAIN_SLAB rows, so
+    its f32 copy and the [B, slab] scores stay small at 10M rows; a block
+    never straddles two slabs."""
     M, D = bank.shape
+    if bank.dtype == torch.int8 and D * 127 * 127 >= 2 ** 24:
+        raise ValueError(f"flat_blockmax_plain: D={D} too wide for exact "
+                         "int8 sums in f32")
+    if M > PLAIN_SLAB:
+        return torch.cat([
+            flat_blockmax_plain(bank[r:r + PLAIN_SLAB], q, mul[r:],
+                                add[r:], q_scale)
+            for r in range(0, M, PLAIN_SLAB)], dim=1)
     B = q.shape[0]
     nb = -(-M // BLOCK_R)
     if bank.dtype == torch.int8:
         # exact: every partial sum is an integer below D*127^2 < 2^24
-        if D * 127 * 127 >= 2 ** 24:
-            raise ValueError(f"flat_blockmax_plain: D={D} too wide for "
-                             "exact int8 sums in f32")
         acc = q.float() @ bank.float().T
         cos = acc * INV_127SQ
         if q_scale is not None:

@@ -28,7 +28,10 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
 2. engine phase: the episodic-memory engine in bench.py's configuration
    (1,000,000 x 768, K = 4096, probe 64, int8 coarse bank): bulk_load,
    write_memories, rebuild_centroids, a write on the live index, then
-   retrieve_flat (scan and blockmax, B = 1024), retrieve_auto with
+   retrieve_flat (scan and blockmax, B = 1024; the scan also with
+   `flat_exact_funnel` and `flat_wide_funnel` = 4096, each held equal to
+   the default scan's result, and with `flat_rescue_queries` = 64 at
+   width 1024, with recall at least the default scan's), retrieve_auto with
    ivf_kernel v3r, v2 and v3 (IVF, B = 1 and 8; in that order and again
    in the reverse order, keys ending "_rev") and retrieve with
    locations (IVF v1, B = 8), with recall@10 against the port's exact
@@ -85,6 +88,26 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
    `serve` (one POST /generate and one GET /stats over a socket), with
    no kernel built again.
 
+7. spill phase: the host-spilled bank (`SpilledBank`) at
+   benchmarks/bench_host_spill.py's configuration: 10,000,000 x 768, int8
+   coarse rows on the card, the exact f32 rows in host RAM (M is cut to
+   what MemAvailable holds, and the cut printed), funnel 64 blocks, rows
+   96, query chunk 256, k = 10. Its data recipe (4,096 centres x 2.0 plus
+   unit noise) is drawn on the card from a seed, one chunk ahead on a
+   side stream into pinned buffers, so the ingest's uploads on the main
+   stream are never waited for by the draw, and ingested through
+   `bulk_load_chunked`; queries are stored rows plus
+   0.5 x noise. `retrieve_stream` at B = 1024 and 128 (coalesce = B) over
+   4096 queries after a warm call, with the benchmark's per-batch
+   breakdown (dispatch, device funnel, transfer, host rerank); the
+   native rerank must serve every timed query; the stream must equal
+   `retrieve` batch for batch; recall@10 of 256 queries against the
+   exact cosine top-10 over all rows (f32 products on the card) >= 0.99;
+   one chunk's funnel through kernel A and through its plain version
+   gives the same candidates; kernel A timed at the chunk's shape (B =
+   256 over the whole bank); device and host bytes beside those of a
+   device-resident `MemoryState` of the same M.
+
 `--profile` adds a torch.profiler breakdown of one call of each
 retrieval path (device time by kernel, device busy share) to phase 2,
 of decode steps (wall, device, busy, `retrieve_auto`'s share) to
@@ -94,7 +117,9 @@ Launch counters are zeroed just before phase 2 and read after phase 3;
 every kernel must have run there. They are zeroed again before phase 4,
 where kernel B must run 12 times per model call and no other kernel
 runs, again just before phase 5's 8 counted train_steps, and again
-before phase 6, after which kernel B alone must have run. Any
+before phase 6, after which kernel B alone must have run, and again
+just before phase 7's retrievals, after which kernel A alone must have
+run, ceil(B / 256) times per funnel dispatch. Any
 failed check exits non-zero. The last lines are the card's name
 and power limit, one JSON object with the per-kernel numbers, and
 {"ok": true, "device": {...}}. Without a CUDA card the script exits 1 and
@@ -172,6 +197,20 @@ OPERATOR_NEW_TOKENS = 16
 OPERATOR_PRESET = "full"        # the CLI subprocesses' --preset
 OPERATOR_CLI_TIMEOUT = 300      # seconds per CLI subprocess
 
+# the spill phase: benchmarks/bench_host_spill.py's configuration
+# (:100-105) with its defaults (funnel 64 blocks, rows 96, chunk 256)
+SPILL = dict(max_memories=10_000_000, feature_dim=768, retrieve_k=10,
+             coarse_dtype="int8", flat_block_funnel=64, spill_funnel_rows=96,
+             spill_query_chunk=256, k_centroids=16, n_place_cells=8,
+             n_grid_cells=4, n_time_cells=2)
+SPILL_CENTERS = 4096
+SPILL_CHUNK = 262_144           # rows per bulk_load_chunked chunk
+SPILL_QUERIES = 4096            # per timed retrieve_stream
+SPILL_BATCHES = (1024, 128)     # the query batch, also the coalesce width
+SPILL_EVAL = 256                # queries held to the exact truth
+SPILL_RECALL = 0.99
+SPILL_HOST_SPARE = 10e9         # host bytes beside the host half
+
 SOURCES = {
     "flat_blockmax": ("aura_snn_rag_tpu_torch/ops/cuda/csrc/flat_scan.cu",
                       "aura_snn_rag_tpu/ops/pallas/flat_scan.py:172"),
@@ -185,6 +224,12 @@ SOURCES = {
                         "aura_snn_rag_tpu/ops/pallas/ivf_scan.py:62"),
 }
 IVF_KERNELS = ("v3r", "v2", "v3")     # ivf_kernel settings the engine runs
+# the flat scan's options the engine runs beside its default funnel
+FLAT_OPTIONS = {
+    "exact_funnel": dict(flat_exact_funnel=True),
+    "wide_funnel": dict(flat_wide_funnel=4096),
+    "rescue": dict(flat_rescue_queries=64, flat_rescue_width=1024),
+}
 
 
 class CheckFailed(AssertionError):
@@ -325,6 +370,36 @@ def bound_ms(nbytes, ops, kind):
 # kernel phase
 # --------------------------------------------------------------------------
 
+def blockmax_bound(M, D, B, dtype):
+    """Kernel A's bound: the bank, the row terms and the queries read once,
+    the [B, M/8] block maxima written once; 2*B*M*D operations."""
+    elem = 1 if dtype == "int8" else 2
+    nbytes = M * D * elem + 2 * 4 * M + B * D * elem + 4 * B * (M // 8)
+    return bound_ms(nbytes, 2 * B * M * D, dtype)
+
+
+def blockmax_library(bank, q, mul, add, q_scale, slab=None):
+    """Kernel A's yardstick: the library product (`_int_mm` for int8, bf16
+    `matmul`), then the same epilogue in PyTorch; over `slab` bank rows at
+    a time (default all), so that the [B, slab] products fit beside a
+    10M-row bank."""
+    import torch
+    from aura_snn_rag_tpu_torch.memory.engine import _int8_matmul
+    M, B = bank.shape[0], q.shape[0]
+    slab = slab or M
+    out = []
+    for r in range(0, M, slab):
+        part = bank[r:r + slab]
+        if bank.dtype == torch.int8:
+            acc = _int8_matmul(q, part).float()
+            cos = acc * (1.0 / (127 * 127)) * q_scale[:, None]
+        else:
+            cos = torch.matmul(q, part.T).float()
+        comb = cos * mul[r:r + part.shape[0]] + add[r:r + part.shape[0]]
+        out.append(comb.reshape(B, -1, 8).amax(-1))
+    return out[0] if len(out) == 1 else torch.cat(out, dim=1)
+
+
 def kernel_A(dev, gen, M, D, cases):
     """flat_blockmax vs its plain version; returns {case: numbers}."""
     import torch
@@ -366,34 +441,17 @@ def kernel_A(dev, gen, M, D, cases):
             f"{s_ms:.4f} ms/call, SM clock {clock} MHz, power {power} W")
         plain_ms = time_ms([lambda s=s: flat_blockmax_plain(*s)
                             for s in sets], iters=3, warmup=1)
-        # yardstick: the library product (`_int_mm` / bf16 `matmul`), then
-        # the same epilogue in PyTorch
-        if dtype == "int8":
-            from aura_snn_rag_tpu_torch.memory.engine import _int8_matmul
-
-            def library(s):
-                acc = _int8_matmul(s[1], s[0]).float()
-                cos = acc * (1.0 / (127 * 127)) * s[4][:, None]
-                comb = cos * s[2][:M] + s[3][:M]
-                return comb.reshape(B, -1, BLOCK_R).amax(-1)
-        else:
-            def library(s):
-                cos = torch.matmul(s[1], s[0].T).float()
-                comb = cos * s[2][:M] + s[3][:M]
-                return comb.reshape(B, -1, BLOCK_R).amax(-1)
-        lib_ms = time_ms([lambda s=s: library(s) for s in sets],
+        lib_ms = time_ms([lambda s=s: blockmax_library(*s) for s in sets],
                          iters=3, warmup=1)
         if dtype == "int8":
+            from aura_snn_rag_tpu_torch.memory.engine import _int8_matmul
             # context, not the yardstick: cuBLAS's int8 GEMM alone, without
             # the epilogue and with its [B, M] int32 output
             gemm_ms = time_ms([lambda s=s: _int8_matmul(s[1], s[0])
                                for s in sets], iters=3, warmup=1)
             log(f"kernel flat_blockmax int8 B={B}: bare _int_mm product "
                 f"ms={gemm_ms:.4f}")
-        elem = 1 if dtype == "int8" else 2
-        nbytes = (M * D * elem + 2 * 4 * M + B * D * elem
-                  + 4 * B * (M // BLOCK_R))
-        b_ms, b_by = bound_ms(nbytes, 2 * B * M * D, dtype)
+        b_ms, b_by = blockmax_bound(M, D, B, dtype)
         out[(dtype, B)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                library_ms=lib_ms, bound_ms=b_ms,
                                bound_by=b_by)
@@ -761,9 +819,45 @@ def engine_phase(dev, cfg_kw, n_eval, n_live, profile=False):
         stats[f"flat_{strategy}_qps"] = 3 * 1024 / dt
         stats[f"flat_{strategy}_recall_at_10"] = recall_at_k(
             r.indices, exact[:1024])
+        if strategy == "scan":
+            scan_result = r
         log(f"engine: retrieve_flat {strategy} B=1024: "
             f"{stats[f'flat_{strategy}_qps']:.1f} QPS, recall@10 "
             f"{stats[f'flat_{strategy}_recall_at_10']:.4f}")
+
+    # the scan's three options: PyTorch ops and no kernel, as XLA ops in
+    # the JAX package. The exact and the wide funnel run the default scan
+    # in the port (its funnel already is an exact top-kk), so they are
+    # held equal to its result and not timed again; the rescue is timed,
+    # with recall at least the default scan's
+    for name, kw in FLAT_OPTIONS.items():
+        c = dataclasses.replace(cfg, flat_strategy="scan", **kw)
+        if name != "rescue":
+            r = port.retrieve_flat(c, state, queries[:1024], None, TOPK)
+            same = all(torch.equal(getattr(r, f), getattr(scan_result, f))
+                       for f in ("indices", "scores", "features"))
+            stats[f"flat_scan_{name}_equals_default"] = same
+            log(f"engine: retrieve_flat scan with {kw} B=1024 equals the "
+                f"default scan's result: {same}")
+            check(same, f"scan {name} differs from the default scan")
+            continue
+        batch = [queries[:1024]]
+        port.retrieve_flat(c, state, batch[0], None, TOPK)       # warm-up
+        res, dt = timed_batches(
+            lambda b: port.retrieve_flat(c, state, b, None, TOPK), batch * 3)
+        r = res[-1]
+        check(torch.isfinite(r.scores).all().item(), f"scan {name} finite")
+        check(tuple(r.indices.shape) == (1024, TOPK), f"scan {name} shape")
+        key = f"flat_scan_{name}"
+        stats[f"{key}_qps"] = 3 * 1024 / dt
+        stats[f"{key}_recall_at_10"] = recall_at_k(r.indices, exact[:1024])
+        log(f"engine: retrieve_flat scan with {kw} B=1024: "
+            f"{stats[f'{key}_qps']:.1f} QPS, recall@10 "
+            f"{stats[f'{key}_recall_at_10']:.4f}")
+        check(stats[f"{key}_recall_at_10"]
+              >= stats["flat_scan_recall_at_10"],
+              f"scan {name} recall {stats[f'{key}_recall_at_10']} below "
+              f"the default scan's {stats['flat_scan_recall_at_10']}")
 
     # each IVF path in the order v3r, v2, v3 and again in v3, v2, v3r
     # (keys ending "_rev"), to tell an order effect from a path's own cost
@@ -2017,6 +2111,301 @@ def operator_phase(dev):
     return stats
 
 
+# --------------------------------------------------------------------------
+# spill phase: the host-spilled bank at 10M x 768
+# --------------------------------------------------------------------------
+
+def mem_available():
+    """The host's MemAvailable in bytes (Linux), or None."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return None
+
+
+def spill_rows(M, D):
+    """M, or the largest multiple of SPILL_CHUNK whose host half fits in
+    MemAvailable beside SPILL_HOST_SPARE bytes (the cut is printed)."""
+    avail = mem_available()
+    per_row = 4 * D + 6 * 4                 # f32 row, inverse norm, mirrors
+    if avail is None or M * per_row + SPILL_HOST_SPARE <= avail:
+        return M
+    cut = (avail - SPILL_HOST_SPARE) // per_row // SPILL_CHUNK * SPILL_CHUNK
+    check(cut > 0, f"host RAM: MemAvailable {avail / 1e9:.1f} GB holds no "
+          f"spilled bank")
+    log(f"spill phase: M cut from {M:,} to {cut:,}: MemAvailable "
+        f"{avail / 1e9:.1f} GB")
+    return cut
+
+
+def spill_truth(dev, host_features, queries, k, rows=1 << 20):
+    """Exact cosine top-k over every stored row, independent of the port:
+    chunks of the host rows go to the card, f32 products (TF32 off)."""
+    import numpy as np
+    import torch
+    qn = torch.from_numpy(queries / np.linalg.norm(
+        queries, axis=1, keepdims=True)).to(dev)
+    best_v = torch.full((len(queries), k), -2.0, device=dev)
+    best_i = torch.zeros((len(queries), k), dtype=torch.long, device=dev)
+    for off in range(0, len(host_features), rows):
+        x = torch.from_numpy(host_features[off:off + rows]).to(dev)
+        s = qn @ (x / x.norm(dim=1, keepdim=True)).T
+        v, i = torch.topk(s, k, dim=1)
+        best_v, pick = torch.topk(torch.cat([best_v, v], 1), k, dim=1)
+        best_i = torch.cat([best_i, i + off], 1).gather(1, pick)
+    return best_i
+
+
+def spill_breakdown(bank, batches, k):
+    """The benchmark's per-batch stages (bench_host_spill.py --breakdown),
+    ms per batch: dispatch (enqueue every funnel), device funnel (from the
+    same start until the card is done), transfer (slot ids to the host),
+    host rerank."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inflight = [bank._dispatch_funnel(b) for b in batches]
+    dispatch_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    device_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pulled = [f.cpu().numpy() for _, _, f in inflight]
+    transfer_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for (qn, B, _), f in zip(inflight, pulled):
+        bank._host_rerank(qn, B, f, k, None)
+    rerank_s = time.perf_counter() - t0
+    n = len(batches)
+    return {"dispatch": dispatch_s / n * 1e3,
+            "device_funnel": device_s / n * 1e3,
+            "transfer": transfer_s / n * 1e3,
+            "host_rerank": rerank_s / n * 1e3,
+            "funnel_bytes_per_batch": pulled[0].nbytes}
+
+
+def spill_kernel_A(bank, queries, B):
+    """Kernel A at the spilled tier's shape (its device funnel's chunk of B
+    queries over the whole bank) against its plain version and the
+    library yardstick, in 1M-row slabs for the two."""
+    import torch
+    from aura_snn_rag_tpu_torch.ops.cuda.flat_scan import (
+        flat_blockmax, flat_blockmax_plain, pack_row_terms)
+    cfg, dev = bank.config, bank.dev
+    M, D = dev.coarse.shape
+    # the funnel's row terms at step 0 (temporal term 1 for every row)
+    mul, add = pack_row_terms(cfg.w_cosine * dev.strength * dev.scale,
+                              cfg.w_temporal * dev.strength, M)
+    sets = []
+    for i in range(2):
+        _, qc, qs, _ = bank._prep_queries(queries[i * B:(i + 1) * B])
+        sets.append((dev.coarse, qc, mul, add, qs))
+    got = flat_blockmax(*sets[0])
+    want = flat_blockmax_plain(*sets[0])
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    check(got.shape == want.shape == (B, -(-M // 8)),
+          f"flat_blockmax spill shape {tuple(got.shape)}")
+    check(err == 0.0, f"flat_blockmax int8 at the spill shape: err {err}")
+    del got, want
+    out = dict(max_abs_err=err)
+    out["ms"] = time_ms([lambda s=s: flat_blockmax(*s) for s in sets])
+    out["graph_ms"] = graph_ms([lambda s=s: flat_blockmax(*s) for s in sets],
+                               iters=4)
+    torch.cuda.empty_cache()
+    out["plain_ms"] = time_ms([lambda s=s: flat_blockmax_plain(*s)
+                               for s in sets], iters=3, warmup=1)
+    out["library_ms"] = time_ms(
+        [lambda s=s: blockmax_library(*s, slab=1 << 20) for s in sets],
+        iters=3, warmup=1)
+    out["bound_ms"], out["bound_by"] = blockmax_bound(M, D, B, "int8")
+    log(f"kernel flat_blockmax int8 B={B} M={M} D={D} (spill): "
+        f"max_abs_err={err} ms={out['ms']:.4f} graph_ms="
+        f"{out['graph_ms']:.4f} plain_ms={out['plain_ms']:.4f} "
+        f"library_ms={out['library_ms']:.4f} bound_ms={out['bound_ms']:.4f}"
+        f" ({out['bound_by']})")
+    return out
+
+
+def spill_phase(dev):
+    """The host-spilled bank at bench_host_spill.py's configuration (see
+    the module doc). Launch counters are zeroed here just before the
+    bank's retrievals and read just after them."""
+    import numpy as np
+    import torch
+    import aura_snn_rag_tpu_torch as port
+    from aura_snn_rag_tpu_torch.memory import host_spill
+    from aura_snn_rag_tpu_torch.ops.cuda import _build
+    from aura_snn_rag_tpu_torch.ops.cuda.flat_scan import flat_blockmax_plain
+
+    t_phase = time.perf_counter()
+    M = spill_rows(SPILL["max_memories"], SPILL["feature_dim"])
+    cfg = port.MemoryConfig(**dict(SPILL, max_memories=M))
+    D, chunk = cfg.feature_dim, cfg.spill_query_chunk
+    stats = {"n_vectors": M, "mem_available_gb": (mem_available() or 0) / 1e9}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 1. ingest: bench_host_spill.py's chunk_factory recipe (4,096 centres
+    # x 2.0 plus unit noise), drawn on the card from a seed
+    gen = torch.Generator(device=dev).manual_seed(7)
+    centers = torch.randn(SPILL_CENTERS, D, device=dev, generator=gen) * 2.0
+    datagen = [0.0]
+    # chunk i+1 is drawn on a side stream into the pinned buffer chunk i-1
+    # used (its host half is done by then) while the host ingests chunk i;
+    # waiting on the side stream's event alone leaves the ingest's uploads
+    # on the main stream in flight (a CPU rehearsal draws in line)
+    on_card = dev.type == "cuda"
+    side = torch.cuda.Stream() if on_card else None
+    if on_card:
+        side.wait_stream(torch.cuda.current_stream())
+    bufs = [torch.empty((SPILL_CHUNK, D), pin_memory=on_card)
+            for _ in range(2)]
+    drawn = {}
+
+    def draw(offset):
+        b, slot = min(SPILL_CHUNK, M - offset), len(drawn) % 2
+        with torch.cuda.stream(side):            # no-op for None
+            assign = torch.randint(0, SPILL_CENTERS, (b,), device=dev,
+                                   generator=gen)
+            x = centers[assign] + torch.randn(b, D, device=dev,
+                                              generator=gen)
+            bufs[slot][:b].copy_(x, non_blocking=on_card)
+            done = torch.cuda.Event() if on_card else None
+            if on_card:
+                done.record(side)
+        drawn[offset] = (bufs[slot][:b], done)
+
+    def make(offset, b):
+        t0 = time.perf_counter()
+        if offset not in drawn:
+            draw(offset)
+        rows, done = drawn[offset]
+        if done is not None:
+            done.synchronize()
+        if offset + b < M:
+            draw(offset + b)
+        datagen[0] += time.perf_counter() - t0
+        return rows.numpy()
+
+    t0 = time.perf_counter()
+    bank = port.SpilledBank(cfg, device=dev)
+    bank.bulk_load_chunked(make, M, chunk=SPILL_CHUNK)
+    torch.cuda.synchronize()
+    stats["ingest_s"] = time.perf_counter() - t0
+    stats["ingest_datagen_s"] = datagen[0]
+    check(bank.count == M and bank.native, f"ingest: count {bank.count}, "
+          f"native rerank {bank.native}")
+    log(f"spill: ingest of {M:,} x {D} {stats['ingest_s']:.1f} s "
+        f"({M / stats['ingest_s']:.0f} rows/s; waiting for the rows drawn "
+        f"on the card {datagen[0]:.1f} s of it)")
+    del centers
+
+    # queries: stored rows at random offsets plus 0.5 x noise
+    rng = np.random.RandomState(7)
+    queries = bank.host_features[rng.randint(0, M, SPILL_QUERIES)]
+    queries += 0.5 * rng.randn(SPILL_QUERIES, D).astype(np.float32)
+
+    def launches_for(sizes):
+        return sum(-(-b // chunk) for b in sizes)
+
+    # 2. the main path, counts from zero: retrieve_stream at B = 1024 and
+    # 128 (coalesce = B) after one warm call, the breakdown, and
+    # retrieve_stream against retrieve
+    _build.reset_launch_counts()
+    expect = 0
+    results = {}
+    for B in SPILL_BATCHES:
+        batches = [queries[i:i + B] for i in range(0, SPILL_QUERIES, B)]
+        bank.retrieve(batches[0])                                # warm-up
+        served0 = bank.served["native"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = bank.retrieve_stream(batches, coalesce=B)
+        dt = time.perf_counter() - t0
+        check(bank.served["native"] - served0 == SPILL_QUERIES,
+              f"B={B}: the native rerank served "
+              f"{bank.served['native'] - served0} of {SPILL_QUERIES}")
+        stats[f"qps_b{B}"] = SPILL_QUERIES / dt
+        stats[f"breakdown_b{B}_ms"] = spill_breakdown(bank, batches,
+                                                      cfg.retrieve_k)
+        expect += launches_for([B] + [B] * len(batches) * 2)
+        results[B] = (batches, res)
+        log(f"spill: retrieve_stream B={B}: {stats[f'qps_b{B}']:.1f} QPS "
+            f"over {SPILL_QUERIES} queries; per batch (ms) "
+            f"{stats[f'breakdown_b{B}_ms']}")
+    stats["device_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    for B in SPILL_BATCHES:
+        batches, res = results[B]
+        for b, r in list(zip(batches, res))[:4]:
+            single = bank.retrieve(b)
+            check(np.array_equal(single.indices, r.indices)
+                  and np.array_equal(single.scores, r.scores),
+                  f"retrieve_stream B={B} differs from retrieve")
+            expect += launches_for([len(b)])
+    launches = dict(_build.launch_counts)
+    check(bank.served["numpy"] == 0, f"the numpy rerank served "
+          f"{bank.served['numpy']} queries")
+    check(launches.get("flat_blockmax", 0) == expect
+          and all(n == 0 for name, n in launches.items()
+                  if name != "flat_blockmax"),
+          f"spill path launches {launches}: kernel A {expect} times "
+          f"(ceil(B / {chunk}) per dispatch), no other kernel")
+    stats["launches"] = launches
+    log(f"spill-path launches: {launches} (expected kernel A {expect})")
+
+    # 3. recall@10 against the exact truth, from the B = 1024 stream
+    idx = np.concatenate([r.indices for r in results[1024][1]])[:SPILL_EVAL]
+    truth = spill_truth(dev, bank.host_features, queries[:SPILL_EVAL],
+                        cfg.retrieve_k)
+    stats["recall_at_10"] = recall_at_k(torch.from_numpy(idx), truth)
+    log(f"spill: recall@10 {stats['recall_at_10']:.4f} over {SPILL_EVAL} "
+        f"queries against the exact cosine top-10 of all {M:,} rows")
+    check(stats["recall_at_10"] >= SPILL_RECALL,
+          f"spill recall@10 {stats['recall_at_10']} < {SPILL_RECALL}")
+    del truth
+    torch.cuda.empty_cache()
+
+    # 4. the funnel of one chunk through kernel A and through its plain
+    # version: the same candidates per query (not counted launches)
+    q = queries[:chunk]
+    _, _, kern = bank._dispatch_funnel(q)
+    saved = host_spill.flat_blockmax
+    host_spill.flat_blockmax = flat_blockmax_plain
+    try:
+        _, _, plain = bank._dispatch_funnel(q)
+    finally:
+        host_spill.flat_blockmax = saved
+    check(torch.equal(kern.sort(dim=1).values, plain.sort(dim=1).values),
+          f"spill funnel of {chunk} queries: kernel A's candidates differ "
+          f"from its plain version's")
+    del kern, plain
+    torch.cuda.empty_cache()
+
+    # 5. kernel A at this shape, and the bytes each tier holds
+    stats["kernel_A"] = spill_kernel_A(bank, queries, chunk)
+    stats["host_gb"] = sum(a.nbytes for a in (
+        bank.host_features, bank.host_inv_norm, bank.host_locations,
+        bank.host_strength, bank.host_timestamp)) / 1e9
+    stats["device_bank_gb"] = sum(t.numel() * t.element_size() for t in (
+        bank.dev.coarse, bank.dev.scale, bank.dev.strength,
+        bank.dev.timestamp)) / 1e9
+    resident = port.init_memory_state(cfg, device="meta")
+    stats["resident_state_gb"] = sum(t.numel() * t.element_size()
+                                     for t in resident) / 1e9
+    stats["seconds"] = time.perf_counter() - t_phase
+    log(f"spill: device {stats['device_bank_gb']:.2f} GB of bank, peak "
+        f"{stats['device_peak_gb']:.2f} GB allocated; host "
+        f"{stats['host_gb']:.2f} GB; a device-resident MemoryState at "
+        f"M = {M:,} would take {stats['resident_state_gb']:.2f} GB; phase "
+        f"{stats['seconds']:.1f} s")
+    del bank
+    return stats
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2039,6 +2428,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from aura_snn_rag_tpu_torch.ops.cuda import _build
 
+    t_script = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     log(f"card: {card}")
@@ -2115,6 +2505,13 @@ def main() -> int:
           f"once")
     operator["launches"] = launches_op
     log(f"operator-path launches: {launches_op}")
+    torch.cuda.empty_cache()
+
+    # ---- the host-spilled bank: counts zeroed inside, just before its
+    # retrievals, and read just after them ----
+    spill = spill_phase(dev)
+    launches_spill = spill["launches"]
+    torch.cuda.empty_cache()
 
     main_shape = {"flat_blockmax": res_a[("int8", 1024)],
                   "ivf_retrieve_fused": res_bc[("ivf_retrieve_fused", 8)],
@@ -2132,6 +2529,12 @@ def main() -> int:
             b1 = res_ivf[(name, 1)]
             row.update(ms_b1=b1["ms"], graph_ms_b1=b1["graph_ms"],
                        bound_ms_b1=b1["bound_ms"], host_us_b1=b1["host_us"])
+        if name == "flat_blockmax":
+            # the spilled tier's device funnel: its chunk of 256 queries
+            # over the 10M-row bank, and its launches there
+            row["launches_spill"] = launches_spill[name]
+            row.update({f"spill_{key}": value for key, value
+                        in spill.pop("kernel_A").items()})
         if name == "ivf_retrieve_fused":
             # the LM's shape, and its launches on the LM and training paths
             row["launches_lm"] = launches_lm[name]
@@ -2148,6 +2551,8 @@ def main() -> int:
     log(json.dumps({"lm": lm}))
     log(json.dumps({"train": train}))
     log(json.dumps({"operator": operator}))
+    log(json.dumps({"spill": spill}))
+    log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

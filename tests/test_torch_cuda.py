@@ -530,3 +530,70 @@ def test_remat_with_dropout_on_the_card(dev, policy):
     assert torch.equal(la, lb) and ga.keys() == gb.keys()
     for name in ga:
         assert torch.equal(ga[name], gb[name]), name
+
+
+def _spill_pair(dev, coarse, rng, D=256):
+    """The host-spilled bank on the card and on the CPU, written, decayed,
+    ticked and wrapped the same way."""
+    import aura_snn_rag_tpu_torch as port
+
+    cfg = port.MemoryConfig(max_memories=4100, feature_dim=D,
+                            k_centroids=16, n_place_cells=8, n_grid_cells=4,
+                            n_time_cells=2, flat_block_funnel=16,
+                            coarse_dtype=coarse, spill_query_chunk=64,
+                            retrieve_k=10)
+    feats = rng.randn(4600, D).astype(np.float32)
+    banks = (port.SpilledBank(cfg, device=dev),
+             port.SpilledBank(cfg, device="cpu"))
+    for b in banks:
+        b.write(feats[:3000])
+        b.decay(0.1)
+        b.tick(5.0)
+        b.write(feats[3000:])                    # wraps the ring
+    q = feats[rng.randint(0, 4600, 150)] + 0.5 * rng.randn(150, D).astype(
+        np.float32)
+    return banks, q
+
+
+@pytest.mark.parametrize("coarse", ["int8", "bf16"])
+def test_spilled_bank_on_the_card_matches_the_cpu_bank(dev, coarse):
+    """B = 150 in chunks of 64: kernel A launches 3 times per dispatch. An
+    int8 bank's block maxima are exact on both sides, so the results are
+    equal; a bf16 bank's cosines are f32 sums in another order, so the
+    results agree where no two scores are within 1e-5."""
+    (gpu, cpu), q = _spill_pair(dev, coarse, np.random.RandomState(91))
+    n0 = launch_counts["flat_blockmax"]
+    rg = gpu.retrieve(q)
+    assert launch_counts["flat_blockmax"] == n0 + 3
+    rc = cpu.retrieve(q)
+    assert gpu.served["native"] == cpu.served["native"] == 150
+    np.testing.assert_allclose(rg.scores, rc.scores, rtol=1e-5)
+    if coarse == "int8":
+        np.testing.assert_array_equal(rg.indices, rc.indices)
+    else:
+        assert np.mean(rg.indices == rc.indices) >= 0.99
+    streamed = gpu.retrieve_stream([q[:50], q[50:70], q[70:]], coalesce=64)
+    for rs, lo, hi in zip(streamed, (0, 50, 70), (50, 70, 150)):
+        single = gpu.retrieve(q[lo:hi])
+        np.testing.assert_array_equal(rs.indices, single.indices)
+        np.testing.assert_array_equal(rs.scores, single.scores)
+
+
+# D = 192: not a multiple of 128, kernel A's last K box reads past D
+@pytest.mark.parametrize("D", [256, 192])
+def test_spill_funnel_through_kernel_a_matches_its_plain_version(
+        dev, monkeypatch, D):
+    """The device funnel with kernel A (3 launches: B = 150 in chunks of
+    64) and with flat_blockmax_plain in its place, on the same card bank:
+    the same candidate slots per query."""
+    from aura_snn_rag_tpu_torch.memory import host_spill
+
+    (gpu, _), q = _spill_pair(dev, "int8", np.random.RandomState(92), D)
+    n0 = launch_counts["flat_blockmax"]
+    _, _, kern = gpu._dispatch_funnel(q)
+    assert launch_counts["flat_blockmax"] == n0 + 3
+    monkeypatch.setattr(host_spill, "flat_blockmax", flat_blockmax_plain)
+    n0 = launch_counts["flat_blockmax"]
+    _, _, plain = gpu._dispatch_funnel(q)
+    assert launch_counts["flat_blockmax"] == n0
+    assert torch.equal(kern.sort(dim=1).values, plain.sort(dim=1).values)

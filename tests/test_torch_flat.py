@@ -12,7 +12,7 @@ from aura_snn_rag_tpu.memory import engine as jengine
 from aura_snn_rag_tpu.ops.pallas import flat_scan as jflat
 from aura_snn_rag_tpu_torch.ops.cuda import flat_scan as tflat
 from tests.test_torch_common import (
-    assert_topk_match, bank_pair, highest, queries_near, result_np)
+    assert_topk_match, bank_pair, configs, highest, queries_near, result_np)
 
 torch.set_num_threads(1)
 
@@ -159,7 +159,76 @@ def test_retrieve_flat_matches(strategy, coarse, score_dtype, with_loc):
     assert recall(tr[0]) >= recall(jr[0])
 
 
-def test_flat_options_not_ported_raise():
-    _, tcfg, _, ts, feats = bank_pair("int8", flat_wide_funnel=1024)
-    with pytest.raises(NotImplementedError):
-        port.retrieve_flat(tcfg, ts, torch.from_numpy(feats[:4]), None, 5)
+FLAT_OPTIONS = {
+    "exact_funnel": dict(flat_exact_funnel=True),
+    "wide_funnel": dict(flat_wide_funnel=1024),
+    "rescue": dict(flat_rescue_queries=8, flat_rescue_width=512),
+}
+
+
+# int8 with the benchmark's bf16 score chain (the rescue's margin casts
+# the bf16 cutoff to f32), bf16 with f32 scores
+@pytest.mark.parametrize("option", list(FLAT_OPTIONS))
+@pytest.mark.parametrize("coarse,score_dtype", [("int8", "bf16"),
+                                                ("bf16", "f32")])
+@pytest.mark.parametrize("with_loc", [False, True])
+def test_retrieve_flat_options_match(option, coarse, score_dtype, with_loc):
+    """The scan's three options against the JAX package's (whose
+    `approx_max_k` is exact on the CPU): the exact and the wide funnel
+    keep the port's exact top-kk, the rescue re-funnels the riskiest
+    queries 512 wide. Recall is at least the default scan's."""
+    kw = dict(flat_strategy="scan", flat_score_dtype=score_dtype)
+    jcfg, tcfg, js, ts, feats = bank_pair(coarse, **kw,
+                                          **FLAT_OPTIONS[option])
+    _, base_cfg = configs(coarse_dtype=coarse, **kw)
+    q, qloc = _queries(feats)
+    jl = jnp.asarray(qloc) if with_loc else None
+    tl = torch.from_numpy(qloc) if with_loc else None
+    with highest():
+        jr = result_np(jengine.retrieve_flat(jcfg, js, jnp.asarray(q), jl,
+                                             10))
+        exact = result_np(jengine.retrieve_bruteforce(
+            jcfg, js, jnp.asarray(q), jl, 10))
+    tq = torch.from_numpy(q)
+    tr = result_np(port.retrieve_flat(tcfg, ts, tq, tl, 10))
+    base = result_np(port.retrieve_flat(base_cfg, ts, tq, tl, 10))
+    assert_topk_match(tr[0], tr[1], jr[0], jr[1], SCORE_TOL)
+
+    def recall(idx):
+        return np.mean([len(set(a) & set(b)) for a, b in zip(idx, exact[0])])
+    assert recall(tr[0]) >= recall(base[0])
+
+
+@pytest.mark.parametrize("option", ["exact_funnel", "wide_funnel"])
+@pytest.mark.parametrize("coarse,score_dtype", [("int8", "bf16"),
+                                                ("bf16", "f32")])
+def test_flat_exact_and_wide_funnel_equal_the_default_scan(
+        option, coarse, score_dtype):
+    """The scan's funnel already is an exact top-kk, so the port computes
+    the default scan for these two options: the same slots, scores and
+    rows, bit for bit."""
+    kw = dict(flat_strategy="scan", flat_score_dtype=score_dtype)
+    _, tcfg, _, ts, feats = bank_pair(coarse, **kw, **FLAT_OPTIONS[option])
+    _, base_cfg = configs(coarse_dtype=coarse, **kw)
+    tq = torch.from_numpy(_queries(feats)[0])
+    got = result_np(port.retrieve_flat(tcfg, ts, tq, None, 10))
+    base = result_np(port.retrieve_flat(base_cfg, ts, tq, None, 10))
+    for g, b in zip(got, base):
+        np.testing.assert_array_equal(g, b)
+
+
+def test_flat_rescue_scores_each_slot_once():
+    """A rescue as wide as the bank holds every row in both lanes: the
+    union is deduplicated, so no slot fills two of the k lanes, and the
+    rescued queries get the exact top-k."""
+    _, tcfg, _, ts, feats = bank_pair("int8", flat_rescue_queries=24,
+                                      flat_rescue_width=4096,
+                                      flat_score_dtype="bf16")
+    q, _ = _queries(feats)
+    tr = result_np(port.retrieve_flat(tcfg, ts, torch.from_numpy(q), None,
+                                      10))
+    exact = result_np(port.retrieve_bruteforce(tcfg, ts, torch.from_numpy(q),
+                                               None, 10))
+    for row in tr[0]:
+        assert len(set(row.tolist())) == len(row)
+    assert_topk_match(tr[0], tr[1], exact[0], exact[1], SCORE_TOL)

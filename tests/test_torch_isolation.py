@@ -65,13 +65,13 @@ def test_training_modules_are_in_the_probe():
 
 
 # the operator's path: checkpoints, the CLI, ingestion and online
-# learning; none imports click or orbax, and aiohttp only inside the
-# RSS loop that needs it
+# learning, and the host-spilled bank; none imports click or orbax, and
+# aiohttp only inside the RSS loop that needs it
 OPERATOR_MODULES = (
     "training.checkpoint", "models.convert", "_native",
     "encoders.hash_embedder", "encoders.embedding_cache", "services.ingest",
     "ops.neurons", "training.online", "training.stdp_dict",
-    "services.continuous_learning", "cli")
+    "services.continuous_learning", "cli", "memory.host_spill")
 
 
 def test_operator_modules_are_in_the_probe():
