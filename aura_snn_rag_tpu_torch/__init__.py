@@ -13,7 +13,11 @@ optimizer and data (`training`), the modulators it runs
 checkpoints and online learning (`training`), the hash embedder
 (`encoders`, native C++ through `_native`), corpus ingestion and the
 continuous-learning orchestrator (`services`) and the command line
-(`python -m aura_snn_rag_tpu_torch.cli`).
+(`python -m aura_snn_rag_tpu_torch.cli`); the neuromorphic brain system:
+the LIF, Izhikevich and AdEx neurons and the addition-only maths (`ops`),
+the spiking layers, brain zones and routing runtime (`zones`),
+`EnhancedBrain` and `LiquidBrain` (`models.brain`) and the
+`NeuromorphicBrainSystem` facade (`services`, `cli brain-demo`).
 """
 
 from aura_snn_rag_tpu_torch.config import (  # noqa: F401

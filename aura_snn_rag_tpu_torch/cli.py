@@ -12,6 +12,7 @@ this one needs argparse and asyncio alone):
     python -m aura_snn_rag_tpu_torch.cli serve [--host H] [--port P]
         [--preset P] [--checkpoint-dir D] [--batch-size B]
         [--max-new-tokens N] [--bf16-weights]
+    python -m aura_snn_rag_tpu_torch.cli brain-demo [TEXT]
 
 Every command takes `--device` (default cuda; raises without a card) and
 is also a function of the same name and values. `serve`'s HTTP front end
@@ -29,7 +30,10 @@ checkpoint with the number of steps taken (the JAX CLI labels a
 periodic one a step early) and saves nothing when no step is left to
 take; `serve` pads prompts to min(64, max_seq_len - max_new_tokens)
 tokens (the JAX CLI to 64, which a short-context preset cannot decode).
-`bench`, `brain-demo`, `corpus` and `mnist` are not ported yet.
+`brain-demo` routes a text through a `NeuromorphicBrainSystem(d_model=32,
+n_neurons=32)` and prints the JAX CLI's three lines: the plan, the
+output's mean absolute value and the recommendations. `bench`, `corpus`
+and `mnist` are not ported yet.
 """
 
 from __future__ import annotations
@@ -329,6 +333,27 @@ def serve(host: str = "127.0.0.1", port: int = 8787, preset: str = "test",
 
 
 # ----------------------------------------------------------------------
+# brain-demo
+# ----------------------------------------------------------------------
+
+def brain_demo(text: str = "remember to analyze this pattern",
+               device: str = "cuda") -> List[str]:
+    """Route `text` through the neuromorphic brain system; returns the
+    lines it prints."""
+    from aura_snn_rag_tpu_torch.services.brain_system import (
+        NeuromorphicBrainSystem)
+    system = NeuromorphicBrainSystem(d_model=32, n_neurons=32, device=device)
+    out, info = system.process_text(text)
+    lines = [
+        f"plan: {[(z, round(float(w), 3)) for z, w in info['plan']]}",
+        f"output norm: {float(out.abs().mean()):.4f}",
+        json.dumps(system.get_health()["recommendations"])]
+    for line in lines:
+        print(line)
+    return lines
+
+
+# ----------------------------------------------------------------------
 # argument parsing
 # ----------------------------------------------------------------------
 
@@ -336,7 +361,7 @@ def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m aura_snn_rag_tpu_torch.cli",
         description="aura-snn-rag on PyTorch/CUDA: train, generate, "
-                    "ingest, serve.")
+                    "ingest, serve, brain-demo.")
     sub = p.add_subparsers(dest="command", required=True)
 
     def command(name, help_text):
@@ -384,6 +409,11 @@ def parser() -> argparse.ArgumentParser:
     c.add_argument("--max-new-tokens", type=int, default=64)
     c.add_argument("--bf16-weights", action="store_true",
                    help="serve a bf16 copy of the f32 weights")
+
+    c = command("brain-demo",
+                "Route a text through the neuromorphic brain system.")
+    c.add_argument("text", nargs="?", default="remember to analyze this "
+                                              "pattern")
     return p
 
 
@@ -397,6 +427,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     elif command == "ingest":
         hf, _, n = ingest(**args)
         print(f"stored {n} memories (bank count {hf.memory_count})")
+    elif command == "brain-demo":
+        brain_demo(**args)
     else:
         serve(**args)
     return 0

@@ -1,7 +1,7 @@
 """Model stack: the hippocampal transformer LM and its building blocks
-(counterpart of `aura_snn_rag_tpu.models`). The trainer's modulators are
-in `models.brain`; the language-zone models and the rest of the brain
-come in a later slice."""
+(counterpart of `aura_snn_rag_tpu.models`). The trainer's modulators and
+the brain orchestration are in `models.brain`; the language-zone models
+and `NaturalBrain` come in a later slice."""
 
 from aura_snn_rag_tpu_torch.models.transformer import (  # noqa: F401
     HippocampalTransformer,

@@ -19,10 +19,17 @@ if it saw a `memory_state`, while the port's model always has them: give
 `init` both.
 
 `module_from_numpy(module, tree)` loads any port module whose names
-mirror a flax module's (the trainer's `Amygdala` and `Thalamus` among
-them), and `trainer_from_numpy` builds a port `Trainer` from the numpy
-trees of a JAX `Trainer` (model, amygdala, thalamus, bank, optimizer
-state and step), so both packages train, or resume, from the same state.
+mirror a flax module's (the trainer's `Amygdala` and `Thalamus`, the
+brain zones and spiking layers among them); the tree may be flax's
+variables with a "constants" collection beside "params", whose leaves
+(`SpikingLayer`'s beta and threshold, `AdaptiveSpikingLayer`'s
+`lateral_inhibition`, `ReservoirLayer`'s `W_rec`) load into the module's
+buffers of the same names. `trainer_from_numpy` builds a port `Trainer`
+from the numpy trees of a JAX `Trainer` (model, amygdala, thalamus, bank,
+optimizer state and step), so both packages train, or resume, from the
+same state. `load_brain_system` and `load_liquid_brain` carry a JAX
+`NeuromorphicBrainSystem`'s zones and biases, and a JAX `LiquidBrain`'s
+whitener, Oja layer and experts, into their port counterparts.
 """
 
 from __future__ import annotations
@@ -73,11 +80,27 @@ def _convert_leaf(path: Tuple[str, ...], value: np.ndarray
     return ".".join(mods + [leaf]), np.array(x, np.float32, order="C")
 
 
+def _merge(a: Mapping[str, Any], b: Mapping[str, Any]) -> Dict[str, Any]:
+    """Two nested trees as one (a submodule in both holds both's
+    leaves)."""
+    out = dict(a)
+    for key, value in b.items():
+        if key in out and isinstance(value, Mapping):
+            out[key] = _merge(out[key], value)
+        elif key in out:
+            raise KeyError(f"{key} is in both collections")
+        else:
+            out[key] = value
+    return out
+
+
 def tree_to_state_dict(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """The name and layout mapping alone, for any module of
-    `models/layers.py` (no check against a model)."""
-    if set(tree) == {"params"}:
-        tree = tree["params"]
+    `models/layers.py` (no check against a model). A tree of flax
+    variables, {"params": ...} with or without "constants", gives both
+    collections' leaves."""
+    if "params" in tree and set(tree) <= {"params", "constants"}:
+        tree = _merge(tree["params"], tree.get("constants", {}))
     return {key: torch.from_numpy(x) for key, x in
             (_convert_leaf(p, v) for p, v in _flatten(tree))}
 
@@ -186,3 +209,46 @@ def trainer_from_numpy(config, params: Mapping[str, Any],
         _load_opt_state(trainer, opt_state)
     trainer._step = int(step)
     return trainer
+
+
+def load_brain_system(system, zone_params: Mapping[str, Any],
+                      homeo_i: Optional[Mapping[str, Any]] = None):
+    """Loads a JAX `NeuromorphicBrainSystem`'s zones into a port one built
+    with the same widths: `zone_params` is `jax.tree.map(np.asarray,
+    system._zone_params)` (one flax tree per zone, every zone), and
+    `homeo_i` its plasticity engine's `homeo_i` (each zone's bias), or
+    None to keep the port's. Returns the system."""
+    zones = system._zone_modules
+    if set(zone_params) != set(zones):
+        raise KeyError(f"zones {sorted(zone_params)}, system has "
+                       f"{sorted(zones)}")
+    for name, tree in zone_params.items():
+        module_from_numpy(zones[name], tree)
+    for name, bias in (homeo_i or {}).items():
+        system.plasticity.homeo_i[name] = np.array(bias, np.float32)
+    return system
+
+
+def load_liquid_brain(brain, whitener, hippocampus, cortex=None):
+    """Loads a JAX `LiquidBrain`'s state into a port one of the same
+    widths: `whitener` and `hippocampus` are its `WhitenerState` and
+    `OjaState` as numpy (`jax.tree.map(np.asarray, ...)`), `cortex` its
+    list of `NLMSExpert`s (weights, step size, error sums), or None to
+    keep the port's. Returns the brain."""
+    from aura_snn_rag_tpu_torch.training.online import OjaState, WhitenerState
+
+    def tensors(state, cls):
+        return cls(*(torch.as_tensor(np.array(x), device=brain.device)
+                     for x in state))
+    brain.whitener = tensors(whitener, WhitenerState)
+    brain.hippocampus = tensors(hippocampus, OjaState)
+    if cortex is not None:
+        if len(cortex) != len(brain.cortex):
+            raise ValueError(f"{len(cortex)} experts, the brain has "
+                             f"{len(brain.cortex)}")
+        for mine, theirs in zip(brain.cortex, cortex):
+            mine.w = np.array(theirs.w, np.float32)
+            mine.mu, mine.lr_decay, mine.eps = (theirs.mu, theirs.lr_decay,
+                                                theirs.eps)
+            mine._sq_err, mine._n = theirs._sq_err, theirs._n
+    return brain

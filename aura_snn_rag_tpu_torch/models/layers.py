@@ -108,6 +108,15 @@ class Dropout(nn.Module):
         return torch.where(keep, x / _scalar(keep_prob, x), 0.0)
 
 
+def draw_device(generator: Optional[torch.Generator], device
+                ) -> torch.device:
+    """Where a module's parameters are drawn: on the generator's device
+    (so a CPU generator draws the same numbers whichever device the
+    module then moves to), else on `device` from the default generator."""
+    return generator.device if generator is not None \
+        else torch.device(device)
+
+
 def initialize(module: nn.Module,
                generator: Optional[torch.Generator]) -> None:
     """Draw every parameter of `module` from `generator`, module by module
@@ -119,23 +128,26 @@ def initialize(module: nn.Module,
 
 
 class Dense(nn.Module):
-    """flax `nn.Dense(out_features, dtype=dtype)`."""
+    """flax `nn.Dense(out_features, dtype=dtype, use_bias=use_bias)`."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: torch.dtype, device=None):
+                 dtype: torch.dtype, device=None, use_bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features,
                                                device=device))
-        self.bias = nn.Parameter(torch.empty(out_features, device=device))
+        self.bias = (nn.Parameter(torch.empty(out_features, device=device))
+                     if use_bias else None)
         self.dtype = dtype
 
     def init_parameters(self, generator) -> None:
         lecun_normal_(self.weight, self.weight.shape[1], generator)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
 
 
 class Embed(nn.Module):

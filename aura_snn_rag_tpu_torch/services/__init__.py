@@ -1,8 +1,12 @@
-"""Services (counterpart of `aura_snn_rag_tpu.services`). Ported so far:
-the one-shot memorisation helpers, corpus ingestion (`ingest`) and the
-continuous-learning orchestrator. The brain-system facade comes in a
-later slice."""
+"""Services (counterpart of `aura_snn_rag_tpu.services`): the one-shot
+memorisation helpers, corpus ingestion (`ingest`), the
+continuous-learning orchestrator and the brain-system facade
+(`NeuromorphicBrainSystem`)."""
 
+from aura_snn_rag_tpu_torch.services.brain_system import (  # noqa: F401
+    DEFAULT_ZONES,
+    NeuromorphicBrainSystem,
+)
 from aura_snn_rag_tpu_torch.services.continuous_learning import (  # noqa: F401
     ContinuousLearningOrchestrator,
     FeedConfig,

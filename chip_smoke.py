@@ -108,6 +108,26 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
    256 over the whole bank); device and host bytes beside those of a
    device-resident `MemoryState` of the same M.
 
+8. brain phase: the neuromorphic brain system at the JAX package's
+   sizes: `NeuromorphicBrainSystem()` (d_model 64, 8 zones of 64 LIF
+   neurons, 4 steps, a 4096 x 64 hippocampus) routes 1,000 seeded texts
+   covering every keyword class through `process_text`, the first 64
+   held to a CPU system from the same seed (the same plans; outputs
+   within 1e-5 where every spike agrees, flips on at most 1e-4 of the
+   entries), then 1,000 more items through `orchestrator.process_batch`
+   in batches of 32 and its zone executor; every zone must run, every
+   output be finite and on the card, and the processor must have
+   swallowed no zone error (checked after every call); per
+   `process_text` the time, kernel launches, host syncs (CUDA's sync
+   debug mode) and the device's busy share (torch.profiler); a
+   `NeuromorphicBrainZone` at `BrainZoneConfig`'s defaults (128 neurons,
+   64 -> 64, 4 steps) with LIF, Izhikevich and AdEx thirds and
+   `EnhancedBrain` over the 8 default zones at d_model 64, timed at
+   B = 1 and 256; 200 `LiquidBrain.learn_text` steps at its defaults on
+   a two-topic stream (reasoning keywords -1, memory keywords +1), whose
+   last 50 errors must average below the first 50; and the CLI's
+   `brain-demo` in a subprocess. The path runs no kernel of the port.
+
 `--profile` adds a torch.profiler breakdown of one call of each
 retrieval path (device time by kernel, device busy share) to phase 2,
 of decode steps (wall, device, busy, `retrieve_auto`'s share) to
@@ -119,7 +139,8 @@ where kernel B must run 12 times per model call and no other kernel
 runs, again just before phase 5's 8 counted train_steps, and again
 before phase 6, after which kernel B alone must have run, and again
 just before phase 7's retrievals, after which kernel A alone must have
-run, ceil(B / 256) times per funnel dispatch. Any
+run, ceil(B / 256) times per funnel dispatch, and again at the start of
+phase 8, after which no kernel may have run. Any
 failed check exits non-zero. The last lines are the card's name
 and power limit, one JSON object with the per-kernel numbers, and
 {"ok": true, "device": {...}}. Without a CUDA card the script exits 1 and
@@ -130,6 +151,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -210,6 +232,21 @@ SPILL_BATCHES = (1024, 128)     # the query batch, also the coalesce width
 SPILL_EVAL = 256                # queries held to the exact truth
 SPILL_RECALL = 0.99
 SPILL_HOST_SPARE = 10e9         # host bytes beside the host half
+
+# the brain phase: the JAX package's sizes (NeuromorphicBrainSystem's
+# defaults, BrainZoneConfig's, LiquidBrain's), nothing cut
+BRAIN_TEXTS = 1000              # process_text calls, then as many items
+BRAIN_BATCH = 32                # orchestrator batch
+BRAIN_CHECK = 64                # texts held to the CPU port
+BRAIN_PROFILE = 20              # process_text calls profiled
+BRAIN_BATCHES = (1, 256)        # the mixed zone's and EnhancedBrain's B
+BRAIN_TIMED = 5                 # calls per timing
+LIQUID_STEPS = 200
+# the card against the CPU, as the parity tests hold the port to JAX:
+# outputs within 1e-5 where every spike agrees, flips on at most 1e-4 of
+# the entries (a potential within an ulp of its threshold)
+BRAIN_TOL = 1e-5
+BRAIN_FLIP_FRACTION = 1e-4
 
 SOURCES = {
     "flat_blockmax": ("aura_snn_rag_tpu_torch/ops/cuda/csrc/flat_scan.cu",
@@ -2406,6 +2443,316 @@ def spill_phase(dev):
     return stats
 
 
+# --------------------------------------------------------------------------
+# brain phase
+# --------------------------------------------------------------------------
+
+def brain_texts(n, seed):
+    """n synthetic texts from a seed: text i leads with a keyword of class
+    i mod 8 (every class of the keyword router in turn), a third carry a
+    second class's keyword, among filler words."""
+    import numpy as np
+    from aura_snn_rag_tpu_torch.zones import processor
+    classes = list(processor._KEYWORDS.values())
+    filler = ("the", "a", "of", "this", "about", "quickly", "signal",
+              "morning", "river", "system", "note", "again")
+    rng = np.random.RandomState(seed)
+    texts = []
+    for i in range(n):
+        lead = classes[i % len(classes)]
+        words = [lead[rng.randint(len(lead))]]
+        words += [filler[j] for j in rng.randint(len(filler),
+                                                 size=rng.randint(2, 7))]
+        if i % 3 == 0:
+            other = classes[rng.randint(len(classes))]
+            words.append(other[rng.randint(len(other))])
+        rng.shuffle(words)
+        texts.append(" ".join(words) + f" {i}")
+    return texts
+
+
+def liquid_stream(n, seed):
+    """n (text, target) pairs from a seed: three keywords of the reasoning
+    class and target -1, or of the memory class and target +1, among
+    three filler words. (On the JAX package's own test stream, four texts
+    repeated, the whitener's variance collapses after ~50 steps and the
+    error grows again, in both packages.)"""
+    import numpy as np
+    from aura_snn_rag_tpu_torch.zones import processor
+    topics = (processor._KEYWORDS[processor.ContentType.REASONING],
+              processor._KEYWORDS[processor.ContentType.MEMORY])
+    filler = ("the", "a", "of", "this", "about", "quickly", "signal",
+              "morning", "river", "system", "note", "again")
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        t = rng.randint(2)
+        words = [topics[t][rng.randint(len(topics[t]))] for _ in range(3)]
+        words += [filler[j] for j in rng.randint(len(filler), size=3)]
+        rng.shuffle(words)
+        out.append((" ".join(words), 1.0 if t else -1.0))
+    return out
+
+
+def profile_calls(fn, reps):
+    """torch.profiler over `reps` calls of fn: wall and device ms per
+    call, the device's busy share and kernel launches per call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    return dict(wall_ms=wall_ms, device_ms=dev_ms, busy=dev_ms / wall_ms,
+                launches_per_call=sum(e.count for e in kernels) / reps)
+
+
+def syncs_per_call(fn, reps):
+    """Host syncs per call of fn, counted by CUDA's sync debug mode (each
+    synchronising operation warns once)."""
+    import warnings
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(reps):
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught) / reps
+
+
+def wall_ms(fn, reps):
+    """Host ms per call over `reps` calls ending in a synchronise (the
+    brain path is host-bound, so this is its time)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def zone_rows_flipped(zone_a, zone_b, x):
+    """Rows of x where the spikes of two copies of a zone (the card's and
+    the CPU's) differ, and the number of differing entries."""
+    import torch
+    with torch.no_grad():
+        sa, _ = zone_a.population(x.to(zone_a.input_proj.weight_patterns
+                                       .device))
+        sb, _ = zone_b.population(x.to(zone_b.input_proj.weight_patterns
+                                       .device))
+    flips = sa.cpu() != sb.cpu()
+    check(flips.float().mean().item() <= BRAIN_FLIP_FRACTION,
+          f"zone spikes differ on {flips.float().mean().item():.2e} of "
+          f"the entries between the card and the CPU")
+    return flips.any(dim=2).any(dim=1), int(flips.sum())
+
+
+def brain_phase(dev):
+    """The neuromorphic brain system at the JAX package's sizes (see the
+    module doc). No kernel may launch: the counts are zeroed first and
+    read at the end."""
+    import numpy as np
+    import torch
+    from aura_snn_rag_tpu_torch.models.brain.brain import (
+        EnhancedBrain, LiquidBrain)
+    from aura_snn_rag_tpu_torch.ops.cuda import _build
+    from aura_snn_rag_tpu_torch.services.brain_system import (
+        DEFAULT_ZONES, NeuromorphicBrainSystem)
+    from aura_snn_rag_tpu_torch.services.continuous_learning import (
+        IngestItem)
+    from aura_snn_rag_tpu_torch.zones.brain_zone import (
+        BrainZoneConfig, NeuromorphicBrainZone, SpikingNeuronConfig)
+
+    t_phase = time.perf_counter()
+    _build.reset_launch_counts()
+    stats = {}
+    system = NeuromorphicBrainSystem(seed=0, device=dev)
+    reference = NeuromorphicBrainSystem(seed=0, device="cpu")
+    zone_devices = set()
+    for zone in system._zone_modules.values():
+        zone.register_forward_pre_hook(
+            lambda _, args: zone_devices.update(
+                a.device.type for a in args if torch.is_tensor(a)))
+
+    def checked(out, what):
+        check(system.processor.stats["errors"] == 0,
+              f"{what}: {system.processor.stats['errors']} zone errors "
+              f"swallowed by the processor")
+        check(out.device.type == dev.type
+              and bool(torch.isfinite(out).all()),
+              f"{what}: output on {out.device} or not finite")
+
+    # 1. process_text over seeded texts; the first BRAIN_CHECK against
+    # the CPU port from the same seed
+    texts = brain_texts(BRAIN_TEXTS, seed=11)
+    flipped_rows = flips = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = []
+    for i, text in enumerate(texts):
+        out, info = system.process_text(text)
+        checked(out, f"process_text {i}")
+        outs.append((out, info["plan"]))
+    torch.cuda.synchronize()
+    text_s = time.perf_counter() - t0
+    max_err = 0.0
+    for i, text in enumerate(texts[:BRAIN_CHECK]):
+        ref, ref_info = reference.process_text(text)
+        out, plan = outs[i]
+        check(plan == ref_info["plan"], f"text {i}: plan {plan} on the "
+              f"card, {ref_info['plan']} on the CPU")
+        x = torch.from_numpy(reference.orchestrator.hash_embedder.embed(
+            text)[:system.d_model])[None, :]
+        row_flipped = False
+        for zone, _ in plan:
+            rows, n = zone_rows_flipped(system._zone_modules[zone],
+                                        reference._zone_modules[zone], x)
+            row_flipped |= bool(rows[0])
+            flips += n
+        if row_flipped:
+            flipped_rows += 1
+            continue
+        max_err = max(max_err, (out.cpu() - ref).abs().max().item())
+    check(max_err <= BRAIN_TOL, f"card against CPU: {max_err} > "
+          f"{BRAIN_TOL} on texts whose spikes agree")
+    usage = system.processor.stats["zone_usage"]
+    check(all(usage[name] > 0 for name, _ in DEFAULT_ZONES),
+          f"a zone never ran: {usage}")
+    steps = {"process_text": time.perf_counter() - t_phase}
+    stats["process_text"] = dict(
+        texts=len(texts), seconds=text_s, items_per_s=len(texts) / text_s,
+        ms_per_text=text_s * 1e3 / len(texts), zone_usage=dict(usage),
+        checked_texts=BRAIN_CHECK, max_abs_err_vs_cpu=max_err,
+        texts_with_flips=flipped_rows, spike_flips=flips)
+
+    # 2. the orchestrator's zone executor over more texts, in batches
+    more = brain_texts(BRAIN_TEXTS, seed=12)
+    categories = ["memory", "emotion", "pattern", "time", "analyze",
+                  "create", "language", "calculate", "general"]
+    executed = []
+    inner = system.orchestrator.zone_executor
+
+    def executor(features, category):
+        out, info = inner(features, category)
+        checked(out, f"zone executor ({category})")
+        executed.append(out)
+        return out, info
+    system.orchestrator.zone_executor = executor
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in range(0, len(more), BRAIN_BATCH):
+        system.orchestrator.process_batch([
+            IngestItem(t, categories[(b + j) % len(categories)])
+            for j, t in enumerate(more[b:b + BRAIN_BATCH])])
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    system.orchestrator.zone_executor = inner
+    check(len(executed) == len(more), f"{len(executed)} of {len(more)} "
+          f"items went through the zone executor")
+    stats["orchestrator"] = dict(
+        items=len(more), batch=BRAIN_BATCH, seconds=batch_s,
+        items_per_s=len(more) / batch_s,
+        errors=system.orchestrator.stats["errors"])
+    check(system.orchestrator.stats["errors"] == 0,
+          "orchestrator batch errors")
+    steps["orchestrator"] = time.perf_counter() - t_phase
+
+    # 3. per call of process_text: time, launches, host syncs, busy share
+    probe = itertools.cycle(texts[:BRAIN_PROFILE])
+
+    def one_text():
+        return system.process_text(next(probe))
+    prof = profile_calls(one_text, BRAIN_PROFILE)
+    prof["host_syncs_per_call"] = syncs_per_call(one_text, BRAIN_PROFILE)
+    stats["process_text"]["profile"] = prof
+    steps["profile"] = time.perf_counter() - t_phase
+
+    # 4. the mixed zone and EnhancedBrain at B = 1 and 256
+    gen = torch.Generator().manual_seed(5)
+    third = 1 / 3
+    mixed = NeuromorphicBrainZone(BrainZoneConfig(neuron_configs=(
+        SpikingNeuronConfig("lif", third),
+        SpikingNeuronConfig("izhikevich", third),
+        SpikingNeuronConfig("adex", third))), dev, gen).requires_grad_(False)
+    brain = EnhancedBrain([BrainZoneConfig(name=name) for name, _ in
+                           DEFAULT_ZONES], d_model=64, device=dev,
+                          generator=gen).requires_grad_(False)
+    for name, module in (("mixed_zone", mixed), ("enhanced_brain", brain)):
+        rows = {}
+        for B in BRAIN_BATCHES:
+            x = torch.randn(B, 64, generator=gen).to(dev)
+            call = (lambda m=module, x=x: m(x))
+            r = profile_calls(call, 1)
+            r["ms"] = wall_ms(call, BRAIN_TIMED)
+            r["host_syncs_per_call"] = syncs_per_call(call, 1)
+            out, _ = call()
+            check(bool(torch.isfinite(out).all()), f"{name} B={B}")
+            rows[B] = r
+        stats[name] = rows
+    zstats = mixed(torch.randn(256, 64, generator=gen).to(dev))[1]
+    stats["mixed_zone"]["avg_firing_rate"] = float(zstats["avg_firing_rate"])
+    steps["modules"] = time.perf_counter() - t_phase
+
+    # 5. LiquidBrain at its defaults learns a two-topic stream online
+    liquid = LiquidBrain(seed=0, device=dev)
+    t0 = time.perf_counter()
+    errs = [abs(liquid.learn_text(text, target)["error"])
+            for text, target in liquid_stream(LIQUID_STEPS, seed=13)]
+    liquid_s = time.perf_counter() - t0
+    first, last = float(np.mean(errs[:50])), float(np.mean(errs[-50:]))
+    check(last < first, f"LiquidBrain error did not fall: {first} -> "
+          f"{last}")
+    stats["liquid_brain"] = dict(steps=LIQUID_STEPS, first50=first,
+                                 last50=last, K=int(liquid.hippocampus.K),
+                                 ms_per_step=liquid_s * 1e3 / LIQUID_STEPS)
+    steps["liquid_brain"] = time.perf_counter() - t_phase
+
+    launches = dict(_build.launch_counts)
+    check(not any(launches.values()), f"a kernel launched on the brain "
+          f"path: {launches}")
+    check(zone_devices == {dev.type}, f"zone forwards saw tensors on "
+          f"{zone_devices}")
+
+    # 6. the CLI's brain-demo on the card
+    out, seconds = cli_run(["brain-demo"], timeout=300)
+    check("plan:" in out and "output norm:" in out,
+          f"brain-demo printed {out!r}")
+    stats["brain_demo"] = dict(seconds=seconds, output=out.splitlines())
+    stats["launches"] = launches
+    stats["seconds"] = time.perf_counter() - t_phase
+    stats["seconds_at_end_of"] = steps
+    p = stats["process_text"]
+    log(f"brain: {p['items_per_s']:.1f} texts/s, {p['ms_per_text']:.3f} ms "
+        f"per process_text, {p['profile']['launches_per_call']:.0f} "
+        f"launches and {p['profile']['host_syncs_per_call']:.1f} host syncs "
+        f"per call, busy {p['profile']['busy']:.3f}; orchestrator "
+        f"{stats['orchestrator']['items_per_s']:.1f} items/s")
+    for name in ("mixed_zone", "enhanced_brain"):
+        for B in BRAIN_BATCHES:
+            r = stats[name][B]
+            log(f"brain: {name} B={B}: {r['ms']:.3f} ms per call, "
+                f"{r['launches_per_call']:.0f} launches, busy "
+                f"{r['busy']:.3f}")
+    return stats
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2513,6 +2860,12 @@ def main() -> int:
     launches_spill = spill["launches"]
     torch.cuda.empty_cache()
 
+    # ---- the neuromorphic brain system: counts zeroed inside, first, and
+    # read at its end; no kernel may run there ----
+    brain = brain_phase(dev)
+    log(f"brain-path launches: {brain['launches']}")
+    torch.cuda.empty_cache()
+
     main_shape = {"flat_blockmax": res_a[("int8", 1024)],
                   "ivf_retrieve_fused": res_bc[("ivf_retrieve_fused", 8)],
                   "ivf_scan_scores": res_bc[("ivf_scan_scores", 8)],
@@ -2552,6 +2905,7 @@ def main() -> int:
     log(json.dumps({"train": train}))
     log(json.dumps({"operator": operator}))
     log(json.dumps({"spill": spill}))
+    log(json.dumps({"brain": brain}))
     log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all")
     log(card)
     log(json.dumps({"kernels": kernels}))

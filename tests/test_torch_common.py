@@ -242,3 +242,74 @@ def test_state_numpy_round_trip_from_jax():
     back = tstate.state_from_numpy(tstate.state_to_numpy(ts), "cpu")
     for a, b in zip(ts, back):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# brain zones: spikes of both packages, to compare outputs where they agree
+# --------------------------------------------------------------------------
+
+ZONE_TOL = 1e-5         # f32 zone outputs where every spike agrees
+# a spike flips where a potential lands within an ulp of its threshold:
+# ~1e-6 of the Izhikevich entries at the zone's drive, fewer for LIF
+FLIP_FRACTION = 1e-4
+
+
+@functools.partial(jax.jit, static_argnums=(1,))
+def _jax_population(w, config, x, homeo):
+    from aura_snn_rag_tpu.ops.maths import addition_linear
+    from aura_snn_rag_tpu.zones.brain_zone import spiking_group_forward
+    from aura_snn_rag_tpu_torch.zones.brain_zone import group_sizes
+    cur = addition_linear(x, w - 0.1)
+    mu = cur.mean(axis=-1, keepdims=True)
+    sd = cur.std(axis=-1, keepdims=True) + 1e-6
+    cur = jnp.tanh((cur - mu) / sd)
+    cur = jnp.broadcast_to(cur[..., None, :], cur.shape[:-1]
+                           + (config.timesteps, config.n_neurons))
+    spikes, mems, off = [], [], 0
+    for ncfg, size in zip(config.neuron_configs, group_sizes(config)):
+        if size <= 0:
+            continue
+        sp, mem = spiking_group_forward(ncfg, cur[..., off:off + size],
+                                        homeo[off:off + size])
+        spikes.append(sp)
+        mems.append(mem / (30.0 if ncfg.neuron_type in
+                           ("izhikevich", "adex") else 1.0))
+        off += size
+    return jnp.concatenate(spikes, -1), jnp.concatenate(mems, -1)
+
+
+def jax_zone_population(zone_params, config, x, homeo_i=None):
+    """A JAX `NeuromorphicBrainZone`'s spikes [B, T, N] and membranes
+    [B, N] (numpy), computed by the JAX package's own functions in the
+    order its zone runs them (the zone returns only their statistics).
+    Jitted, as the tests jit the zone itself: eager JAX compiles each
+    op of the 128-step scans anew."""
+    n = config.n_neurons
+    homeo = jnp.zeros((n,)) if homeo_i is None else jnp.asarray(homeo_i)
+    w = jnp.asarray(zone_params["params"]["input_proj"]["weight_patterns"])
+    sp, mem = _jax_population(w, config, jnp.atleast_2d(jnp.asarray(x)),
+                              homeo)
+    return np.asarray(sp), np.asarray(mem)
+
+
+def zone_flips(zone_params, config, tzone, x, homeo_i=None):
+    """[B, T, N] where the two packages' zones spike differently on x
+    (asserting the flips stay rare), and the JAX spikes."""
+    jsp, _ = jax_zone_population(zone_params, config, x, homeo_i)
+    with torch.no_grad():
+        tsp, _ = tzone.population(
+            torch.atleast_2d(torch.as_tensor(np.asarray(x, np.float32))),
+            None if homeo_i is None else torch.as_tensor(
+                np.asarray(homeo_i, np.float32)))
+    flips = jsp != tsp.numpy()
+    assert flips.mean() <= FLIP_FRACTION, flips.mean()
+    return flips, jsp
+
+
+def assert_rows_match(got, want, flipped_rows, tol=ZONE_TOL):
+    """Rows of `got` and `want` equal within `tol` where no spike of the
+    row flipped."""
+    got, want = np.asarray(got), np.asarray(want)
+    keep = ~np.asarray(flipped_rows)
+    assert keep.any()
+    np.testing.assert_allclose(got[keep], want[keep], rtol=0, atol=tol)

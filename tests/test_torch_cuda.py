@@ -1,5 +1,6 @@
 """Kernels A, B, C, D and E against their plain PyTorch versions on the
-card.
+card, and the neuromorphic brain system (no kernel) on the card against
+the same port objects on the CPU.
 
 Marked `cuda`: they skip without a card (decided in a fixture, so every
 xdist worker collects the same tests). On a machine with an H100:
@@ -597,3 +598,151 @@ def test_spill_funnel_through_kernel_a_matches_its_plain_version(
     _, _, plain = gpu._dispatch_funnel(q)
     assert launch_counts["flat_blockmax"] == n0
     assert torch.equal(kern.sort(dim=1).values, plain.sort(dim=1).values)
+
+
+# --------------------------------------------------------------------------
+# the neuromorphic brain system: the card against the CPU
+# --------------------------------------------------------------------------
+
+# a spike flips where a potential lands within an ulp of its threshold
+# (CUDA's tanh, exp and reductions round otherwise than the CPU's), as
+# between JAX and the port: at most 1e-4 of the entries, and outputs
+# within 1e-5 on the rows where every spike agrees
+FLIP_FRACTION = 1e-4
+ZONE_TOL = 1e-5
+THIRDS = (("lif", 1 / 3), ("izhikevich", 1 / 3), ("adex", 1 / 3))
+
+
+def _zone_config(groups=THIRDS, **kw):
+    from aura_snn_rag_tpu_torch.zones.brain_zone import (
+        BrainZoneConfig, SpikingNeuronConfig)
+    return BrainZoneConfig(neuron_configs=tuple(
+        SpikingNeuronConfig(t, percentage=p) for t, p in groups), **kw)
+
+
+def _flipped_rows(gpu_zone, cpu_zone, x, homeo=None):
+    """Rows of x where a spike of the two zones differs (flips held to
+    FLIP_FRACTION)."""
+    d = gpu_zone.input_proj.weight_patterns.device
+    with torch.no_grad():
+        sg, _ = gpu_zone.population(x.to(d), None if homeo is None
+                                    else homeo.to(d))
+        sc, _ = cpu_zone.population(x, homeo)
+    flips = (sg.cpu() != sc)
+    assert flips.float().mean().item() <= FLIP_FRACTION
+    return flips.any(dim=2).any(dim=1)
+
+
+def _assert_rows(got, want, flipped):
+    keep = ~flipped
+    assert keep.any()
+    assert (got.cpu()[keep] - want[keep]).abs().max().item() <= ZONE_TOL
+
+
+def _guard_devices(module, dev):
+    """A pre-hook that fails on any tensor off `dev` (a CPU tensor)
+    reaching the forward."""
+    def hook(_, args):
+        for a in args:
+            if torch.is_tensor(a):
+                assert a.device.type == dev.type, \
+                    f"a tensor on {a.device} reached a zone forward on {dev}"
+    return module.register_forward_pre_hook(hook)
+
+
+@pytest.mark.parametrize("B", [8, 256])
+def test_mixed_zone_on_the_card_matches_the_cpu(dev, B):
+    from aura_snn_rag_tpu_torch.zones.brain_zone import NeuromorphicBrainZone
+    cfg = _zone_config()
+    cpu = NeuromorphicBrainZone(cfg, "cpu",
+                                torch.Generator().manual_seed(B))
+    gpu = NeuromorphicBrainZone(cfg, dev).requires_grad_(False)
+    gpu.load_state_dict(cpu.state_dict())
+    cpu.requires_grad_(False)
+    gen = torch.Generator().manual_seed(B)
+    x = torch.randn(B, 64, generator=gen)
+    homeo = torch.randn(128, generator=gen) * 0.3
+    _guard_devices(gpu, dev)
+    og, stg = gpu(x.to(dev), homeo.to(dev))
+    oc, stc = cpu(x, homeo)
+    assert og.device.type == dev.type and all(
+        v.device.type == dev.type for v in stg.values())
+    _assert_rows(og, oc, _flipped_rows(gpu, cpu, x, homeo))
+    assert float(stg["avg_firing_rate"]) > 0
+
+
+def test_enhanced_brain_on_the_card_matches_the_cpu(dev):
+    from aura_snn_rag_tpu_torch.models.brain.brain import EnhancedBrain
+    from aura_snn_rag_tpu_torch.services.brain_system import DEFAULT_ZONES
+    cfgs = [_zone_config((("lif", 1.0),), name=n) for n, _ in DEFAULT_ZONES]
+    cpu = EnhancedBrain(cfgs, d_model=64, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    gpu = EnhancedBrain(cfgs, d_model=64, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randn(64, 64, generator=torch.Generator().manual_seed(1))
+    for name, _ in DEFAULT_ZONES:
+        _guard_devices(getattr(gpu, f"zone_{name}"), dev)
+    with torch.no_grad():
+        og, ig = gpu(x.to(dev))
+        oc, ic = cpu(x)
+    assert torch.equal(ig["routing"]["indices"].cpu(),
+                       ic["routing"]["indices"])
+    flipped = torch.zeros(64, dtype=torch.bool)
+    for name, _ in DEFAULT_ZONES:
+        flipped |= _flipped_rows(getattr(gpu, f"zone_{name}"),
+                                 getattr(cpu, f"zone_{name}"), x)
+    _assert_rows(og, oc, flipped)
+
+
+def test_brain_system_on_the_card_matches_the_cpu(dev):
+    """The defaults (d_model 64, 64 LIF neurons, 8 zones) from one seed on
+    both devices: the same plans, outputs within 1e-5 where the spikes
+    agree, no zone error, no CPU tensor in a zone forward; then an
+    orchestrator batch through the zone executor."""
+    from aura_snn_rag_tpu_torch.services.brain_system import (
+        NeuromorphicBrainSystem)
+    from aura_snn_rag_tpu_torch.services.continuous_learning import (
+        IngestItem)
+    gpu = NeuromorphicBrainSystem(device=dev)
+    cpu = NeuromorphicBrainSystem(device="cpu")
+    for name, zone in gpu._zone_modules.items():
+        assert torch.equal(zone.input_proj.weight_patterns.cpu(),
+                           cpu._zone_modules[name].input_proj.weight_patterns)
+        _guard_devices(zone, dev)
+    for text in ("remember to analyze the pattern", "I feel sad",
+                 "calculate the timeline", "create a visual design"):
+        og, ig = gpu.process_text(text)
+        assert gpu.processor.stats["errors"] == 0
+        oc, ic = cpu.process_text(text)
+        assert og.device.type == dev.type and ig["plan"] == ic["plan"]
+        x = torch.from_numpy(cpu.orchestrator.hash_embedder.embed(text))[
+            None, :64]
+        flipped = torch.zeros(1, dtype=torch.bool)
+        for zone, _ in ic["plan"]:
+            flipped |= _flipped_rows(gpu._zone_modules[zone],
+                                     cpu._zone_modules[zone], x)
+        _assert_rows(og, oc, flipped)
+    outs = []
+    gpu.orchestrator.zone_executor = (
+        lambda f, c, inner=gpu.orchestrator.zone_executor:
+        outs.append(inner(f, c)))
+    gpu.orchestrator.process_batch([IngestItem("the history", "memory"),
+                                    IngestItem("a tune", "emotion")])
+    assert len(outs) == 2 and gpu.processor.stats["errors"] == 0
+    assert all(torch.isfinite(o).all() and o.device.type == dev.type
+               for o, _ in outs)
+
+
+def test_liquid_brain_on_the_card_matches_the_cpu(dev):
+    from aura_snn_rag_tpu_torch.models.brain.brain import LiquidBrain
+    gpu = LiquidBrain(device=dev)
+    cpu = LiquidBrain(device="cpu")
+    cpu.hippocampus = type(gpu.hippocampus)(*(t.cpu()
+                                               for t in gpu.hippocampus))
+    eg, ec = [], []
+    for i in range(40):
+        text, target = f"sample text number {i % 4}", float(i % 4)
+        eg.append(gpu.learn_text(text, target)["error"])
+        ec.append(cpu.learn_text(text, target)["error"])
+    np.testing.assert_allclose(eg, ec, rtol=0, atol=1e-4)
+    assert np.mean(np.abs(eg[-10:])) < np.mean(np.abs(eg[:10]))

@@ -100,3 +100,40 @@ def test_operator_modules_are_in_the_probe():
         assert not every & {"jax", "flax", "optax", "orbax", "click",
                             "aura_snn_rag_tpu"}, (mod, every)
         assert "aiohttp" not in top, mod
+
+
+# the neuromorphic brain system's modules: none imports JAX, flax or the
+# JAX package (scipy only inside the Hilbert interpolation)
+BRAIN_MODULES = (
+    "ops.surrogate", "ops.neurons", "ops.maths", "ops.izhikevich_presets",
+    "ops.snn_ops", "ops.spike_bridge", "zones.brain_zone", "zones.layers",
+    "zones.neuron_factory", "zones.processor", "zones.multimodal",
+    "models.brain.brain", "models.brain.specialist",
+    "services.brain_system", "models.convert", "cli")
+
+
+def test_brain_modules_are_in_the_probe():
+    import ast
+    import pkgutil
+    import aura_snn_rag_tpu_torch as pkg
+    names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                   pkg.__name__ + ".")}
+    for mod in BRAIN_MODULES:
+        assert f"aura_snn_rag_tpu_torch.{mod}" in names, mod
+        path = ROOT / "aura_snn_rag_tpu_torch" / (mod.replace(".", "/")
+                                                  + ".py")
+        tree = ast.parse(path.read_text())
+        top, every = set(), set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                mods = {node.module.split(".")[0]}
+            else:
+                continue
+            every |= mods
+            if node in tree.body:
+                top |= mods
+        assert not every & {"jax", "jaxlib", "flax", "optax",
+                            "aura_snn_rag_tpu"}, (mod, every)
+        assert "scipy" not in top, mod
