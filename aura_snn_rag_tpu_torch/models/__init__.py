@@ -1,7 +1,9 @@
-"""Model stack: the hippocampal transformer LM and its building blocks
-(counterpart of `aura_snn_rag_tpu.models`). The trainer's modulators and
-the brain orchestration are in `models.brain`; the language-zone models
-and `NaturalBrain` come in a later slice."""
+"""Model stack: the hippocampal transformer LM and its building blocks,
+and the spiking mixture-of-experts language zones (counterpart of
+`aura_snn_rag_tpu.models`). The trainer's modulators, the brain
+orchestration and `NaturalBrain` are in `models.brain`; the prosody
+chain and the emotion head in `models.prosody` and
+`models.emotion_head`."""
 
 from aura_snn_rag_tpu_torch.models.transformer import (  # noqa: F401
     HippocampalTransformer,
@@ -21,6 +23,11 @@ from aura_snn_rag_tpu_torch.models.layers import (  # noqa: F401
 from aura_snn_rag_tpu_torch.models.snn_rag import (  # noqa: F401
     SNNRAGTransformer,
     snn_rag_config,
+)
+from aura_snn_rag_tpu_torch.models.language_zone import (  # noqa: F401
+    FullLanguageZone,
+    MoELanguageZone,
+    SNNExpert,
 )
 from aura_snn_rag_tpu_torch.models.convert import (  # noqa: F401
     module_from_numpy,

@@ -6,8 +6,8 @@
   h' = h + dt * (-h / (tau + 1e-6) + tanh(Wh + Ux)).
 - `LiquidMoERouter`: one liquid step from a zero state, gate logits,
   temperature scaled by the attention gain, top-k probabilities
-  renormalised; the batch's expert usage is returned for the caller's
-  EMA.
+  renormalised (ties in index order, as `lax.top_k` takes them); the
+  batch's expert usage is returned for the caller's EMA.
 - `BanditGating`: UCB-1 expert selection on the host (numpy).
 """
 
@@ -86,7 +86,12 @@ class LiquidMoERouter(nn.Module):
             logits = logits / self.temperature
         probs = torch.softmax(logits, dim=-1)
         k = min(self.top_k, self.num_experts)
-        topk_probs, topk_idx = torch.topk(probs, k, dim=-1)
+        # a stable descending sort keeps tied experts in index order, as
+        # lax.top_k does (a silent row's probs are all equal); torch.topk
+        # orders ties arbitrarily
+        topk_probs, topk_idx = torch.sort(probs, dim=-1, descending=True,
+                                          stable=True)
+        topk_probs, topk_idx = topk_probs[..., :k], topk_idx[..., :k]
         weights = topk_probs / (topk_probs.sum(-1, keepdim=True) + 1e-8)
         usage = torch.zeros(self.num_experts, device=x.device).index_add_(
             0, topk_idx.reshape(-1),

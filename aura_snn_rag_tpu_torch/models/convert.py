@@ -12,16 +12,20 @@ Names map one to one (`layer_<i>` -> `layers.<i>`); flax's `Dense` kernel
 [in, out] becomes `weight` [out, in]; `Embed.embedding` and
 `LayerNorm.scale` become `weight`; `MultiHeadDotProductAttention`'s
 kernels [D, H, Hd] / [H, Hd, D] flatten to [H*Hd, D] / [D, H*Hd];
-`Synapsis` keeps its [in, out] `kernel`. A key missing from the tree or
-left over, or a shape that differs, raises. The flax tree holds
-`prosody_gate` only if `init` saw `prosody`, and the RAG parameters only
-if it saw a `memory_state`, while the port's model always has them: give
-`init` both.
+`Synapsis` keeps its [in, out] `kernel`, and an `ExpertBank`'s stacked
+leaves under `bank/experts/{syn1,syn2,readout}` keep their [E, in, out]
+`kernel` and [E, out] `bias` (the port's `StackedLinear` layout); the
+basal ganglia's 0-d `gate_<region>` leaves load as they are. A key
+missing from the tree or left over, or a shape that differs, raises.
+The flax tree holds `prosody_gate` only if `init` saw `prosody`, and the
+RAG parameters only if it saw a `memory_state`, while the port's model
+always has them: give `init` both.
 
 `module_from_numpy(module, tree)` loads any port module whose names
 mirror a flax module's (the trainer's `Amygdala` and `Thalamus`, the
-brain zones and spiking layers among them); the tree may be flax's
-variables with a "constants" collection beside "params", whose leaves
+brain zones and spiking layers, the language zones, `NaturalBrain` and
+the emotion head among them); the tree may be flax's variables with a
+"constants" collection beside "params", whose leaves
 (`SpikingLayer`'s beta and threshold, `AdaptiveSpikingLayer`'s
 `lateral_inhibition`, `ReservoirLayer`'s `W_rec`) load into the module's
 buffers of the same names. `trainer_from_numpy` builds a port `Trainer`
@@ -61,8 +65,8 @@ def _convert_leaf(path: Tuple[str, ...], value: np.ndarray
     in_mha = len(mods) >= 2 and mods[-2] == "memory_attention"
     x = np.asarray(value, np.float32)
     if leaf == "kernel":
-        if parent in ("syn1", "syn2"):                   # Synapsis: [in, out]
-            pass
+        if parent in ("syn1", "syn2") or "experts" in mods:
+            pass            # Synapsis [in, out]; an expert bank's [E, in, out]
         elif in_mha:
             # query/key/value [D, H, Hd] -> [D, H*Hd]; out [H, Hd, D] ->
             # [H*Hd, D]; then [out, in]

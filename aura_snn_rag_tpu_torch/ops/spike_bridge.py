@@ -6,7 +6,8 @@
   weigh more) or "phase" (the phase of the fundamental of the FFT along
   time, over pi, in (-1, 1]);
 - `continuous_to_spikes` makes [..., T, D] spikes of [..., D] values:
-  "poisson" (uniform draws from a `torch.Generator` below sigmoid(x)) or
+  "poisson" (uniform draws from a `torch.Generator`, on its device,
+  below sigmoid(x)) or
   "temporal" (step t fires while sigmoid(x) > (t + 1) / (T + 1)).
 """
 
@@ -42,12 +43,15 @@ def continuous_to_spikes(x: torch.Tensor, timesteps: int,
                          generator: Optional[torch.Generator] = None,
                          mode: str = "poisson") -> torch.Tensor:
     """[..., D] continuous -> [..., T, D] spikes. "poisson" draws from
-    `generator` (on x's device)."""
+    `generator` on the generator's device and moves the draw to x's (so a
+    CPU generator gives the card the CPU's draws); without a generator it
+    draws on x's device."""
     p = torch.sigmoid(x)[..., None, :]
     if mode == "poisson":
+        dev = generator.device if generator is not None else x.device
         u = torch.rand(x.shape[:-1] + (timesteps, x.shape[-1]),
-                       generator=generator, dtype=x.dtype, device=x.device)
-        return (u < p).to(x.dtype)
+                       generator=generator, dtype=x.dtype, device=dev)
+        return (u.to(x.device) < p).to(x.dtype)
     if mode == "temporal":
         thresholds = (torch.arange(timesteps, dtype=x.dtype, device=x.device)
                       + 1.0) / (timesteps + 1.0)

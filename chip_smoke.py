@@ -128,6 +128,31 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
    last 50 errors must average below the first 50; and the CLI's
    `brain-demo` in a subprocess. The path runs no kernel of the port.
 
+9. natural-brain phase: the NaturalBrain path at the JAX classes'
+   defaults, nothing cut, on ids at bench_prosody.py's batch shape
+   (B = 8, T = 256, vocab 32,000): `NaturalBrain` (d_model 128, the
+   three default regions, 4 experts, 64 zone neurons; 8.71M parameters)
+   with hormone levels from the port's `EndocrineSystem`;
+   `MoELanguageZone` (d_model 256, 8 experts, top-2, levels 8; 18.33M),
+   forward and backward; `FullLanguageZone` in dense mode at width 256.
+   Each is held to a CPU copy of the same weights with the same Poisson
+   draws (CPU generators of one seed) on 2 batches at its init and 2
+   driven (the embedding table, or the features, N(0, 1): spike rate >
+   0.1): outputs within 1e-5 on the rows where every spike agrees,
+   spikes that flip where they are made (each stage of the card run on
+   the CPU's input to it) on at most 1e-4 of the entries; the MoE's
+   gradients within 1e-4 of each tensor's RMS. Timed: ms per call,
+   launches, device busy share, host syncs and tokens/s. Then
+   `CachedProsodyBridge(ANALYTICAL_BALANCED)` over bench_prosody.py's 16
+   seeded batches as ids on the card, cold then warm (uncached tokens/s,
+   cache speedup, hit rate; one host copy per call); the emotion head at
+   bench_emotion_e2e.py's configuration (1024-wide hash features, 28
+   labels, Adam 3e-3, 600 full-batch epochs on the stratified split of
+   data/emotion_eval.jsonl) on the card and the CPU: the loss falls, the
+   card's top-1 test accuracy beats chance; `DualLayerSRFFN()` over
+   1,000 seeded texts with phonemes (texts/s, features within 1e-5 of
+   the CPU's). The path runs no kernel of the port.
+
 `--profile` adds a torch.profiler breakdown of one call of each
 retrieval path (device time by kernel, device busy share) to phase 2,
 of decode steps (wall, device, busy, `retrieve_auto`'s share) to
@@ -140,7 +165,7 @@ runs, again just before phase 5's 8 counted train_steps, and again
 before phase 6, after which kernel B alone must have run, and again
 just before phase 7's retrievals, after which kernel A alone must have
 run, ceil(B / 256) times per funnel dispatch, and again at the start of
-phase 8, after which no kernel may have run. Any
+phases 8 and 9, after each of which no kernel may have run. Any
 failed check exits non-zero. The last lines are the card's name
 and power limit, one JSON object with the per-kernel numbers, and
 {"ok": true, "device": {...}}. Without a CUDA card the script exits 1 and
@@ -247,6 +272,25 @@ LIQUID_STEPS = 200
 # the entries (a potential within an ulp of its threshold)
 BRAIN_TOL = 1e-5
 BRAIN_FLIP_FRACTION = 1e-4
+
+# the natural-brain phase: the JAX classes' defaults, nothing cut; ids at
+# benchmarks/bench_prosody.py's batch shape, vocab ModelConfig.vocab_size
+NB_VOCAB = 32_000
+NB_BATCH, NB_SEQ = 8, 256
+NB_CHECK = 2                    # batches held to the CPU port, per case
+                                # (defaults and driven: 4 per model)
+NB_TIMED = 3                    # calls per timing
+NB_DRIVE = 1.0                  # std of the driven case's embedding table
+NB_GRAD_RTOL = 1e-4             # MoE gradients, of each tensor's RMS
+PROSODY_BATCHES = 16            # bench_prosody.py's seeded batches
+EMOTION_DIM, EMOTION_EPOCHS, EMOTION_LR = 1024, 600, 3e-3
+SRFFN_TEXTS = 1000
+GOEMOTIONS_LABELS = (
+    "admiration", "amusement", "anger", "annoyance", "approval", "caring",
+    "confusion", "curiosity", "desire", "disappointment", "disapproval",
+    "disgust", "embarrassment", "excitement", "fear", "gratitude", "grief",
+    "joy", "love", "nervousness", "optimism", "pride", "realization",
+    "relief", "remorse", "sadness", "surprise", "neutral")
 
 SOURCES = {
     "flat_blockmax": ("aura_snn_rag_tpu_torch/ops/cuda/csrc/flat_scan.cu",
@@ -2496,25 +2540,26 @@ def liquid_stream(n, seed):
 
 def profile_calls(fn, reps):
     """torch.profiler over `reps` calls of fn: wall and device ms per
-    call, the device's busy share and kernel launches per call."""
+    call, the device's busy share and kernel launches per call. Only the
+    device is traced, and its events are read raw: sorting them into
+    `key_averages` takes ~3 s per 15,000 launches (host events ~2 s more)
+    and gives the same kernels and device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]
+    dev_ms = sum(e.duration_ns() for e in kernels) / 1e6 / reps
     return dict(wall_ms=wall_ms, device_ms=dev_ms, busy=dev_ms / wall_ms,
-                launches_per_call=sum(e.count for e in kernels) / reps)
+                launches_per_call=len(kernels) / reps)
 
 
 def syncs_per_call(fn, reps):
@@ -2753,6 +2798,666 @@ def brain_phase(dev):
     return stats
 
 
+# --------------------------------------------------------------------------
+# natural-brain phase
+# --------------------------------------------------------------------------
+
+class Taps:
+    """Outputs of a model's submodules by name (forward hooks), detached
+    on their device; "<name>_in" holds the first input of those in
+    `inputs`."""
+
+    def __init__(self, inputs=(), **modules):
+        self.out = {}
+        self._handles = []
+        for name, m in modules.items():
+            def hook(_, args, out, name=name):
+                self.out[name] = out.detach()
+                if name in inputs:
+                    self.out[name + "_in"] = args[0].detach()
+            self._handles.append(m.register_forward_hook(hook))
+
+    def remove(self):
+        for h in self._handles:
+            h.remove()
+
+
+def zone_taps(zone):
+    """Taps of a `FullLanguageZone`'s layers whose outputs feed a spiking
+    stage, with their inputs (the decoder's input is the Poisson
+    spikes)."""
+    return Taps(inputs=("encoder_proj", "syn1", "syn2", "decoder_proj"),
+                encoder_proj=zone.encoder_proj, syn1=zone.bank.experts.syn1,
+                syn2=zone.bank.experts.syn2, decoder_proj=zone.decoder_proj)
+
+
+def zone_spikes(zone, taps, ids, info):
+    """A `FullLanguageZone` call's spikes, recomputed on the call's device
+    by the port's own functions from its layers' outputs and returned on
+    the CPU: the encoder's, each expert's two GIF layers'
+    ([E, N, T, H]), the Poisson draw's and the decoder's; and the
+    dispatch plan [B, E, C] (None in dense mode)."""
+    import torch
+    from aura_snn_rag_tpu_torch.models.language_zone import topk_dispatch
+    from aura_snn_rag_tpu_torch.models.prosody import (
+        prosody_attention_gains, prosody_gif_scan)
+    from aura_snn_rag_tpu_torch.ops.neurons import gif_params, gif_scan
+    gp = gif_params(levels=zone.levels)
+    o = taps.out
+    T = ids.shape[1]
+    E = zone.num_experts
+    N = o["syn1"].shape[1] // T
+    with torch.no_grad():
+        gains, _ = prosody_attention_gains(ids.to(o["encoder_proj"].device))
+        spikes = dict(
+            enc=prosody_gif_scan(gp, o["encoder_proj"], gains)[0],
+            s1=gif_scan(gp, o["syn1"].reshape(E, N, T, -1))[0],
+            s2=gif_scan(gp, o["syn2"].reshape(E, N, T, -1))[0],
+            poisson=o["decoder_proj_in"],
+            dec=gif_scan(gp, o["decoder_proj"])[0])
+    spikes = {k: v.cpu() for k, v in spikes.items()}
+    plan = None if zone.dense_dispatch else topk_dispatch(
+        info["routing"]["indices"].cpu(), info["routing"]["weights"].cpu(),
+        E, info["capacity"])[0]
+    return spikes, plan
+
+
+def zone_flipped_rows(card, ref, plan):
+    """Rows [B] where the card's spikes of a zone call differ from the
+    CPU's, anywhere downstream of a flip too (an expert slot marks the
+    row routed there)."""
+    import torch
+    rows = torch.zeros(card["enc"].shape[0], dtype=torch.bool)
+    for key, a in card.items():
+        f = a != ref[key]
+        if key in ("s1", "s2"):
+            slots = f.flatten(2).any(dim=2)                    # [E, N]
+            rows |= (slots.any(dim=0) if plan is None else torch.einsum(
+                "bec,ec->b", plan, slots.float()) > 0)
+        else:
+            rows |= f.flatten(1).any(dim=1)
+    return rows
+
+
+def local_flips(zone, taps, ref, ids):
+    """Spikes that flip where they are made: each spiking stage of the
+    card's zone run on the CPU run's input to that stage, against the
+    CPU's spikes. A flip there (a potential within an ulp of a level)
+    makes everything downstream of it differ, which `zone_flipped_rows`
+    counts as rows, not as flips. Returns (flips, entries)."""
+    import torch
+    from aura_snn_rag_tpu_torch.models.prosody import (
+        prosody_attention_gains, prosody_gif_scan)
+    from aura_snn_rag_tpu_torch.ops.neurons import gif_params, gif_scan
+    dev = next(zone.parameters()).device
+    gp = gif_params(levels=zone.levels)
+    o = taps.out
+    E, N, T = ref["s1"].shape[:3]
+    with torch.no_grad():
+        gains, _ = prosody_attention_gains(ids.to(dev))
+        local = dict(
+            enc=prosody_gif_scan(gp, zone.encoder_proj(
+                o["encoder_proj_in"].to(dev)), gains)[0],
+            s1=gif_scan(gp, zone.bank.experts.syn1(o["syn1_in"].to(dev))
+                        .reshape(E, N, T, -1))[0],
+            s2=gif_scan(gp, zone.bank.experts.syn2(o["syn2_in"].to(dev))
+                        .reshape(E, N, T, -1))[0],
+            dec=gif_scan(gp, zone.decoder_proj(
+                o["decoder_proj_in"].to(dev)))[0])
+    flips = sum(int((v.cpu() != ref[k]).sum()) for k, v in local.items())
+    return flips, sum(v.numel() for v in local.values())
+
+
+def hormone_levels():
+    """Hormone levels from the port's `EndocrineSystem` after 30 steps of
+    a stressed, inaccurate run and 40 of an accurate one, so cortisol,
+    norepinephrine and dopamine (the hormones the brain reads) are all
+    above 0."""
+    from aura_snn_rag_tpu_torch.models.brain.endocrine import (
+        EndocrineSystem)
+    endocrine = EndocrineSystem()
+    for step in range(70):
+        levels = endocrine.step({"accuracy": 0.3 if step < 30 else 0.97,
+                                 "gate_diversity": 0.2, "energy": 1.0})
+    check(all(levels[h] > 0 for h in ("cortisol", "norepinephrine",
+                                      "dopamine")), f"hormones {levels}")
+    return levels
+
+
+def lm_pair(make, dev, seed):
+    """A port model on the card and the same weights on the CPU, drawn
+    from a seeded CPU generator."""
+    import torch
+    card = make(dev, torch.Generator().manual_seed(seed))
+    ref = make("cpu", torch.Generator().manual_seed(seed + 1))
+    ref.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    return card.requires_grad_(False), ref.requires_grad_(False)
+
+
+def card_vs_cpu(card, ref, batches, call, zone_of, extra_rows=None):
+    """Holds a model on the card to its CPU copy on `batches` of ids with
+    the same Poisson draws (CPU generators of one seed): outputs within
+    BRAIN_TOL on the rows whose spikes agree. `call(model, ids, gen)`
+    returns (out, info); `zone_of(model)` is its language zone;
+    `extra_rows(card, ref)` adds rows flipped elsewhere (after a call).
+    Returns the largest error, rows compared and flipped, the flips and
+    the spike rates seen."""
+    import torch
+    err, compared, flipped, flips, entries, rates = 0.0, 0, 0, 0, 0, []
+    for i, ids in enumerate(batches):
+        runs = []
+        for model in (card, ref):
+            zone = zone_of(model)
+            taps = zone_taps(zone)
+            with torch.no_grad():
+                out, info = call(model, ids.to(next(model.parameters())
+                                               .device),
+                                 torch.Generator().manual_seed(100 + i))
+            taps.remove()
+            check(bool(torch.isfinite(out).all()), "output not finite")
+            runs.append((out.cpu(), zone_spikes(zone, taps, ids, info),
+                         info, taps))
+        (oc, (sc, plan), info, _), (orf, (sr, _), _, rtaps) = runs
+        rows = zone_flipped_rows(sc, sr, plan)
+        if extra_rows is not None:
+            rows |= extra_rows(card, ref)
+        n, total = local_flips(zone_of(card), rtaps, sr, ids)
+        flips += n
+        entries += total
+        keep = ~rows
+        flipped += int(rows.sum())
+        compared += int(keep.sum())
+        if keep.any():
+            err = max(err, (oc[keep] - orf[keep]).abs().max().item())
+        rates.append(float(info.get("spike_rate", float("nan"))))
+    check(flips <= BRAIN_FLIP_FRACTION * entries, f"zone spikes flip on "
+          f"{flips / entries:.2e} of the entries between the card and the "
+          f"CPU")
+    check(compared >= len(batches) * batches[0].shape[0] // 2,
+          f"only {compared} rows free of spike flips")
+    check(err <= BRAIN_TOL, f"card against CPU: {err} > {BRAIN_TOL} on "
+          f"rows whose spikes agree")
+    return dict(max_abs_err_vs_cpu=err, rows_compared=compared,
+                rows_with_flips=flipped, spike_flips=flips,
+                spike_entries=entries, spike_rates=rates)
+
+
+def sync_sites(fn):
+    """fn's host syncs per call and their source lines (CUDA's sync debug
+    mode warns at each, from the Python line that caused it)."""
+    import warnings
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    return len(syncs), sorted({f"{os.path.relpath(w.filename)}:{w.lineno}"
+                               for w in syncs})
+
+
+def timed_model(fn, reps=NB_TIMED):
+    """ms per call (host clock, ending in a synchronise), launches per
+    call, device busy share and host syncs per call of fn, and where
+    they happen."""
+    r = profile_calls(fn, 1)
+    r["ms"] = wall_ms(fn, reps)
+    r["host_syncs_per_call"], r["host_sync_sites"] = sync_sites(fn)
+    r["tokens_per_s"] = NB_BATCH * NB_SEQ / (r["ms"] / 1e3)
+    return r
+
+
+def nb_ids(seed, n):
+    """n batches of [NB_BATCH, NB_SEQ] ids in [0, NB_VOCAB) from a seed."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randint(0, NB_VOCAB, (NB_BATCH, NB_SEQ)))
+            for _ in range(n)]
+
+
+def driven(card, ref, seed):
+    """The embedding tables of a pair replaced by N(0, NB_DRIVE^2) draws
+    of one seed (so the temporal cortex spikes); returns the restore."""
+    import torch
+    saved = card.embedding.weight.detach().clone()
+    table = torch.randn(ref.embedding.weight.shape,
+                        generator=torch.Generator().manual_seed(seed)) \
+        * NB_DRIVE
+    with torch.no_grad():
+        card.embedding.weight.copy_(table)
+        ref.embedding.weight.copy_(table)
+
+    def restore():
+        with torch.no_grad():
+            card.embedding.weight.copy_(saved)
+            ref.embedding.weight.copy_(saved.cpu())
+    return restore
+
+
+def brain_zones_flipped(card, ref, inputs):
+    """Rows where a `NaturalBrain`'s non-temporal cortices spike
+    differently on the card and the CPU (each on the CPU run's input)."""
+    import torch
+    rows = None
+    for region, x in inputs.items():
+        r, _ = zone_rows_flipped(getattr(card, f"cortex_{region}"),
+                                 getattr(ref, f"cortex_{region}"), x)
+        rows = r if rows is None else rows | r
+    return rows if rows is not None else torch.zeros(NB_BATCH,
+                                                     dtype=torch.bool)
+
+
+def natural_brain_vs_cpu(card, ref, batches, hormones):
+    """`card_vs_cpu` for a `NaturalBrain` pair: the temporal cortex's
+    spikes and its routing (for the dispatch plan) through hooks, and the
+    rows where another cortex's population spikes differently."""
+    inputs = {}
+    hooks = [getattr(ref, f"cortex_{r}").register_forward_pre_hook(
+        lambda _, args, r=r: inputs.__setitem__(r, args[0].detach().cpu()))
+        for r in ref.regions if r != "temporal_cortex"]
+    routing = {}
+    for model in (card, ref):
+        hooks.append(model.cortex_temporal_cortex.register_forward_hook(
+            lambda _, __, out, model=model: routing.__setitem__(
+                id(model), {k: out[1][k] for k in ("routing", "capacity")})))
+
+    def call(model, ids, gen):
+        out, info = model(ids, hormones, gen)
+        return out, dict(info["temporal_cortex_info"], **routing[id(model)])
+    try:
+        return card_vs_cpu(card, ref, batches, call,
+                           lambda m: m.cortex_temporal_cortex,
+                           lambda c, r: brain_zones_flipped(c, r, inputs))
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def natural_brain_check(dev, hormones):
+    """`NaturalBrain` at its defaults on the card against the CPU port,
+    at the defaults and driven, and its timing."""
+    import torch
+    from aura_snn_rag_tpu_torch.models.brain.natural_brain import (
+        DEFAULT_REGIONS, NaturalBrain)
+    card, ref = lm_pair(lambda d, g: NaturalBrain(NB_VOCAB, device=d,
+                                                  generator=g), dev, 31)
+    stats = dict(params=sum(p.numel() for p in card.parameters()),
+                 hormones=hormones)
+    stats["defaults"] = natural_brain_vs_cpu(card, ref, nb_ids(41, NB_CHECK),
+                                             hormones)
+    restore = driven(card, ref, 42)
+    stats["driven"] = natural_brain_vs_cpu(card, ref, nb_ids(43, NB_CHECK),
+                                           hormones)
+    restore()
+    check(min(stats["driven"]["spike_rates"]) > 0.1,
+          f"driven temporal cortex rates {stats['driven']['spike_rates']}")
+
+    ids = nb_ids(44, 1)[0].to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        logits, info = card(ids, hormones, gen)
+    check(logits.shape == (NB_BATCH, NB_VOCAB)
+          and bool(torch.isfinite(logits).all()), "NaturalBrain logits")
+    stats["temporal_cortex_spike_rate"] = float(
+        info["temporal_cortex_info"]["spike_rate"])
+    stats["zone_firing_rates"] = {
+        r: float(info[f"{r}_info"]["avg_firing_rate"])
+        for r in DEFAULT_REGIONS if r != "temporal_cortex"}
+
+    def forward():
+        with torch.no_grad():
+            return card(ids, hormones, gen)
+    stats["forward"] = timed_model(forward)
+    return stats
+
+
+def moe_grads_vs_cpu(card, ref, ids):
+    """Gradients of the logits' sum of a `MoELanguageZone` on the card
+    against its CPU copy (the same Poisson draws), tensor by tensor, on a
+    batch where no spike differs; returns the largest error over each
+    tensor's RMS (floored at 1e-3 of the largest RMS)."""
+    import torch
+    grads, runs = [], []
+    for model in (card, ref):
+        taps = zone_taps(model.zone)
+        model.requires_grad_(True)
+        model.zero_grad(set_to_none=True)
+        out, info = model(ids.to(next(model.parameters()).device),
+                          torch.Generator().manual_seed(7))
+        out.sum().backward()
+        taps.remove()
+        runs.append(zone_spikes(model.zone, taps, ids, info))
+        grads.append({n: (torch.zeros_like(p) if p.grad is None
+                          else p.grad).detach().cpu()
+                      for n, p in model.named_parameters()})
+        model.zero_grad(set_to_none=True)
+        model.requires_grad_(False)
+    rows = zone_flipped_rows(runs[0][0], runs[1][0], runs[0][1])
+    check(not rows.any(), f"{int(rows.sum())} rows of the gradient batch "
+          f"spike differently on the card")
+    rms = {n: g.square().mean().sqrt().item() for n, g in grads[1].items()}
+    floor = 1e-3 * max(rms.values())
+    worst = max((grads[0][n] - g).abs().max().item() / max(rms[n], floor)
+                for n, g in grads[1].items())
+    check(worst <= NB_GRAD_RTOL, f"MoE gradients on the card against the "
+          f"CPU: {worst} of the RMS")
+    return worst
+
+
+def moe_check(dev):
+    """`MoELanguageZone` at its defaults (and `FullLanguageZone` in dense
+    mode at its width) on the card against the CPU port, at the defaults
+    and driven; the card's gradients against the CPU's at the defaults;
+    forward and backward timings."""
+    import torch
+    from aura_snn_rag_tpu_torch.models.language_zone import (
+        FullLanguageZone, MoELanguageZone)
+    card, ref = lm_pair(lambda d, g: MoELanguageZone(NB_VOCAB, device=d,
+                                                     generator=g), dev, 51)
+    stats = dict(params=sum(p.numel() for p in card.parameters()))
+
+    def call(model, ids, gen):
+        return model(ids, gen)
+    zone_of = (lambda m: m.zone)
+    stats["defaults"] = card_vs_cpu(card, ref, nb_ids(52, NB_CHECK), call,
+                                    zone_of)
+    stats["grad_max_err_over_rms"] = moe_grads_vs_cpu(card, ref,
+                                                      nb_ids(55, 1)[0])
+    restore = driven(card, ref, 53)
+    stats["driven"] = card_vs_cpu(card, ref, nb_ids(54, NB_CHECK), call,
+                                  zone_of)
+    check(min(stats["driven"]["spike_rates"]) > 0.1,
+          f"driven MoE rates {stats['driven']['spike_rates']}")
+    restore()
+
+    ids = nb_ids(56, 1)[0].to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        logits, info = card(ids, gen)
+    check(logits.shape == (NB_BATCH, NB_VOCAB)
+          and bool(torch.isfinite(logits).all()), "MoE logits")
+    stats["spike_rate"] = float(info["spike_rate"])
+    stats["capacity"] = info["capacity"]
+    stats["dropped_fraction"] = float(info["dropped_fraction"])
+
+    def forward():
+        with torch.no_grad():
+            return card(ids, gen)
+
+    def forward_backward():
+        card.zero_grad(set_to_none=True)
+        out, _ = card(ids, gen)
+        out.sum().backward()
+    stats["forward"] = timed_model(forward)
+    card.requires_grad_(True)
+    stats["forward_backward"] = timed_model(forward_backward)
+    card.requires_grad_(False)
+    card.zero_grad(set_to_none=True)
+    stats["backward_ms"] = (stats["forward_backward"]["ms"]
+                            - stats["forward"]["ms"])
+
+    # dense dispatch at the same width, on unit-scale features
+    dcard, dref = lm_pair(lambda d, g: FullLanguageZone(
+        256, dense_dispatch=True, device=d, generator=g), dev, 57)
+    feats = torch.randn(NB_BATCH, NB_SEQ, 256,
+                        generator=torch.Generator().manual_seed(58))
+
+    def dcall(model, ids, gen):
+        return model(ids, feats.to(next(model.parameters()).device), gen)
+    stats["dense"] = card_vs_cpu(dcard, dref, nb_ids(59, NB_CHECK), dcall,
+                                 lambda m: m)
+    dfeats = feats.to(dev)
+
+    def dense_forward():
+        with torch.no_grad():
+            return dcard(ids, dfeats, gen)
+    stats["dense"]["forward"] = timed_model(dense_forward)
+    return stats
+
+
+def prosody_check(dev):
+    """`CachedProsodyBridge(ANALYTICAL_BALANCED)` over bench_prosody.py's
+    16 seeded [8, 256] batches (as ids on the card), cold then warm, as
+    the bench times them; the gains against a CPU bridge's where the LIF
+    chains' spikes agree."""
+    import numpy as np
+    import torch
+    from aura_snn_rag_tpu_torch.models.prosody import (
+        ANALYTICAL_BALANCED, CachedProsodyBridge, _lif_chains,
+        prosody_channels_from_tokens)
+    rng = np.random.RandomState(0)
+    batches = [torch.from_numpy(rng.randint(0, NB_VOCAB, (8, 256)))
+               for _ in range(PROSODY_BATCHES)]
+    on_card = [b.to(dev) for b in batches]
+    bridge = CachedProsodyBridge(ANALYTICAL_BALANCED, device=dev)
+    ref = CachedProsodyBridge(ANALYTICAL_BALANCED, device="cpu")
+    bridge(on_card[0])
+    bridge(on_card[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gains = [bridge(b) for b in on_card]
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for b in on_card:
+        bridge(b)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    calls = 2 + 2 * PROSODY_BATCHES
+    copies = calls if dev.type == "cuda" else 0      # one per call, the key
+    check(bridge.host_copies == copies, f"{bridge.host_copies} host copies "
+          f"over {calls} calls")
+    err, flipped = 0.0, 0
+    decay = torch.tensor(ANALYTICAL_BALANCED.decay)[:, None]
+    for b, g in zip(batches, gains):
+        check(bool(torch.isfinite(g).all()), "prosody gains not finite")
+        spikes = [_lif_chains(torch.stack(prosody_channels_from_tokens(x)),
+                              decay.to(x.device)).cpu()
+                  for x in (b.to(dev), b)]
+        rows = (spikes[0] != spikes[1]).any(dim=2).any(dim=0)
+        flipped += int(rows.sum())
+        keep = ~rows
+        err = max(err, (g.cpu()[keep] - ref(b)[keep]).abs().max().item())
+    check(err <= 1e-5, f"prosody gains on the card against the CPU: {err}")
+    tokens = sum(b.numel() for b in batches)
+    return dict(tokens_per_s_uncached=tokens / cold,
+                cache_speedup_pct=100 * (1 - warm / cold),
+                hit_rate=bridge.stats["hit_rate"], cold_s=cold, warm_s=warm,
+                host_copies=bridge.host_copies, calls=calls,
+                max_abs_err_vs_cpu=err, rows_with_lif_flips=flipped)
+
+
+def emotion_data():
+    """benchmarks/bench_emotion_e2e.py's data: the bundled
+    data/emotion_eval.jsonl (28 labels) and its stratified split (a
+    quarter of each label to test, seed 0)."""
+    import numpy as np
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "emotion_eval.jsonl")
+    lab_idx = {n: i for i, n in enumerate(GOEMOTIONS_LABELS)}
+    texts, labels = [], []
+    with open(path) as f:
+        for line in f:
+            row = json.loads(line)
+            texts.append(row["text"])
+            labels.append(lab_idx[row["label"]])
+    labels = np.asarray(labels)
+    rng = np.random.RandomState(0)
+    train, test = [], []
+    for lab in np.unique(labels):
+        idx = np.where(labels == lab)[0]
+        rng.shuffle(idx)
+        n_test = max(1, int(round(0.25 * len(idx))))
+        test.extend(idx[:n_test])
+        train.extend(idx[n_test:])
+    return texts, labels, np.asarray(train), np.asarray(test)
+
+
+def emotion_check(dev):
+    """The emotion head at bench_emotion_e2e.py's configuration, trained
+    on the card and, from the same weights, on the CPU: the loss must
+    fall and the card's top-1 test accuracy beat chance."""
+    import torch
+    from aura_snn_rag_tpu_torch.encoders.hash_embedder import (
+        FastHashEmbedder)
+    from aura_snn_rag_tpu_torch.models.emotion_head import (
+        EmotionHeadConfig, EmotionPersonalityHead, emotion_multitask_loss)
+    texts, labels, train, test = emotion_data()
+    X = torch.from_numpy(FastHashEmbedder(dim=EMOTION_DIM).embed_batch(
+        texts))
+    y = torch.from_numpy(labels)
+    cfg = EmotionHeadConfig(d_model=EMOTION_DIM,
+                            n_emotions=len(GOEMOTIONS_LABELS))
+    card, ref = lm_pair(lambda d, g: EmotionPersonalityHead(
+        cfg, device=d, generator=g), dev, 61)
+    out = dict(n=len(texts), n_test=int(len(test)),
+               chance=1 / len(GOEMOTIONS_LABELS))
+    for name, head in (("card", card), ("cpu", ref)):
+        d = next(head.parameters()).device
+        Xtr, ytr = X[train].to(d), y[train].to(d)
+        Xte, yte = X[test].to(d), y[test].to(d)
+        head.requires_grad_(True)
+        opt = torch.optim.Adam(head.parameters(), lr=EMOTION_LR)
+        losses = []
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(EMOTION_EPOCHS):
+            opt.zero_grad()
+            loss, _ = emotion_multitask_loss(head(Xtr), {"emotion": ytr})
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+        losses = torch.stack(losses).cpu()
+        seconds = time.perf_counter() - t0
+        head.requires_grad_(False)
+        with torch.no_grad():
+            logits = head(Xte)["emotion"]
+        check(bool(torch.isfinite(logits).all())
+              and bool(torch.isfinite(losses).all()), f"emotion head "
+              f"({name}) not finite")
+        top3 = logits.topk(3, dim=-1).indices
+        out[name] = dict(
+            first_loss=losses[0].item(), final_loss=losses[-1].item(),
+            top1=(logits.argmax(-1) == yte).float().mean().item(),
+            top3=(top3 == yte[:, None]).any(-1).float().mean().item(),
+            ms_per_epoch=seconds * 1e3 / EMOTION_EPOCHS)
+    c = out["card"]
+    check(c["final_loss"] < c["first_loss"], f"emotion loss did not fall: "
+          f"{c['first_loss']} -> {c['final_loss']}")
+    check(c["top1"] > out["chance"], f"emotion top-1 {c['top1']} at "
+          f"chance {out['chance']}")
+    return out
+
+
+def srffn_texts(n, seed):
+    """n seeded texts with event keywords among filler words, and a
+    phoneme sequence each (3-8 IPA phonemes)."""
+    import numpy as np
+    from aura_snn_rag_tpu_torch.encoders.event_encoder import DEFAULT_EVENTS
+    from aura_snn_rag_tpu_torch.encoders.frequency_encoder import (
+        IPA_FORMANTS)
+    keywords = [k for kws in DEFAULT_EVENTS.values() for k in kws]
+    filler = ("the", "a", "of", "this", "about", "quickly", "signal",
+              "morning", "river", "system", "note", "again")
+    phonemes = list(IPA_FORMANTS)
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        words = [keywords[j] for j in rng.randint(len(keywords),
+                                                  size=rng.randint(0, 4))]
+        words += [filler[j] for j in rng.randint(len(filler),
+                                                 size=rng.randint(2, 8))]
+        rng.shuffle(words)
+        out.append((" ".join(words), [phonemes[j] for j in rng.randint(
+            len(phonemes), size=rng.randint(3, 9))]))
+    return out
+
+
+def srffn_check(dev):
+    """`DualLayerSRFFN()` at its defaults over seeded texts with phonemes
+    on the card (texts/s), every feature held to a CPU SRFFN's."""
+    import torch
+    from aura_snn_rag_tpu_torch.encoders.dual_layer_srffn import (
+        DualLayerSRFFN)
+    items = srffn_texts(SRFFN_TEXTS, seed=71)
+    card, ref = DualLayerSRFFN(device=dev), DualLayerSRFFN(device="cpu")
+    card.forward(*items[0])
+    ref.forward(*items[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = [card.forward(text, ph)["features"] for text, ph in items]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    feats = torch.stack(feats).cpu()
+    want = torch.stack([ref.forward(text, ph)["features"]
+                        for text, ph in items])
+    check(bool(torch.isfinite(feats).all()), "SRFFN features not finite")
+    err = (feats - want).abs().max().item()
+    check(err <= BRAIN_TOL, f"SRFFN on the card against the CPU: {err}")
+    return dict(texts=len(items), texts_per_s=len(items) / seconds,
+                ms_per_text=seconds * 1e3 / len(items),
+                max_abs_err_vs_cpu=err)
+
+
+def natural_brain_phase(dev):
+    """The NaturalBrain path (see the module doc). No kernel may launch:
+    the counts are zeroed first and read at the end."""
+    import torch
+    from aura_snn_rag_tpu_torch.ops.cuda import _build
+    t_phase = time.perf_counter()
+    _build.reset_launch_counts()
+    torch.manual_seed(0)
+    hormones = hormone_levels()
+    stats = {}
+    steps = {}
+    for name, fn in (("natural_brain", lambda: natural_brain_check(
+            dev, hormones)), ("moe_language_zone", lambda: moe_check(dev)),
+                     ("prosody_bridge", lambda: prosody_check(dev)),
+                     ("emotion_head", lambda: emotion_check(dev)),
+                     ("srffn", lambda: srffn_check(dev))):
+        stats[name] = fn()
+        steps[name] = time.perf_counter() - t_phase
+        torch.cuda.empty_cache()
+    launches = dict(_build.launch_counts)
+    check(not any(launches.values()), f"a kernel launched on the "
+          f"natural-brain path: {launches}")
+    stats["launches"] = launches
+    stats["seconds"] = time.perf_counter() - t_phase
+    stats["seconds_at_end_of"] = steps
+    nb, moe = stats["natural_brain"], stats["moe_language_zone"]
+    for name, r in (("NaturalBrain forward", nb["forward"]),
+                    ("MoELanguageZone forward", moe["forward"]),
+                    ("MoELanguageZone forward+backward",
+                     moe["forward_backward"]),
+                    ("FullLanguageZone dense forward",
+                     moe["dense"]["forward"])):
+        log(f"natural-brain: {name}: {r['ms']:.2f} ms, "
+            f"{r['tokens_per_s']:.0f} tokens/s, "
+            f"{r['launches_per_call']:.0f} launches, busy {r['busy']:.3f}, "
+            f"{r['host_syncs_per_call']:.0f} host syncs")
+    log(f"natural-brain: rates NaturalBrain temporal "
+        f"{nb['temporal_cortex_spike_rate']:.4f} (driven "
+        f"{min(nb['driven']['spike_rates']):.3f}), MoE "
+        f"{moe['spike_rate']:.4f} (driven "
+        f"{min(moe['driven']['spike_rates']):.3f})")
+    pb, em, sr = (stats["prosody_bridge"], stats["emotion_head"],
+                  stats["srffn"])
+    log(f"natural-brain: prosody {pb['tokens_per_s_uncached']:.0f} "
+        f"tokens/s uncached, cache speedup {pb['cache_speedup_pct']:.1f}%, "
+        f"hit rate {pb['hit_rate']:.3f}; emotion top-1 "
+        f"{em['card']['top1']:.4f} (CPU {em['cpu']['top1']:.4f}), top-3 "
+        f"{em['card']['top3']:.4f} (CPU {em['cpu']['top3']:.4f}); SRFFN "
+        f"{sr['texts_per_s']:.0f} texts/s; phase {stats['seconds']:.1f} s")
+    return stats
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2866,6 +3571,12 @@ def main() -> int:
     log(f"brain-path launches: {brain['launches']}")
     torch.cuda.empty_cache()
 
+    # ---- the NaturalBrain path: counts zeroed inside, first, and read at
+    # its end; no kernel may run there ----
+    natural = natural_brain_phase(dev)
+    log(f"natural-brain-path launches: {natural['launches']}")
+    torch.cuda.empty_cache()
+
     main_shape = {"flat_blockmax": res_a[("int8", 1024)],
                   "ivf_retrieve_fused": res_bc[("ivf_retrieve_fused", 8)],
                   "ivf_scan_scores": res_bc[("ivf_scan_scores", 8)],
@@ -2906,6 +3617,7 @@ def main() -> int:
     log(json.dumps({"operator": operator}))
     log(json.dumps({"spill": spill}))
     log(json.dumps({"brain": brain}))
+    log(json.dumps({"natural_brain": natural}))
     log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all")
     log(card)
     log(json.dumps({"kernels": kernels}))

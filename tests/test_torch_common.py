@@ -313,3 +313,146 @@ def assert_rows_match(got, want, flipped_rows, tol=ZONE_TOL):
     keep = ~np.asarray(flipped_rows)
     assert keep.any()
     np.testing.assert_allclose(got[keep], want[keep], rtol=0, atol=tol)
+
+
+# --------------------------------------------------------------------------
+# language zones: the spikes of every stage in both packages, to compare
+# outputs on the rows where they agree
+# --------------------------------------------------------------------------
+
+def intermediates(tree, *path):
+    """A captured flax intermediate's value (`capture_intermediates`)."""
+    for key in path:
+        tree = tree[key]
+    return tree["__call__"][0]
+
+
+class Tap:
+    """Records the outputs of port submodules by name (forward hooks)."""
+
+    def __init__(self, **modules):
+        self.out = {}
+        self._handles = [
+            m.register_forward_hook(
+                lambda _, __, out, name=name: self.out.__setitem__(name, out))
+            for name, m in modules.items()]
+
+    def remove(self):
+        for h in self._handles:
+            h.remove()
+
+
+def jax_poisson(rng, combined_shape, timesteps):
+    """The uniform draw of the JAX package's Poisson bridge for a [B, D]
+    input under `rng`, as numpy [B, timesteps, D]."""
+    B, D = combined_shape
+    return np.asarray(jax.random.uniform(rng, (B, timesteps, D)))
+
+
+def patched_poisson(u):
+    """A stand-in for the port's `continuous_to_spikes` that compares the
+    JAX package's uniform draw `u` against sigmoid(x), recording its
+    spikes."""
+    drawn = {}
+
+    def fn(x, timesteps, generator=None, mode="poisson"):
+        assert mode == "poisson" and u.shape[1] == timesteps
+        s = (torch.from_numpy(u).to(x.device)
+             < torch.sigmoid(x)[..., None, :]).to(x.dtype)
+        drawn["spikes"] = s.detach()
+        return s
+    return fn, drawn
+
+
+@functools.partial(jax.jit, static_argnums=(2,))
+def _jax_expert_spikes(experts, x, shared):
+    from aura_snn_rag_tpu.ops.neurons import gif_params, gif_scan
+    gp = gif_params(levels=8)
+
+    def one(p, xe):
+        s1, _ = gif_scan(gp, xe @ p["syn1"]["kernel"] + p["syn1"]["bias"])
+        s2, _ = gif_scan(gp, s1 @ p["syn2"]["kernel"] + p["syn2"]["bias"])
+        return s1, s2
+    return jax.vmap(one, in_axes=(0, None if shared else 0))(experts, x)
+
+
+def _flagged(jsp, tsp, axes):
+    """Entries where two spike tensors differ, held to FLIP_FRACTION;
+    returns (any flip over `axes`, number of flips)."""
+    flips = np.asarray(jsp) != np.asarray(tsp)
+    assert flips.mean() <= FLIP_FRACTION, flips.mean()
+    return flips.any(axis=axes), int(flips.sum())
+
+
+def zone_spike_flips(zone_params, jinter, tap, tzone, ids, u, drawn,
+                     dense):
+    """Rows [B] of a `FullLanguageZone` call where a spike of the two
+    packages differs (encoder, each expert's two GIF layers, the Poisson
+    draw or the decoder), asserting that flips stay rare, and the JAX
+    encoder's spikes and dispatch plan. `zone_params` and `jinter` are
+    the zone's flax params and captured intermediates, `tap` a `Tap` of
+    the port zone's encoder_proj, bank.experts.syn1/syn2 and
+    decoder_proj, `u` and `drawn` the Poisson draw and what the patched
+    port bridge made of it."""
+    from aura_snn_rag_tpu.models import language_zone as jlz
+    from aura_snn_rag_tpu.models import prosody as jp
+    from aura_snn_rag_tpu.ops.neurons import gif_params, gif_scan
+    from aura_snn_rag_tpu_torch.models import prosody as tp
+    from aura_snn_rag_tpu_torch.ops import neurons as tn
+    gp, tgp = gif_params(levels=8), tn.gif_params(levels=8)
+    B, T = ids.shape
+    jids = jnp.asarray(ids)
+    # encoder
+    jgains, _ = jp.prosody_attention_gains(jids)
+    jenc, _ = jp.prosody_gif_scan(gp, intermediates(jinter, "encoder_proj"),
+                                  jgains)
+    tgains, _ = tp.prosody_attention_gains(torch.from_numpy(ids))
+    with torch.no_grad():
+        tenc, _ = tp.prosody_gif_scan(tgp, tap.out["encoder_proj"], tgains)
+    rows, n = _flagged(jenc, tenc.numpy(), (1, 2))
+    flips = n
+    # experts: every expert on every row (dense), or capacity slots
+    routing = intermediates(jinter, "router")
+    experts = zone_params["bank"]["experts"]
+    if dense:
+        js1, js2 = _jax_expert_spikes(experts, jenc, True)
+        plan = None
+    else:
+        E = experts["syn1"]["kernel"].shape[0]
+        k = routing["indices"].shape[-1]
+        cap = max(1, int(tzone.bank.capacity_factor * B * k / E))
+        plan, _, _ = jlz.topk_dispatch(routing["indices"],
+                                       routing["weights"], E, cap)
+        js1, js2 = _jax_expert_spikes(
+            experts, jnp.einsum("bec,btd->ectd", plan, jenc), False)
+    with torch.no_grad():
+        E, N = js1.shape[:2]
+        ts1, _ = tn.gif_scan(tgp, tap.out["syn1"].reshape(E, N, T, -1))
+        ts2, _ = tn.gif_scan(tgp, tap.out["syn2"].reshape(E, N, T, -1))
+    for jsp, tsp in ((js1, ts1), (js2, ts2)):
+        slot_rows, n = _flagged(jsp, tsp.numpy(), (2, 3))       # [E, N]
+        flips += n
+        if dense:
+            rows |= slot_rows.any(axis=0)
+        else:
+            rows |= np.einsum("bec,ec->b", np.asarray(plan),
+                              slot_rows.astype(np.float32)) > 0
+    # the Poisson draw and the decoder
+    bank_out = intermediates(jinter, "bank")
+    if dense:                   # the zone's combine, as the JAX zone runs it
+        w = jax.vmap(lambda wv, idx, val: wv.at[idx].add(val))(
+            jnp.zeros(bank_out.shape[:2]), routing["indices"],
+            routing["weights"])
+        combined = jnp.einsum("be,bed->bd", w, bank_out)
+    else:
+        combined = bank_out[0]
+    jdraw = u < np.asarray(jax.nn.sigmoid(combined))[:, None, :]
+    r, n = _flagged(jdraw, drawn["spikes"].numpy() > 0, (1, 2))
+    rows |= r
+    flips += n
+    jdec, _ = gif_scan(gp, intermediates(jinter, "decoder_proj"))
+    with torch.no_grad():
+        tdec, _ = tn.gif_scan(tgp, tap.out["decoder_proj"])
+    r, n = _flagged(jdec, tdec.numpy(), (1, 2))
+    rows |= r
+    return rows, flips + n, np.asarray(jenc), plan

@@ -1,6 +1,8 @@
 """Kernels A, B, C, D and E against their plain PyTorch versions on the
-card, and the neuromorphic brain system (no kernel) on the card against
-the same port objects on the CPU.
+card, and the neuromorphic brain system and the NaturalBrain path
+(NaturalBrain, the MoE language zone's forward and gradients, the
+prosody gains, the SRFFN; no kernel) on the card against the same port
+objects on the CPU.
 
 Marked `cuda`: they skip without a card (decided in a fixture, so every
 xdist worker collects the same tests). On a machine with an H100:
@@ -746,3 +748,107 @@ def test_liquid_brain_on_the_card_matches_the_cpu(dev):
         ec.append(cpu.learn_text(text, target)["error"])
     np.testing.assert_allclose(eg, ec, rtol=0, atol=1e-4)
     assert np.mean(np.abs(eg[-10:])) < np.mean(np.abs(eg[:10]))
+
+
+# --------------------------------------------------------------------------
+# the NaturalBrain path (no kernel): the card against the CPU port from
+# the same weights and the same Poisson draws (CPU generators of one
+# seed), outputs within 1e-5 on the rows where every spike agrees and
+# stage-local spike flips on at most 1e-4 of the entries, as chip_smoke's
+# natural-brain phase holds them (its helpers run here)
+# --------------------------------------------------------------------------
+
+def _guard_tree(model, dev):
+    """`_guard_devices` on every submodule of a model."""
+    return [_guard_devices(m, dev) for m in model.modules()]
+
+
+def _ids_batches(seed, n, B, T, vocab):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randint(0, vocab, (B, T)))
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("case", ["defaults", "driven"])
+def test_natural_brain_on_the_card_matches_the_cpu(dev, case):
+    import chip_smoke as cs
+    from aura_snn_rag_tpu_torch.models.brain.natural_brain import (
+        NaturalBrain)
+    card, ref = cs.lm_pair(lambda d, g: NaturalBrain(
+        2048, d_model=64, zone_neurons=32, device=d, generator=g), dev, 3)
+    if case == "driven":
+        cs.driven(card, ref, 4)
+    _guard_tree(card, dev)
+    hormones = {"dopamine": 0.6, "cortisol": 1.5, "norepinephrine": 0.8}
+    res = cs.natural_brain_vs_cpu(card, ref,
+                                  _ids_batches(5, 2, 4, 64, 2048), hormones)
+    assert res["rows_compared"] >= 4
+    if case == "driven":
+        assert min(res["spike_rates"]) > 0.1
+
+
+def test_moe_language_zone_on_the_card_matches_the_cpu(dev):
+    """Forward at the defaults and driven, and gradients at the defaults,
+    at the MoE's default width (256, 8 experts, top-2)."""
+    import chip_smoke as cs
+    from aura_snn_rag_tpu_torch.models.language_zone import MoELanguageZone
+    card, ref = cs.lm_pair(lambda d, g: MoELanguageZone(
+        1024, device=d, generator=g), dev, 6)
+    _guard_tree(card, dev)
+
+    def call(model, ids, gen):
+        return model(ids, gen)
+    batches = _ids_batches(7, 2, 4, 64, 1024)
+    res = cs.card_vs_cpu(card, ref, batches, call, lambda m: m.zone)
+    assert res["rows_compared"] >= 4
+    assert cs.moe_grads_vs_cpu(card, ref, batches[0]) <= cs.NB_GRAD_RTOL
+    cs.driven(card, ref, 8)
+    res = cs.card_vs_cpu(card, ref, batches, call, lambda m: m.zone)
+    assert min(res["spike_rates"]) > 0.1
+
+
+@pytest.mark.parametrize("cfg_name", ["default", "ANALYTICAL_BALANCED",
+                                      "analytical_balanced"])
+def test_prosody_gains_on_the_card_keep_tied_winners(dev, cfg_name):
+    """Salience rows of binary LIF spikes are full of ties: the card's
+    winners are the CPU's (lowest index first), gains within 1e-6, on the
+    rows whose LIF spikes agree (the card's sin may differ in the last
+    bit)."""
+    from aura_snn_rag_tpu_torch.models import prosody as tp
+    cfg = {"default": tp.ProsodyAttentionConfig(),
+           "ANALYTICAL_BALANCED": tp.ANALYTICAL_BALANCED}.get(
+        cfg_name) or tp.SWEEP_CONFIGS[cfg_name]
+    ids = torch.from_numpy(np.random.RandomState(9).randint(0, 32000,
+                                                            (16, 256)))
+    gc, ic = tp.prosody_attention_gains(ids.to(dev), cfg)
+    gr, ir = tp.prosody_attention_gains(ids, cfg)
+    decay = torch.tensor(cfg.decay)[:, None]
+    spikes = [tp._lif_chains(torch.stack(tp.prosody_channels_from_tokens(x)),
+                             decay.to(x.device)).cpu()
+              for x in (ids.to(dev), ids)]
+    keep = ~(spikes[0] != spikes[1]).any(dim=2).any(dim=0)
+    assert keep.sum() >= 12
+    assert torch.equal(ic["winners"].cpu()[keep], ir["winners"][keep])
+    torch.testing.assert_close(gc.cpu()[keep], gr[keep], rtol=1e-6,
+                               atol=1e-6)
+    tied = torch.zeros(2, 10)
+    tied[0, [1, 2, 4, 5, 8]] = 1.0
+    zero = torch.zeros_like(tied)
+    r = tp.multi_channel_spiking_attention(
+        tied.to(dev), zero.to(dev), zero.to(dev),
+        tp.ProsodyAttentionConfig(k_winners=3, decay=(0.0, 0.0, 0.0)))
+    assert r["winners"][0].tolist() == [1, 2, 4]
+
+
+def test_dual_layer_srffn_on_the_card_matches_the_cpu(dev):
+    import chip_smoke as cs
+    from aura_snn_rag_tpu_torch.encoders.dual_layer_srffn import (
+        DualLayerSRFFN)
+    card, ref = DualLayerSRFFN(device=dev), DualLayerSRFFN(device="cpu")
+    for text, ph in cs.srffn_texts(64, seed=10):
+        oc, orf = card.forward(text, ph), ref.forward(text, ph)
+        assert oc["features"].device.type == dev.type
+        for key in ("features", "semantic", "phonetic"):
+            torch.testing.assert_close(oc[key].cpu(), orf[key], rtol=0,
+                                       atol=1e-5)
+        assert oc["voice"] == orf["voice"]

@@ -137,3 +137,34 @@ def test_brain_modules_are_in_the_probe():
         assert not every & {"jax", "jaxlib", "flax", "optax",
                             "aura_snn_rag_tpu"}, (mod, every)
         assert "scipy" not in top, mod
+
+
+# the NaturalBrain path, the language zones and the encoders: none
+# imports JAX, flax, optax or the JAX package
+NATURAL_BRAIN_MODULES = (
+    "models.prosody", "models.emotion_head", "models.language_zone",
+    "models.brain.limbic", "models.brain.basal_ganglia",
+    "models.brain.natural_brain", "models.brain.liquid_moe",
+    "models.convert", "encoders.event_encoder",
+    "encoders.frequency_encoder", "encoders.dual_layer_srffn",
+    "encoders.pretrain_pipeline")
+
+
+def test_natural_brain_modules_are_in_the_probe():
+    import ast
+    import pkgutil
+    import aura_snn_rag_tpu_torch as pkg
+    names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                   pkg.__name__ + ".")}
+    for mod in NATURAL_BRAIN_MODULES:
+        assert f"aura_snn_rag_tpu_torch.{mod}" in names, mod
+        path = ROOT / "aura_snn_rag_tpu_torch" / (mod.replace(".", "/")
+                                                  + ".py")
+        every = set()
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                every |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                every.add(node.module.split(".")[0])
+        assert not every & {"jax", "jaxlib", "flax", "optax",
+                            "aura_snn_rag_tpu"}, (mod, every)
