@@ -17,7 +17,12 @@ continuous-learning orchestrator (`services`) and the command line
 the LIF, Izhikevich and AdEx neurons and the addition-only maths (`ops`),
 the spiking layers, brain zones and routing runtime (`zones`),
 `EnhancedBrain` and `LiquidBrain` (`models.brain`) and the
-`NeuromorphicBrainSystem` facade (`services`, `cli brain-demo`).
+`NeuromorphicBrainSystem` facade (`services`, `cli brain-demo`); the
+NaturalBrain path and the encoders (`models`, `encoders`); the data-
+parallel runtime on `torch.distributed` (`parallel`: the launcher seam,
+meshes, collectives), the bank sharded over a mesh (`memory.sharded`),
+`Trainer.shard_to_mesh`, the utils (`utils`) and the CLI's `corpus` and
+`mnist` (`bench_mnist`).
 """
 
 from aura_snn_rag_tpu_torch.config import (  # noqa: F401

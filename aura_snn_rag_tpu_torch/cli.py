@@ -13,9 +13,13 @@ this one needs argparse and asyncio alone):
         [--preset P] [--checkpoint-dir D] [--batch-size B]
         [--max-new-tokens N] [--bf16-weights]
     python -m aura_snn_rag_tpu_torch.cli brain-demo [TEXT]
+    python -m aura_snn_rag_tpu_torch.cli corpus [--out D] [--vocab V]
+    python -m aura_snn_rag_tpu_torch.cli mnist [--epochs N] [--hidden H]
+        [--data mnist.npz]
 
-Every command takes `--device` (default cuda; raises without a card) and
-is also a function of the same name and values. `serve`'s HTTP front end
+Every command but `corpus` takes `--device` (default cuda; raises
+without a card); every command is also a function of the same name and
+values. `serve`'s HTTP front end
 (`start_http`, on `asyncio.start_server`, one request per connection):
 `POST /generate` with a JSON body {"prompt_ids", "max_new_tokens",
 "temperature", "top_p"} answers {"tokens": [...]}, `GET /stats` the
@@ -32,8 +36,14 @@ take; `serve` pads prompts to min(64, max_seq_len - max_new_tokens)
 tokens (the JAX CLI to 64, which a short-context preset cannot decode).
 `brain-demo` routes a text through a `NeuromorphicBrainSystem(d_model=32,
 n_neurons=32)` and prints the JAX CLI's three lines: the plan, the
-output's mean absolute value and the recommendations. `bench`, `corpus`
-and `mnist` are not ported yet.
+output's mean absolute value and the recommendations. `corpus` runs
+`tools/build_offline_corpus.py` (numpy and `tokenizers`, no JAX) in a
+subprocess with the JAX CLI's options: `--out` is passed on only when
+given, so the tool's own default applies. `mnist` runs the port's
+`bench_mnist` (whitener -> Oja -> readout) in this process, on the
+device; its data is `--data` (an MNIST .npz) or keras's cached
+`mnist.npz`, else sklearn's bundled digits. `bench` waits for the port's
+benchmark script.
 """
 
 from __future__ import annotations
@@ -46,6 +56,8 @@ import functools
 import json
 import logging
 import math
+import os
+import subprocess
 import sys
 from http import HTTPStatus
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -353,6 +365,28 @@ def brain_demo(text: str = "remember to analyze this pattern",
     return lines
 
 
+def corpus(out: Optional[str] = None, vocab: int = 32_000
+           ) -> subprocess.CompletedProcess:
+    """Build the offline training corpus (files on disk -> byte-level
+    BPE -> uint16 token streams) with `tools/build_offline_corpus.py` in
+    a subprocess; raises if it fails."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    args = [sys.executable,
+            os.path.join(repo, "tools", "build_offline_corpus.py")]
+    if out is not None:
+        args += ["--out", out]
+    return subprocess.run(args + ["--vocab", str(vocab)], check=True)
+
+
+def mnist(epochs: int = 5, hidden: int = 1024, data: Optional[str] = None,
+          device: str = "cuda") -> Dict[str, Any]:
+    """The hybrid whitener -> Oja -> readout benchmark
+    (`bench_mnist.run`); returns its result."""
+    from aura_snn_rag_tpu_torch import bench_mnist
+    return bench_mnist.run(epochs=epochs, hidden=hidden, device=device,
+                           data=data)
+
+
 # ----------------------------------------------------------------------
 # argument parsing
 # ----------------------------------------------------------------------
@@ -361,7 +395,7 @@ def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m aura_snn_rag_tpu_torch.cli",
         description="aura-snn-rag on PyTorch/CUDA: train, generate, "
-                    "ingest, serve, brain-demo.")
+                    "ingest, serve, brain-demo, corpus, mnist.")
     sub = p.add_subparsers(dest="command", required=True)
 
     def command(name, help_text):
@@ -414,6 +448,19 @@ def parser() -> argparse.ArgumentParser:
                 "Route a text through the neuromorphic brain system.")
     c.add_argument("text", nargs="?", default="remember to analyze this "
                                               "pattern")
+
+    c = sub.add_parser("corpus", help="Build the offline training corpus "
+                                      "(tools/build_offline_corpus.py).")
+    c.add_argument("--out", default=None,
+                   help="output directory (default: the tool's)")
+    c.add_argument("--vocab", type=int, default=32_000)
+
+    c = command("mnist", "The hybrid whitener -> Oja -> readout "
+                         "benchmark.")
+    c.add_argument("--epochs", type=int, default=5)
+    c.add_argument("--hidden", type=int, default=1024)
+    c.add_argument("--data", default=None,
+                   help="an MNIST .npz (x_train, y_train, x_test, y_test)")
     return p
 
 
@@ -429,6 +476,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"stored {n} memories (bank count {hf.memory_count})")
     elif command == "brain-demo":
         brain_demo(**args)
+    elif command == "corpus":
+        corpus(**args)
+    elif command == "mnist":
+        print(json.dumps(mnist(**args)), flush=True)
     else:
         serve(**args)
     return 0

@@ -1,10 +1,9 @@
 """Configuration of the episodic-memory engine and of the LM.
 
-Copies of `MemoryConfig`, `ModelConfig` and `TrainingConfig` from
-`aura_snn_rag_tpu/config.py` with the same field names and defaults, so
-one configuration drives either package, and the same presets
-(`get_debug_config` ... `get_xl_config`) with their model, memory and
-training parts. The port keeps its
+Copies of `MemoryConfig`, `ModelConfig`, `TrainingConfig`, `MeshConfig`
+and `ParallelConfig` from `aura_snn_rag_tpu/config.py` with the same field
+names and defaults, so one configuration drives either package, and the
+same presets (`get_debug_config` ... `get_xl_config`). The port keeps its
 own copy because importing the JAX package pulls in JAX.
 
 What the `MemoryConfig` fields mean in the port:
@@ -213,14 +212,42 @@ class TrainingConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh: 'data' (batch and memory-bank rows) and 'model' axes.
+    In the port a mesh is a `torch.distributed` DeviceMesh over one
+    process per device (`parallel/`)."""
+
+    data_axis: int = -1                  # -1 = all remaining devices
+    model_axis: int = 1
+    axis_names: Tuple[str, str] = ("data", "model")
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """The strategies that change the program: sequence sharding (ring
+    attention over a 'seq' axis, seq_shards > 1) and pipeline stages
+    (GPipe over a 'stage' axis, pp_stages > 1). The port's
+    `Trainer.shard_to_mesh` runs data parallelism over the batch axes and
+    raises for a 'seq', 'stage' or 'model' axis larger than 1: those come
+    with the port's tensor/sequence/pipeline-parallel slice."""
+
+    seq_shards: int = 1
+    seq_axis_name: str = "seq"
+    pp_stages: int = 1
+    pp_microbatches: int = 4
+    stage_axis_name: str = "stage"
+
+
+@dataclass(frozen=True)
 class AuraConfig:
-    """The model, memory and training parts of the JAX package's
-    `AuraConfig`. The `mesh` and `parallel` parts come with the slice that
-    ports the parallel runtime."""
+    """The JAX package's `AuraConfig`: model, memory, training, mesh and
+    parallel parts."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
     memory: MemoryConfig = field(default_factory=MemoryConfig)
     training: TrainingConfig = field(default_factory=TrainingConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
 
     def replace(self, **kw) -> "AuraConfig":
         return dataclasses.replace(self, **kw)

@@ -29,9 +29,10 @@ does it). Where flax and PyTorch differ, the port follows flax:
   site's index, so a recompute (remat) draws the same mask; flax's masks
   come from JAX's PRNG and are not the same bits.
 
-Not here yet: `Synapsis` plasticity traces and `stdp_update` (no module
-of the LM's training path calls them). Ring attention comes with the
-parallel slice, so no module takes a mesh.
+`Synapsis` carries the JAX module's STDP traces and `stdp_update` (no
+module of the LM calls them). Ring attention over a mesh's 'seq' axis
+comes with the port's model-parallel slice, so no module takes a mesh;
+the RAG layers reach a sharded bank through their `retrieve_fn`.
 """
 
 from __future__ import annotations
@@ -352,18 +353,28 @@ class MLP(nn.Module):
 
 class Synapsis(nn.Module):
     """Spike-aware linear: init std = 1/sqrt(fan_in * firing_rate). The
-    kernel keeps flax's [in, out] layout. Forward only: the STDP traces
-    and `stdp_update` come with training."""
+    kernel keeps flax's [in, out] layout.
+
+    With `enable_plasticity` the forward also returns the STDP eligibility
+    traces: exponential moving averages (decay `trace_decay`) of the
+    time-mean pre-synaptic spikes and post-synaptic currents, threaded
+    through `trace_state` as the JAX module returns them; `stdp_update`
+    turns them into a weight change for a training loop to apply. No
+    module of the LM calls either, as in the JAX package."""
 
     def __init__(self, in_features: int, features: int,
                  target_firing_rate: float = 0.3,
-                 dtype: torch.dtype = torch.bfloat16, device=None):
+                 dtype: torch.dtype = torch.bfloat16, device=None,
+                 enable_plasticity: bool = False,
+                 trace_decay: float = 0.95):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(in_features, features,
                                                device=device))
         self.bias = nn.Parameter(torch.empty(features, device=device))
         self.target_firing_rate = target_firing_rate
         self.dtype = dtype
+        self.enable_plasticity = enable_plasticity
+        self.trace_decay = trace_decay
 
     def init_parameters(self, generator) -> None:
         fan_in = self.kernel.shape[0]
@@ -372,10 +383,38 @@ class Synapsis(nn.Module):
                         generator=generator)
         nn.init.zeros_(self.bias)
 
-    def forward(self, spikes: torch.Tensor) -> torch.Tensor:
+    def forward(self, spikes: torch.Tensor,
+                trace_state: Optional[Tuple[torch.Tensor,
+                                            torch.Tensor]] = None):
+        """spikes [..., T, in] -> out [..., T, out]; with plasticity,
+        (out, (pre trace [..., in], post trace [..., out] f32))."""
         dt = self.dtype
-        return F.linear(spikes.to(dt), self.kernel.to(dt).t(),
-                        self.bias.to(dt))
+        out = F.linear(spikes.to(dt), self.kernel.to(dt).t(),
+                       self.bias.to(dt))
+        if not self.enable_plasticity:
+            return out
+        pre = spikes.mean(dim=-2)
+        post = out.mean(dim=-2).float()
+        if trace_state is None:
+            pre_trace, post_trace = torch.zeros_like(pre), \
+                torch.zeros_like(post)
+        else:
+            pre_trace, post_trace = trace_state
+        d = self.trace_decay
+        return out, (d * pre_trace + (1 - d) * pre,
+                     d * post_trace + (1 - d) * post)
+
+    @staticmethod
+    def stdp_update(kernel: torch.Tensor, pre_trace: torch.Tensor,
+                    post_trace: torch.Tensor,
+                    lr: float = 0.001) -> torch.Tensor:
+        """dW = lr (pre outer post), batch-averaged, added to the kernel
+        and clamped to [-10, 10]."""
+        if pre_trace.dim() > 1:
+            pre_trace = pre_trace.mean(dim=0)
+            post_trace = post_trace.mean(dim=0)
+        dw = lr * torch.outer(pre_trace, post_trace)
+        return torch.clamp(kernel + dw, -10.0, 10.0)
 
 
 class SNNFFN(nn.Module):

@@ -20,6 +20,19 @@ their own dtypes) and Python scalars, read back with
 written under a temporary name, flushed to disk and moved into place
 with `os.replace`, the sidecar first and the tensors last: a save cut
 short leaves no `ckpt_{step}.pt`, so it never becomes `latest_step()`.
+
+A data-parallel trainer (`Trainer.shard_to_mesh`) is saved once, by the
+mesh's first rank, while the mesh's other ranks wait at a barrier: its
+parameters, optimizer state and modulators are replicated. A sharded
+bank is saved in the JAX package's stacked layout: every field [S, ...],
+shard s at row s (the first rank receives the shards, one at a time,
+into host memory), with a `memory_layout` entry
+({"axes": the bank axes, "shards": S}); restore gives each rank its row,
+and a checkpoint of another layout (sharded or not, other axes, another
+S) raises. Every rank of the mesh calls `save` and `restore`, and reads
+the same directory; ranks of the job outside the mesh take no part. A
+single-process trainer's checkpoint has no `memory_layout` and is
+written as before.
 """
 
 from __future__ import annotations
@@ -31,9 +44,12 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from aura_snn_rag_tpu_torch.memory.cognitive_map import CognitiveMapParams
 from aura_snn_rag_tpu_torch.memory.state import MemoryState
+from aura_snn_rag_tpu_torch.parallel.mesh import (
+    axes_size, mesh_barrier, rank_index)
 
 _CKPT = re.compile(r"^ckpt_(\d+)\.pt$")
 
@@ -80,6 +96,55 @@ def _expect_modules(name: str, got: Dict[str, Any], module) -> None:
         _expect(f"{name}.{key}", got[key], t)
 
 
+def _layout(trainer) -> Optional[Dict[str, Any]]:
+    """The bank's layout entry: None for an unsharded bank."""
+    mesh = getattr(trainer, "_memory_mesh", None)
+    if mesh is None:
+        return None
+    axes = list(trainer._batch_axes)
+    return {"axes": axes, "shards": axes_size(mesh, axes)}
+
+
+def _writer(trainer) -> bool:
+    """Whether this process writes the checkpoint: the mesh's first rank
+    of a data-parallel trainer, or the one process."""
+    mesh = getattr(trainer, "mesh", None)
+    return mesh is None or dist.get_rank() == int(mesh.mesh.reshape(-1)[0])
+
+
+def _gather_bank(trainer) -> Optional[Dict[str, torch.Tensor]]:
+    """The sharded bank as stacked [S, ...] CPU tensors on the writer
+    (None on the other ranks). Shard s comes from the first rank of the
+    mesh that holds it, by a point-to-point send of one field at a time,
+    and the writer moves it to the host before it takes the next: on the
+    device it holds at most one shard of one field beyond its own bank.
+    Only the mesh's ranks take part."""
+    mesh, axes = trainer._memory_mesh, trainer._batch_axes
+    S = axes_size(mesh, axes)
+    rank = dist.get_rank()
+    writer = int(mesh.mesh.reshape(-1)[0])
+    owner = {}
+    for r in mesh.mesh.reshape(-1).tolist():
+        owner.setdefault(rank_index(mesh, axes, r), r)
+    out = {}
+    for name, t in zip(MemoryState._fields, trainer.hippocampus.state):
+        # as bytes: gloo takes neither bool nor every dtype
+        wire = t.contiguous().reshape(-1).view(torch.uint8)
+        if rank == writer:
+            out[name] = torch.empty((S, *t.shape), dtype=t.dtype)
+        for s, r in sorted(owner.items()):
+            if r == writer:
+                if rank == writer:
+                    out[name][s].copy_(t)
+            elif rank == r:
+                dist.send(wire, dst=writer)
+            elif rank == writer:
+                part = torch.empty_like(wire)
+                dist.recv(part, src=r)
+                out[name][s].copy_(part.view(t.dtype).reshape(t.shape))
+    return out if rank == writer else None
+
+
 class CheckpointManager:
     """Saves and restores a port `Trainer` (`training/trainer.py`) under
     `directory`, keeping the newest `max_to_keep` steps."""
@@ -105,6 +170,13 @@ class CheckpointManager:
 
     def save(self, step: int, trainer, loss: float = 0.0) -> None:
         opt, hippo = trainer.optimizer, trainer.hippocampus
+        layout = _layout(trainer)
+        memory = (_gather_bank(trainer) if layout is not None else
+                  {name: _host(t) for name, t in
+                   zip(MemoryState._fields, hippo.state)})
+        if not _writer(trainer):
+            mesh_barrier(trainer.mesh)
+            return
         count, mu, nu = opt.state
         payload = {
             "params": _host(opt.flat),
@@ -112,8 +184,7 @@ class CheckpointManager:
             "mu": _host(mu),
             "nu": _host(nu),
             "step": int(step),
-            "memory_state": {name: _host(t) for name, t in
-                             zip(MemoryState._fields, hippo.state)},
+            "memory_state": memory,
             "cognitive_map": {name: _host(t) for name, t in
                               zip(CognitiveMapParams._fields,
                                   hippo.cognitive_map)},
@@ -131,6 +202,8 @@ class CheckpointManager:
             "current_location": np.asarray(sd["current_location"]).tolist(),
             "writes_since_rebuild": sd["writes_since_rebuild"],
         }
+        if layout is not None:
+            payload["memory_layout"] = layout
         _write_atomic(self.meta_path(step),
                       lambda f: f.write(json.dumps(meta).encode()))
         _write_atomic(self.path(step), lambda f: torch.save(payload, f))
@@ -138,6 +211,8 @@ class CheckpointManager:
             for p in (self.path(old), self.meta_path(old)):
                 if os.path.exists(p):
                     os.remove(p)
+        if getattr(trainer, "mesh", None) is not None:
+            mesh_barrier(trainer.mesh)
 
     def restore(self, trainer, step: Optional[int] = None,
                 load_optimizer: bool = True) -> int:
@@ -161,19 +236,35 @@ class CheckpointManager:
             meta = json.load(f)
 
         opt, hippo = trainer.optimizer, trainer.hippocampus
+        layout = _layout(trainer)
+        if payload.get("memory_layout") != layout:
+            raise ValueError(f"checkpoint bank layout "
+                             f"{payload.get('memory_layout')}, trainer "
+                             f"{layout}")
+        memory = payload["memory_state"]
+        if layout is not None:                   # this rank's shard
+            s = rank_index(trainer._memory_mesh, layout["axes"],
+                           dist.get_rank())
+            for name, t in memory.items():
+                if not torch.is_tensor(t) or t.dim() == 0 \
+                        or t.shape[0] != layout["shards"]:
+                    raise ValueError(f"checkpoint memory_state.{name}: "
+                                     f"not stacked over "
+                                     f"{layout['shards']} shards")
+            memory = {name: t[s] for name, t in memory.items()}
         count, mu, nu = opt.state
         for name, want in (("params", opt.flat), ("count", count),
                            ("mu", mu), ("nu", nu)):
             _expect(name, payload[name], want)
-        for group, fields, state in (
-                ("memory_state", MemoryState._fields, hippo.state),
-                ("cognitive_map", CognitiveMapParams._fields,
-                 hippo.cognitive_map)):
-            if set(payload[group]) != set(fields):
+        for group, values, fields, state in (
+                ("memory_state", memory, MemoryState._fields, hippo.state),
+                ("cognitive_map", payload["cognitive_map"],
+                 CognitiveMapParams._fields, hippo.cognitive_map)):
+            if set(values) != set(fields):
                 raise ValueError(f"checkpoint {group}: fields "
-                                 f"{sorted(payload[group])}")
+                                 f"{sorted(values)}")
             for name, want in zip(fields, state):
-                _expect(f"{group}.{name}", payload[group][name], want)
+                _expect(f"{group}.{name}", values[name], want)
         _expect_modules("amygdala", payload["amygdala"], trainer.amygdala)
         _expect_modules("thalamus", payload["thalamus"], trainer.thalamus)
         mcfg = hippo.config
@@ -194,7 +285,7 @@ class CheckpointManager:
         trainer._step = int(payload["step"])
         trainer._pending = trainer._last_fetched = None
         hippo.load_state_dict({
-            "memory_state": [_numpy(payload["memory_state"][name])
+            "memory_state": [_numpy(memory[name])
                              for name in MemoryState._fields],
             "cognitive_map": [_numpy(payload["cognitive_map"][name])
                               for name in CognitiveMapParams._fields],

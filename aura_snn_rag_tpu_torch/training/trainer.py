@@ -23,9 +23,16 @@ A wake step (`train_step`), as in the JAX package:
   at their intervals.
 
 What differs from the JAX package: no jit (each step runs eagerly), the
-parameters live in the optimizer's flat buffer, the dropout masks come
-from per-step seeds (`layers.Dropout`) and are not JAX's bits, and the
-multi-device placement (`shard_to_mesh`) is not ported yet.
+parameters live in the optimizer's flat buffer, and the dropout masks
+come from per-step seeds (`layers.Dropout`) and are not JAX's bits.
+
+`shard_to_mesh` runs data parallelism over a DeviceMesh, one process per
+device: each rank takes its rows of every batch, the batch-level values
+(the amygdala's mean sentiment, the thalamus gate, the loss behind the
+endocrine step and the finite check) and the gradient are all-reduced
+to their global values, and the bank is sharded over the batch axes
+(`memory/sharded.py`). Tensor, sequence and pipeline parallelism (a
+'model', 'seq' or 'stage' axis larger than 1) are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,12 +46,18 @@ from aura_snn_rag_tpu_torch._device import resolve_device
 from aura_snn_rag_tpu_torch.config import AuraConfig
 from aura_snn_rag_tpu_torch.memory import engine as memory_engine
 from aura_snn_rag_tpu_torch.memory.hippocampus import HippocampalFormation
+from aura_snn_rag_tpu_torch.memory.sharded import (
+    init_sharded_memory, retrieve_sharded, write_memories_sharded)
 from aura_snn_rag_tpu_torch.models.brain.amygdala import (
     Amygdala, build_prosody)
 from aura_snn_rag_tpu_torch.models.brain.endocrine import EndocrineSystem
 from aura_snn_rag_tpu_torch.models.brain.thalamus import Thalamus
 from aura_snn_rag_tpu_torch.models.layers import initialize
 from aura_snn_rag_tpu_torch.models.transformer import HippocampalTransformer
+from aura_snn_rag_tpu_torch.parallel.collectives import (
+    all_reduce_mean_, gather_rows)
+from aura_snn_rag_tpu_torch.parallel.mesh import (
+    axis_size, batch_slice, mesh_device, shard_params)
 from aura_snn_rag_tpu_torch.training.losses import hippocampal_loss
 from aura_snn_rag_tpu_torch.training.optim import AdamWState, ClippedAdamW
 from aura_snn_rag_tpu_torch.training.schedule import warmup_cosine_schedule
@@ -60,6 +73,26 @@ class TrainState(NamedTuple):
 
 def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+class _ShardedRetrieve:
+    """The RAG layers' `retrieve_fn` over the sharded bank: each rank
+    holds its rows of the batch, and `retrieve_sharded` takes the whole
+    batch on every rank, so the queries are gathered over the batch axes
+    (with their gradient), retrieved, and this rank's rows kept. The
+    gather's backward sums the queries' gradient over the ranks."""
+
+    def __init__(self, mesh, axes):
+        self.mesh, self.axes = mesh, axes
+
+    def __call__(self, memory_config, memory_state, queries, k):
+        grad = torch.is_grad_enabled() and queries.requires_grad
+        full = gather_rows(queries, self.mesh, self.axes, grad)
+        res = retrieve_sharded(memory_config, self.mesh, memory_state,
+                               full, k, self.axes)
+        rows = batch_slice(full.shape[0], self.mesh, self.axes)
+        return memory_engine.RetrievalResult(
+            res.indices[rows], res.scores[rows], res.features[rows])
 
 
 class ReplayBuffer:
@@ -190,6 +223,9 @@ class Trainer:
         self._last_fetched: Optional[np.ndarray] = None
         self._step = 0
         self.history: Dict[str, list] = {"loss": [], "step": []}
+        self.mesh = None
+        self._batch_axes: tuple = ()
+        self._memory_mesh = None
 
     @property
     def state(self) -> TrainState:
@@ -197,14 +233,81 @@ class Trainer:
                           self._step)
 
     def shard_to_mesh(self, mesh, shard_memory: bool = True) -> None:
-        raise NotImplementedError(
-            "multi-device training comes with the port's parallel slice")
+        """Data-parallel training over `mesh` (a DeviceMesh over every
+        rank; each rank calls this, with the trainer on its device).
+
+        Every axis but 'model', the sequence axis and the stage axis is a
+        batch axis ('data', or ('replica', 'data') on a multislice mesh).
+        The parameters, the optimizer state and the modulators' weights
+        are replicated by a broadcast from the mesh's first rank (the JAX
+        package re-initialises the optimizer state here instead; the two
+        agree on a fresh trainer). Each step then takes this rank's rows
+        of the batch (`batch_slice`), all-reduces the batch-level values
+        and the gradient (a mean over the batch axes, before clipping),
+        and so takes the step JAX's whole-batch program takes.
+
+        With `shard_memory` the bank becomes a fresh bank sharded over the
+        batch axes (per-shard capacity `memory.max_memories`; an existing
+        bank is not migrated, as in the JAX package): the RAG layers
+        retrieve through `retrieve_sharded` and a store step writes each
+        shard's rows through `write_memories_sharded`. Without it every
+        rank keeps its own whole bank, writes the whole batch's rows into
+        it and retrieves its own rows through `retrieve_auto`.
+
+        A 'model', sequence or stage axis larger than 1 raises
+        `NotImplementedError`: tensor, sequence and pipeline parallelism
+        come with the port's model-parallel slice."""
+        pcfg = self.config.parallel
+        names = tuple(mesh.mesh_dim_names)
+        for axis in ("model", pcfg.seq_axis_name, pcfg.stage_axis_name):
+            if axis in names and axis_size(mesh, axis) > 1:
+                raise NotImplementedError(
+                    f"a {axis!r} axis of {axis_size(mesh, axis)}: tensor, "
+                    f"sequence and pipeline parallelism come with the "
+                    f"port's model-parallel slice")
+        here = mesh_device(mesh)
+        if here.type != self.device.type or (
+                self.device.index is not None
+                and self.device.index != here.index):
+            raise ValueError(f"mesh device {here}, trainer on "
+                             f"{self.device}")
+        self._batch_axes = tuple(
+            a for a in names if a not in ("model", pcfg.seq_axis_name,
+                                          pcfg.stage_axis_name))
+        count, mu, nu = self.optimizer.state
+        shard_params([self.optimizer.flat, count, mu, nu], mesh)
+        for module in (self.amygdala, self.thalamus):
+            if module is not None:
+                shard_params(module, mesh)
+        self._memory_mesh = None
+        fn = None
+        if shard_memory and self.config.model.use_rag:
+            self.hippocampus._set_state(init_sharded_memory(
+                self.config.memory, mesh, self._batch_axes))
+            self._memory_mesh = mesh
+            fn = _ShardedRetrieve(mesh, self._batch_axes)
+        for layer in getattr(self.model, "layers", ()):
+            if hasattr(layer, "retrieve_fn"):
+                layer.retrieve_fn = fn
+        self.mesh = mesh
+
+    def _global_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """A batch-level value's mean over the batch axes (itself when the
+        trainer is not on a mesh)."""
+        if self.mesh is None:
+            return x
+        return all_reduce_mean_(x.detach().clone(), self.mesh,
+                                self._batch_axes)
 
     # ------------------------------------------------------------------
     # one optimizer step
     # ------------------------------------------------------------------
     def _batch(self, x) -> torch.Tensor:
-        return torch.as_tensor(x).to(self.device, torch.long)
+        """The batch on the device: on a mesh, this rank's rows of it."""
+        x = torch.as_tensor(x)
+        if self.mesh is not None:
+            x = x[batch_slice(x.shape[0], self.mesh, self._batch_axes)]
+        return x.to(self.device, torch.long)
 
     def _modulate(self, ids: torch.Tensor):
         """(prosody [B, L, 4] or None, thalamus gate []) from the token
@@ -219,13 +322,15 @@ class Trainer:
             arousal = torch.zeros((), device=self.device)
             if self.amygdala is not None:
                 limbic = self.amygdala(token_embeds)
-                prosody = build_prosody(limbic["arousal"], limbic["valence"],
-                                        ids.shape[0], ids.shape[1])
-                arousal = limbic["arousal"]
+                # affine in the batch's mean sentiment: the global batch's
+                arousal, valence = self._global_mean(torch.stack(
+                    [limbic["arousal"], limbic["valence"]]))
+                prosody = build_prosody(arousal, valence, ids.shape[0],
+                                        ids.shape[1])
             if self.thalamus is not None:
                 routed, _ = self.thalamus(token_embeds, {"arousal": arousal})
-                thalamus_scale = torch.clamp(
-                    routed["language"].abs().mean(), 0.5, 1.5)
+                thalamus_scale = torch.clamp(self._global_mean(
+                    routed["language"].abs().mean()), 0.5, 1.5)
         return prosody, thalamus_scale
 
     def _batch_loss(self, ids, labels, prosody, use_memory, memory_state,
@@ -290,6 +395,9 @@ class Trainer:
         if accum > 1:
             opt.grad.div_(accum)
             loss, ce = loss / accum, ce / accum
+        if self.mesh is not None:
+            all_reduce_mean_(opt.grad, self.mesh, self._batch_axes)
+            loss, ce = self._global_mean(loss), self._global_mean(ce)
         if self.ewc.fisher is not None:
             loss = loss + self.ewc.penalty(opt.flat)
             opt.grad.add_(self.ewc.penalty_grad(opt.flat))
@@ -297,10 +405,18 @@ class Trainer:
 
         if store_memory:
             summary = torch.cat(summaries)
+            if self.mesh is not None:            # the whole batch's rows
+                summary = gather_rows(summary, self.mesh, self._batch_axes)
             locs = torch.zeros(summary.shape[0], mcfg.spatial_dims,
                                device=self.device)
-            self.hippocampus._set_state(memory_engine.write_memories(
-                mcfg, self.hippocampus.state, summary, locs))
+            if self._memory_mesh is not None:
+                state = write_memories_sharded(
+                    mcfg, self._memory_mesh, self.hippocampus.state,
+                    summary, locs, self._batch_axes)
+            else:
+                state = memory_engine.write_memories(
+                    mcfg, self.hippocampus.state, summary, locs)
+            self.hippocampus._set_state(state)
         self.hippocampus.tick(1.0)
         self._step += 1
         return torch.stack([loss.float(), ce.float(),
@@ -450,6 +566,8 @@ class Trainer:
             hippocampal_loss(out.logits[:, :-1], labels[:, 1:],
                              entropy_lambda=0.0,
                              label_smoothing=0.0).backward()
+            if self.mesh is not None:
+                all_reduce_mean_(opt.grad, self.mesh, self._batch_axes)
             return opt.grad.clone()
 
         self.ewc.consolidate(grad_fn, opt.flat, val_batches)
@@ -467,6 +585,6 @@ class Trainer:
         """Plain cross-entropy without memory, dropout or gradients."""
         with torch.no_grad():
             out, _ = self.model(self._batch(input_ids), use_memory=False)
-            return float(hippocampal_loss(
+            return float(self._global_mean(hippocampal_loss(
                 out.logits[:, :-1], self._batch(labels)[:, 1:],
-                entropy_lambda=0.0, label_smoothing=0.0))
+                entropy_lambda=0.0, label_smoothing=0.0)))

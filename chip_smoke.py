@@ -153,6 +153,28 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
    1,000 seeded texts with phonemes (texts/s, features within 1e-5 of
    the CPU's). The path runs no kernel of the port.
 
+10. sharded phase: the data-parallel path on a one-rank process group
+   (NCCL on the card, a rendezvous on a free local port, `global_mesh(1)`):
+   the engine phase's 1,000,000 x 768 bank (built again from its seed)
+   as shard 0, where `retrieve_sharded` at B = 1, 8 and 1024 must equal
+   `retrieve_auto` bit for bit with the same kernel launches (kernel B
+   once per call at B = 1 and 8), timed beside it and beside its merge
+   alone; the sharded write, rebuild, live write and decay on a 65,536 x
+   768 shard, each equal to the engine's; a trainer at `get_full_config()`
+   with `TRAIN_CHANGES` and the thalamus gate off (memory at every step)
+   after `shard_to_mesh`, over the training phase's bank as its shard,
+   against a plain trainer from the same seed over the same bank: 4
+   `train_step`s each under deterministic algorithms, kernel B 12 x 2 per
+   step in both, losses and every tensor equal bit for bit, ms per step
+   and peak memory of each; the sharded trainer's checkpoint (its bank in
+   the stacked [S, ...] layout) restored bit for bit into a fresh one;
+   the utils: `get_memory_stats` against `memory_allocated`, `StepTimer`
+   over decode steps at B = 8 through the sharded adapter and through
+   `retrieve_auto`, a `trace` of one decode step that must name kernel
+   B's two CUDA functions, `EnergyTracker` over the first spiking FFN's
+   spikes; and the CLI's `mnist` in a subprocess on the card, within 3
+   points of the JAX script's accuracy on the same digits.
+
 `--profile` adds a torch.profiler breakdown of one call of each
 retrieval path (device time by kernel, device busy share) to phase 2,
 of decode steps (wall, device, busy, `retrieve_auto`'s share) to
@@ -165,8 +187,9 @@ runs, again just before phase 5's 8 counted train_steps, and again
 before phase 6, after which kernel B alone must have run, and again
 just before phase 7's retrievals, after which kernel A alone must have
 run, ceil(B / 256) times per funnel dispatch, and again at the start of
-phases 8 and 9, after each of which no kernel may have run. Any
-failed check exits non-zero. The last lines are the card's name
+phases 8 and 9, after each of which no kernel may have run; phase 10
+zeroes them around each call whose launches it checks. Any failed check
+exits non-zero. The last lines are the card's name
 and power limit, one JSON object with the per-kernel numbers, and
 {"ok": true, "device": {...}}. Without a CUDA card the script exits 1 and
 prints no result.
@@ -834,14 +857,15 @@ def profile_paths(cfg, state, queries, reps=5):
     return out
 
 
-def engine_phase(dev, cfg_kw, n_eval, n_live, profile=False):
+def engine_state(dev, cfg, n_eval, n_live, stats):
+    """The engine phase's bank, from its seed: bulk_load, a write, the
+    index rebuild, then a write of n_live rows on the live index (timed
+    into `stats`); returns (state, the n_eval queries)."""
     import torch
     import aura_snn_rag_tpu_torch as port
 
-    cfg = port.MemoryConfig(**cfg_kw)
     N, D = cfg.max_memories, cfg.feature_dim
     gen = torch.Generator(device=dev).manual_seed(0)
-    stats = {}
     feats, centers = make_data(dev, gen, N, D)
     pick = torch.randint(0, N, (n_eval,), device=dev, generator=gen)
     queries = feats[pick] + 0.5 * torch.randn(n_eval, D, device=dev,
@@ -879,6 +903,16 @@ def engine_phase(dev, cfg_kw, n_eval, n_live, profile=False):
     torch.cuda.synchronize()
     stats["live_write_s"] = time.perf_counter() - t0
     check(int(state.count) == N + n_live, "count after live write")
+    return state, queries
+
+
+def engine_phase(dev, cfg_kw, n_eval, n_live, profile=False):
+    import torch
+    import aura_snn_rag_tpu_torch as port
+
+    cfg = port.MemoryConfig(**cfg_kw)
+    stats = {}
+    state, queries = engine_state(dev, cfg, n_eval, n_live, stats)
     log(f"engine: live write of {n_live} rows {stats['live_write_s']:.3f} s")
 
     # exact oracle, 128 queries at a time
@@ -3458,6 +3492,339 @@ def natural_brain_phase(dev):
     return stats
 
 
+# --------------------------------------------------------------------------
+# sharded phase: the data-parallel path on a one-rank process group
+# --------------------------------------------------------------------------
+
+SHARDED_BATCHES = (1, 8, 1024)  # retrieve_sharded against retrieve_auto
+SHARDED_REPS = 20               # calls per timing
+SHARDED_SMALL = dict(max_memories=65_536, feature_dim=768, k_centroids=256)
+SHARDED_STEPS = 4               # train_steps of each trainer
+TRACE_STEPS = 20                # decode steps timed by StepTimer
+# benchmarks/bench_mnist.py (JAX, on the CPU) at its defaults (5 epochs,
+# --hidden 1024, capped to 64 components) on sklearn's digits: 92.22%
+MNIST_JAX_ACCURACY = 92.22
+MNIST_TOLERANCE = 3.0           # points; the Oja basis starts elsewhere
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def states_equal(a, b):
+    import torch
+    return all(x.dtype == y.dtype and torch.equal(x, y)
+               for x, y in zip(a, b))
+
+
+def clone_state(state):
+    return type(state)(*[t.clone() for t in state])
+
+
+def nonzero_counts(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def sharded_bank_check(dev, mesh):
+    """retrieve_sharded on phase 2's bank as shard 0 against retrieve_auto
+    at B = 1, 8 and 1024: equal results and kernel launches, ms per call
+    of both and of the merge alone; then the sharded write, rebuild and
+    decay against the engine's on a small bank."""
+    import torch
+    import aura_snn_rag_tpu_torch as port
+    from aura_snn_rag_tpu_torch.memory import engine, sharded
+    from aura_snn_rag_tpu_torch.ops.cuda import _build
+
+    cfg = port.MemoryConfig(**ENGINE)
+    state, queries = engine_state(dev, cfg, N_EVAL, 256, {})
+    out = {}
+    for B in SHARDED_BATCHES:
+        q = queries[:B]
+        _build.reset_launch_counts()
+        plain = engine.retrieve_auto(cfg, state, q, None, TOPK)
+        torch.cuda.synchronize()
+        n_plain = nonzero_counts(_build.launch_counts)
+        _build.reset_launch_counts()
+        got = sharded.retrieve_sharded(cfg, mesh, state, q, TOPK)
+        torch.cuda.synchronize()
+        n_sharded = nonzero_counts(_build.launch_counts)
+        check(all(torch.equal(getattr(got, f), getattr(plain, f))
+                  for f in ("indices", "scores", "features")),
+              f"sharded: retrieve_sharded at B={B} differs from "
+              f"retrieve_auto")
+        check(n_sharded == n_plain, f"sharded: launches at B={B} "
+              f"{n_sharded}, retrieve_auto {n_plain}")
+        if B in (1, 8):
+            check(n_sharded == {"ivf_retrieve_fused": 1},
+                  f"sharded: B={B} launched {n_sharded}, expected kernel B "
+                  f"once")
+        merge_ms = wall_ms(lambda: sharded._merge_topk(
+            plain.scores, plain.indices, plain.features, TOPK,
+            mesh.get_group("data"), False), SHARDED_REPS)
+        out[f"b{B}"] = dict(
+            launches=n_sharded,
+            retrieve_auto_ms=wall_ms(lambda: engine.retrieve_auto(
+                cfg, state, q, None, TOPK), SHARDED_REPS),
+            retrieve_sharded_ms=wall_ms(lambda: sharded.retrieve_sharded(
+                cfg, mesh, state, q, TOPK), SHARDED_REPS),
+            merge_ms=merge_ms)
+        log(f"sharded bank B={B}: equal to retrieve_auto bit for bit, "
+            f"launches {n_sharded}; ms per call retrieve_auto "
+            f"{out[f'b{B}']['retrieve_auto_ms']:.3f}, retrieve_sharded "
+            f"{out[f'b{B}']['retrieve_sharded_ms']:.3f}, merge alone "
+            f"{merge_ms:.3f}")
+    del state, queries
+    torch.cuda.empty_cache()
+
+    # the write, rebuild and decay on a small bank, against the engine's
+    small = port.MemoryConfig(**SHARDED_SMALL)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    feats, _ = make_data(dev, gen, 33_024, small.feature_dim, n_centers=64)
+    locs = torch.zeros(len(feats), small.spatial_dims, device=dev)
+    a = sharded.init_sharded_memory(small, mesh)
+    b = port.init_memory_state(small, dev)
+    steps = (
+        ("write", lambda st: sharded.write_memories_sharded(
+            small, mesh, st, feats[:32_768], locs[:32_768]),
+         lambda st: engine.write_memories(small, st, feats[:32_768],
+                                          locs[:32_768])),
+        ("rebuild", lambda st: sharded.rebuild_centroids_sharded(
+            small, mesh, st, 0),
+         lambda st: engine.rebuild_centroids(
+             small, st, torch.Generator().manual_seed(0))),
+        ("live write", lambda st: sharded.write_memories_sharded(
+            small, mesh, st, feats[32_768:], locs[32_768:]),
+         lambda st: engine.write_memories(small, st, feats[32_768:],
+                                          locs[32_768:])),
+        ("decay", lambda st: sharded.decay_memories_sharded(st, 0.05),
+         lambda st: engine.decay_memories(st, 0.05)))
+    with deterministic():
+        for name, fa, fb in steps:
+            a, b = fa(a), fb(b)
+            check(states_equal(a, b), f"sharded: {name} differs from the "
+                  f"engine's")
+    check(bool(a.index_ready), "sharded: small bank not indexed")
+    out["small_bank_equal"] = True
+    log(f"sharded bank: write, rebuild, live write and decay on a "
+        f"{small.max_memories} x {small.feature_dim} shard equal the "
+        f"engine's bit for bit")
+    return out
+
+
+def dp_train_check(dev, mesh, tmp):
+    """A data-parallel trainer (shard_to_mesh) and a plain one from the
+    same weights over the same bank, SHARDED_STEPS train_steps each with
+    memory: launches, losses and every tensor equal; then a checkpoint of
+    the sharded one restored into a fresh one. Returns (stats, the
+    restored trainer)."""
+    import torch
+    import aura_snn_rag_tpu_torch as port
+    from aura_snn_rag_tpu_torch.ops.cuda import _build
+    from aura_snn_rag_tpu_torch.training.checkpoint import CheckpointManager
+
+    cfg = train_config()
+    # the thalamus gate off, so memory stays on at every step
+    cfg = cfg.replace(training=dataclasses.replace(cfg.training,
+                                                   enable_thalamus=False))
+    n_layers, accum = cfg.model.num_layers, \
+        cfg.training.gradient_accumulation_steps
+    B, L = cfg.training.batch_size, TRAIN_SEQ
+    bank = lm_bank(dev, cfg.memory)
+    g = torch.Generator(device=dev).manual_seed(12)
+    ids = torch.randint(0, cfg.model.vocab_size, (B, L), device=dev,
+                        generator=g)
+    out = {}
+    trainers = {}
+    with deterministic():
+        sharded_tr = port.Trainer(cfg, seed=7, device=dev)
+        sharded_tr.shard_to_mesh(mesh)
+        sharded_tr.hippocampus._set_state(clone_state(bank))
+        plain_tr = port.Trainer(cfg, seed=7, device=dev)
+        plain_tr.hippocampus._set_state(bank)
+        for name, tr in (("sharded", sharded_tr), ("plain", plain_tr)):
+            _build.reset_launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(SHARDED_STEPS):
+                t0 = time.perf_counter()
+                m = tr.train_step(ids, ids)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                check(m["use_memory"], f"{name} trainer: memory off")
+            launches = nonzero_counts(_build.launch_counts)
+            want = n_layers * accum * SHARDED_STEPS
+            check(launches == {"ivf_retrieve_fused": want},
+                  f"{name} trainer: launches {launches}, expected kernel B "
+                  f"{n_layers} x {accum} x {SHARDED_STEPS} = {want}")
+            trainers[name] = tr
+            out[name] = dict(
+                launches=launches, ms_per_step=times,
+                ms_per_step_after_first=sum(times[1:]) / (len(times) - 1),
+                max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                losses=tr.history["loss"][1:]
+                + [tr.latest_metrics()["loss"]])
+    differ = tensors_differ(sharded_tr, plain_tr)
+    check(out["sharded"]["losses"] == out["plain"]["losses"] and not differ,
+          f"sharded trainer differs from the plain one: losses "
+          f"{out['sharded']['losses']} / {out['plain']['losses']}, tensors "
+          f"{differ}")
+    log(f"sharded training: {SHARDED_STEPS} train_steps each, kernel B "
+        f"{out['sharded']['launches']} / {out['plain']['launches']}, losses "
+        f"equal {[round(x, 6) for x in out['sharded']['losses']]}, every "
+        f"tensor equal; ms per step after the first "
+        f"{out['sharded']['ms_per_step_after_first']:.1f} / "
+        f"{out['plain']['ms_per_step_after_first']:.1f}, peak "
+        f"{out['sharded']['max_memory_gb']:.2f} / "
+        f"{out['plain']['max_memory_gb']:.2f} GB (sharded / plain)")
+    del plain_tr, trainers, bank
+    torch.cuda.empty_cache()
+
+    ckpt = CheckpointManager(os.path.join(tmp, "sharded_ckpt"))
+    _, out["save_s"] = synced(lambda: ckpt.save(
+        SHARDED_STEPS, sharded_tr, out["sharded"]["losses"][-1]))
+    restored = port.Trainer(cfg, seed=8, device=dev)
+    restored.shard_to_mesh(mesh)
+    step, out["restore_s"] = synced(lambda: ckpt.restore(restored))
+    differ = tensors_differ(sharded_tr, restored)
+    check(step == SHARDED_STEPS and not differ,
+          f"sharded checkpoint: step {step}, tensors differ {differ}")
+    log(f"sharded checkpoint: saved in {out['save_s']:.2f} s, restored in "
+        f"{out['restore_s']:.2f} s, every tensor equal bit for bit")
+    del sharded_tr
+    torch.cuda.empty_cache()
+    return out, restored
+
+
+def utils_check(dev, trainer, tmp):
+    """The utils on the card: memory stats, a trace of one decode step
+    naming kernel B's CUDA functions, StepTimer over decode steps, the
+    EnergyTracker over a spiking FFN's spikes."""
+    import glob
+    import torch
+    from aura_snn_rag_tpu_torch.generation.sampler import sample_token
+    from aura_snn_rag_tpu_torch.utils import (
+        EnergyTracker, StepTimer, get_memory_stats, trace)
+
+    out = {}
+    mem = get_memory_stats()
+    check(mem["bytes_in_use"] == torch.cuda.memory_allocated(),
+          f"get_memory_stats {mem} against memory_allocated "
+          f"{torch.cuda.memory_allocated()}")
+    out["memory_stats"] = mem
+
+    model, state = trainer.model.eval(), trainer.hippocampus.state
+    spikes = []
+    snn = model.layers[0].ffn.snn
+    hook = snn.syn2.register_forward_pre_hook(
+        lambda mod, args: spikes.append(args[0].detach()))
+    B, L = LM_SERVE["batch_size"], LM_SERVE["prompt_pad"]
+    gen = torch.Generator(device=dev).manual_seed(21)
+    ids = torch.randint(0, model.config.vocab_size, (B, L), device=dev,
+                        generator=gen)
+    pos = [L]
+
+    def step(tok, caches):
+        o, caches = model(tok[:, None], memory_state=state,
+                          positions=torch.full((B, 1), pos[0], device=dev),
+                          kv_caches=caches, cache_index=pos[0])
+        pos[0] += 1
+        return sample_token(gen, o.logits[:, 0], 0.8, 50, 0.9), caches
+
+    sharded_fn = model.layers[0].retrieve_fn
+    timers = {}
+    try:
+        with torch.no_grad():
+            caches = model.init_kv_caches(B, model.config.max_seq_len)
+            o, caches = model(ids, memory_state=state, kv_caches=caches,
+                              cache_index=0)
+            tok = o.logits[:, -1].argmax(-1)
+            tok, caches = step(tok, caches)                    # warm-up
+            # decode steps through the sharded adapter, then through
+            # retrieve_auto on the same bank
+            for name, fn in (("sharded", sharded_fn), ("plain", None)):
+                set_retrieve_fn(model, fn)
+                timers[name] = StepTimer()
+                for _ in range(TRACE_STEPS):
+                    fence = []
+                    with timers[name].measure(fence):
+                        tok, caches = step(tok, caches)
+                        fence.append(tok)
+            torch.cuda.synchronize()
+            trace_dir = os.path.join(tmp, "trace")
+            with trace(trace_dir):
+                tok, caches = step(tok, caches)
+                torch.cuda.synchronize()
+    finally:
+        hook.remove()
+        set_retrieve_fn(model, sharded_fn)
+        model.train()
+    files = glob.glob(os.path.join(trace_dir, "*.json"))
+    check(len(files) == 1, f"trace wrote {files}")
+    with open(files[0]) as f:
+        text = f.read()
+    names = [k for k in ("ivf_coarse_kernel", "ivf_select_rerank_kernel")
+             if k in text]
+    check(len(names) == 2, f"trace of a decode step names {names} of "
+          f"kernel B's CUDA functions")
+    out["trace_bytes"] = len(text)
+    out["step_timer"] = {k: t.summary() for k, t in timers.items()}
+    tracker = EnergyTracker()
+    for s in spikes:
+        tracker.record("layer0.snn", s, fan_out=snn.syn2.kernel.shape[1])
+    energy = tracker.summary()
+    check(energy["components"] == 1 and math.isfinite(
+        energy["total_spiking_pj"]), f"energy tracker: {energy}")
+    out["energy"] = dict(energy, spike_rate=float(
+        sum(s.float().mean() for s in spikes) / len(spikes)))
+    log(f"utils: get_memory_stats {mem['bytes_in_use'] / 1e9:.2f} GB in "
+        f"use = memory_allocated; trace of one decode step ({len(text)} "
+        f"bytes) names {names}; StepTimer over {TRACE_STEPS} decode steps "
+        f"at B={B}, p50 / p95 ms: "
+        + ", ".join(f"{k} {v['p50_ms']:.2f} / {v['p95_ms']:.2f}"
+                    for k, v in out["step_timer"].items())
+        + f"; energy {out['energy']}")
+    return out
+
+
+def sharded_phase(dev):
+    """Phase 10: the sharded bank and data-parallel training on a one-rank
+    process group (NCCL on the card), the utils and the CLI's mnist; see
+    the module doc. Launch counters are zeroed inside, around each call
+    they check."""
+    import tempfile
+    import torch
+    from aura_snn_rag_tpu_torch.parallel import distributed
+
+    t0 = time.perf_counter()
+    distributed.initialize(f"localhost:{free_port()}", 1, 0,
+                           device=dev.type, timeout=300)
+    try:
+        mesh = distributed.global_mesh(1)
+        stats = {"bank": sharded_bank_check(dev, mesh)}
+        with tempfile.TemporaryDirectory() as tmp:
+            stats["train"], restored = dp_train_check(dev, mesh, tmp)
+            stats["utils"] = utils_check(dev, restored, tmp)
+        del restored
+        torch.cuda.empty_cache()
+    finally:
+        distributed.shutdown()
+    stdout, seconds = cli_run(["mnist"], OPERATOR_CLI_TIMEOUT)
+    result = json.loads(stdout.strip().splitlines()[-1])
+    check(abs(result["value"] - MNIST_JAX_ACCURACY) <= MNIST_TOLERANCE,
+          f"mnist: {result['value']}% against the JAX script's "
+          f"{MNIST_JAX_ACCURACY}%")
+    stats["mnist"] = dict(result, cli_s=seconds)
+    stats["phase_s"] = time.perf_counter() - t0
+    log(f"mnist via the CLI: {result['value']}% on {result['dataset']} "
+        f"(JAX {MNIST_JAX_ACCURACY}%), {seconds:.1f} s; sharded phase "
+        f"{stats['phase_s']:.1f} s")
+    return stats
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3577,6 +3944,11 @@ def main() -> int:
     log(f"natural-brain-path launches: {natural['launches']}")
     torch.cuda.empty_cache()
 
+    # ---- the sharded bank and data-parallel training on a one-rank
+    # group: counts zeroed inside, around each call they check ----
+    sharded = sharded_phase(dev)
+    torch.cuda.empty_cache()
+
     main_shape = {"flat_blockmax": res_a[("int8", 1024)],
                   "ivf_retrieve_fused": res_bc[("ivf_retrieve_fused", 8)],
                   "ivf_scan_scores": res_bc[("ivf_scan_scores", 8)],
@@ -3618,6 +3990,7 @@ def main() -> int:
     log(json.dumps({"spill": spill}))
     log(json.dumps({"brain": brain}))
     log(json.dumps({"natural_brain": natural}))
+    log(json.dumps({"sharded": sharded}))
     log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all")
     log(card)
     log(json.dumps({"kernels": kernels}))

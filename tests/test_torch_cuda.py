@@ -1,8 +1,9 @@
 """Kernels A, B, C, D and E against their plain PyTorch versions on the
-card, and the neuromorphic brain system and the NaturalBrain path
+card, the neuromorphic brain system and the NaturalBrain path
 (NaturalBrain, the MoE language zone's forward and gradients, the
 prosody gains, the SRFFN; no kernel) on the card against the same port
-objects on the CPU.
+objects on the CPU, and the sharded bank and the data-parallel trainer on
+a one-rank NCCL group against the unsharded paths.
 
 Marked `cuda`: they skip without a card (decided in a fixture, so every
 xdist worker collects the same tests). On a machine with an H100:
@@ -12,11 +13,17 @@ xdist worker collects the same tests). On a machine with an H100:
 Inputs are made with numpy from a seed and copied to the card.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from aura_snn_rag_tpu_torch.ops.cuda import launch_counts
+
+# the cuBLAS workspace that deterministic algorithms need; read when the
+# first cuBLAS handle is made, so set before any test runs
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 from aura_snn_rag_tpu_torch.ops.cuda.flat_scan import (
     flat_blockmax, flat_blockmax_plain, pack_row_terms)
 from aura_snn_rag_tpu_torch.ops.cuda.ivf_scan import (
@@ -852,3 +859,112 @@ def test_dual_layer_srffn_on_the_card_matches_the_cpu(dev):
             torch.testing.assert_close(oc[key].cpu(), orf[key], rtol=0,
                                        atol=1e-5)
         assert oc["voice"] == orf["voice"]
+
+
+# --------------------------------------------------------------------------
+# the sharded bank, the data-parallel trainer and the utils on the card:
+# a one-rank NCCL group, where every collective is a copy, so the sharded
+# paths must give the unsharded ones' bits
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_mesh(dev, tmp_path):
+    from aura_snn_rag_tpu_torch.parallel import distributed
+    distributed.initialize(f"file://{tmp_path}/rendezvous", 1, 0,
+                           device="cuda", timeout=120)
+    try:
+        yield distributed.global_mesh(1)
+    finally:
+        distributed.shutdown()
+
+
+def _small_bank(dev, n=20_000, seed=3):
+    import aura_snn_rag_tpu_torch as port
+    cfg = port.MemoryConfig(max_memories=32_768, feature_dim=128,
+                            k_centroids=128, probe_centroids=4)
+    rng = np.random.RandomState(seed)
+    centers = rng.randn(64, 128).astype(np.float32) * 2
+    feats = torch.from_numpy(centers[rng.randint(0, 64, n)]
+                             + rng.randn(n, 128).astype(np.float32)).to(dev)
+    st = port.init_memory_state(cfg, dev)
+    st = port.bulk_load(cfg, st, feats, torch.zeros(n, 2, device=dev))
+    st = port.rebuild_centroids(cfg, st, torch.Generator().manual_seed(0))
+    return cfg, st, feats
+
+
+@pytest.mark.parametrize("B", [1, 8, 256])
+def test_retrieve_sharded_equals_retrieve_auto_on_one_rank(nccl_mesh, dev,
+                                                            B):
+    from aura_snn_rag_tpu_torch.memory import engine, sharded
+    cfg, st, feats = _small_bank(dev)
+    q = feats[:B] + 0.1
+    launch_counts.clear()
+    want = engine.retrieve_auto(cfg, st, q, None, 10)
+    plain = dict(launch_counts)
+    launch_counts.clear()
+    got = sharded.retrieve_sharded(cfg, nccl_mesh, st, q, 10)
+    assert dict(launch_counts) == plain
+    for f in ("indices", "scores", "features"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_sharded_gradient_equals_retrieve_auto_on_one_rank(nccl_mesh, dev):
+    from aura_snn_rag_tpu_torch.memory import engine, sharded
+    cfg, st, feats = _small_bank(dev)
+    x = feats[:8]
+    grads = []
+    for fn in (lambda q: engine.retrieve_auto(cfg, st, q, None, 5),
+               lambda q: sharded.retrieve_sharded(cfg, nccl_mesh, st, q, 5)):
+        W = torch.eye(128, device=dev, requires_grad=True)
+        fn(x @ W).scores.sum().backward()
+        grads.append(W.grad)
+    assert grads[0].abs().max() > 0
+    assert torch.equal(grads[0], grads[1])
+
+
+def test_data_parallel_trainer_equals_plain_on_one_rank(nccl_mesh, dev):
+    """Two steps with memory at a small width, under deterministic
+    algorithms: every tensor of the sharded trainer equals the plain
+    one's bit for bit."""
+    import dataclasses
+    import aura_snn_rag_tpu_torch as port
+    cfg = port.AuraConfig(
+        model=port.ModelConfig(vocab_size=512, embedding_dim=128,
+                               num_layers=2, num_heads=4,
+                               intermediate_size=256, max_seq_len=512,
+                               n_place_cells=128, snn_layers=(0,),
+                               use_rag=True),
+        memory=port.MemoryConfig(max_memories=32_768, feature_dim=128,
+                                 k_centroids=128, probe_centroids=4),
+        training=dataclasses.replace(
+            port.TrainingConfig(), batch_size=8, memory_warmup_steps=0,
+            enable_thalamus=False, memory_store_interval=1,
+            warmup_steps=1))
+    _, bank, _ = _small_bank(dev)
+    ids = torch.randint(0, 512, (8, 32), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    torch.use_deterministic_algorithms(True)
+    try:
+        a = port.Trainer(cfg, seed=2, device=dev)
+        a.shard_to_mesh(nccl_mesh)
+        a.hippocampus._set_state(type(bank)(*[t.clone() for t in bank]))
+        b = port.Trainer(cfg, seed=2, device=dev)
+        b.hippocampus._set_state(bank)
+        for tr in (a, b):
+            for _ in range(2):
+                tr.train_step(ids, ids)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert a.history["loss"] == b.history["loss"]
+    assert torch.equal(a.optimizer.flat, b.optimizer.flat)
+    for x, y in zip(a.hippocampus.state, b.hippocampus.state):
+        assert torch.equal(x, y)
+
+
+def test_memory_stats_on_the_card(dev):
+    from aura_snn_rag_tpu_torch.utils import get_memory_stats
+    x = torch.empty(1 << 20, device=dev)
+    stats = get_memory_stats()
+    assert stats["bytes_in_use"] == torch.cuda.memory_allocated()
+    assert stats["bytes_limit"] > 0 and 0 < stats["free_ratio"] <= 1
+    del x

@@ -362,3 +362,42 @@ def test_one_shot_memorize_and_generate_matches_jax():
     tone_shot.store_custom_memory(th, "other", emb[0] * -1.0)
     hits = tone_shot.retrieve_custom_memories(th, emb[0], k=2)
     assert [h[0] for h in hits] == [tmid, "other"]
+
+
+# the JAX package's temperature cases (tests/models/test_serving.py:72,
+# 91): the port has no compile cache, so "traced, not baked" becomes:
+# each request's temperature reaches the sampler in its own row
+
+
+def test_batched_generator_temperature_is_per_request_and_live():
+    """Near-zero temperature decodes greedily: the same tokens in two
+    batches, and the same again beside a hot request in one batch; then a
+    hot batch decodes too."""
+    _, _, tmodel = lm_pair()
+    gen = BatchedGenerator(tmodel, batch_size=2, prompt_pad=8,
+                           max_new_tokens=4)
+    cold = GenerationRequest(np.asarray([1, 2, 3]), temperature=1e-4,
+                             top_p=1.0)
+    out1 = gen.generate_batch([cold])[0]
+    out2 = gen.generate_batch([cold])[0]
+    np.testing.assert_array_equal(out1, out2)
+    mixed = gen.generate_batch([cold, GenerationRequest(
+        np.asarray([1, 2, 3]), temperature=50.0, top_p=1.0)])
+    np.testing.assert_array_equal(mixed[0], out1)
+    hot = gen.generate_batch([GenerationRequest(
+        np.asarray([1, 2, 3]), temperature=5.0, top_p=1.0)])[0]
+    assert hot.shape == (4,)
+
+
+def test_batched_generator_hot_temperature_differs_from_cold():
+    _, _, tmodel = lm_pair()
+    gen = BatchedGenerator(tmodel, batch_size=2, prompt_pad=8,
+                           max_new_tokens=4)
+    cold = gen.generate_batch([GenerationRequest(
+        np.asarray([1, 2, 3]), temperature=1e-4, top_p=1.0)])[0]
+    hots = [gen.generate_batch([GenerationRequest(
+        np.asarray([1, 2, 3]), temperature=50.0, top_p=1.0)])[0]
+        for _ in range(4)]
+    # at T = 50 the distribution is near uniform over the vocabulary: the
+    # odds that all 4 samples equal the greedy tokens are negligible
+    assert any(not np.array_equal(cold, h) for h in hots)

@@ -326,6 +326,15 @@ def test_train_chunk_equals_train_steps_and_matches_jax():
     assert_bank(jt, tt)
 
 
+class _ModelParallelMesh:
+    """A ('data', 'model') mesh of (1, 2) as far as `shard_to_mesh` reads
+    it before it places anything."""
+    mesh_dim_names = ("data", "model")
+
+    def size(self, dim):
+        return 2 if dim == 1 else 1
+
+
 def test_eval_loss_and_state_match_jax():
     jt, tt = pair()
     ids = batches(5, 1)[0]
@@ -335,8 +344,8 @@ def test_eval_loss_and_state_match_jax():
     st = tt.state
     assert st.step == 0 and st.params is tt.optimizer.flat
     assert int(st.opt_state.count) == 0
-    with pytest.raises(NotImplementedError):
-        tt.shard_to_mesh(None)
+    with pytest.raises(NotImplementedError, match="model-parallel"):
+        tt.shard_to_mesh(_ModelParallelMesh())
     with pytest.raises(RuntimeError, match="no step"):
         tt.latest_metrics()
     tt.train_step(ids, ids)
@@ -350,3 +359,52 @@ def test_trainer_defaults_to_cuda():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             port.Trainer(tcfg)
+
+
+# the JAX package's tests/training/test_grad_accum.py:70-100, on the
+# port's trainer at the same debug configuration
+
+
+def accum_trainer(accum, seed=0):
+    cfg = port.get_debug_config()
+    cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, dropout=0.0),
+        training=dataclasses.replace(
+            cfg.training, gradient_accumulation_steps=accum, batch_size=8,
+            memory_warmup_steps=0, memory_store_interval=1,
+            sparsity_lambda=0.0, sleep_interval=10_000, eval_steps=10_000))
+    return port.Trainer(cfg, seed=seed, device="cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def accum_data():
+    rng = np.random.RandomState(7)
+    return (rng.randint(1, 500, (8, 16)).astype(np.int32),
+            rng.randint(1, 500, (8, 16)).astype(np.int32))
+
+
+def test_accumulation_uses_labels_not_inputs():
+    """Same inputs, other labels: other accumulated updates."""
+    ids, labels = accum_data()
+    a, b = accum_trainer(4, seed=3), accum_trainer(4, seed=3)
+    for _ in range(3):
+        a.train_step(ids, labels)
+        b.train_step(ids, np.roll(labels, 3, axis=1))
+    assert (a.optimizer.flat - b.optimizer.flat).abs().max() > 1e-5
+
+
+def test_accumulated_training_converges():
+    ids, _ = accum_data()
+    tr = accum_trainer(2)
+    losses = [tr.train_step(ids, ids)["loss"] for _ in range(8)]
+    assert all(np.isfinite(x) for x in losses)
+    assert losses[-1] < losses[0]
+
+
+def test_accumulated_memory_writes_land():
+    """A store per optimizer step: every micro-batch's summaries write."""
+    ids, _ = accum_data()
+    tr = accum_trainer(2)
+    for _ in range(3):
+        tr.train_step(ids, ids)
+    assert tr.hippocampus.memory_count >= ids.shape[0]

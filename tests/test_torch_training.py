@@ -332,3 +332,70 @@ def test_batch_iterator_and_token_stream_match(tmp_path):
     np.testing.assert_array_equal(ts.sample_chunk(3, 2), js.sample_chunk(3, 2))
     for a, b in zip(ts.eval_batches(4, 3), js.eval_batches(4, 3)):
         np.testing.assert_array_equal(a, b)
+
+
+def test_mesh_and_parallel_config_match():
+    """`MeshConfig`, `ParallelConfig` and the whole `AuraConfig` carry the
+    JAX package's fields and defaults."""
+    for name in ("MeshConfig", "ParallelConfig"):
+        jf = {f.name: f.default for f in
+              dataclasses.fields(getattr(jconfig, name))}
+        tf = {f.name: f.default for f in
+              dataclasses.fields(getattr(port.config, name))}
+        assert jf == tf, name
+    assert ([f.name for f in dataclasses.fields(jconfig.AuraConfig)]
+            == [f.name for f in dataclasses.fields(port.AuraConfig)])
+    assert (dataclasses.asdict(jconfig.AuraConfig().mesh)
+            == dataclasses.asdict(port.AuraConfig().mesh))
+    assert (dataclasses.asdict(jconfig.AuraConfig().parallel)
+            == dataclasses.asdict(port.AuraConfig().parallel))
+
+
+# the JAX package's tests/training/test_data_stream.py, on the port's
+# TokenStream over the same file
+
+
+@pytest.fixture()
+def token_streams(tmp_path):
+    toks = np.arange(10_000, dtype=np.uint16) % 31_000
+    path = tmp_path / "train.npy"
+    np.save(path, toks)
+    return (tdata.TokenStream(str(path), seq_len=64, seed=0),
+            jdata.TokenStream(str(path), seq_len=64, seed=0))
+
+
+def test_token_stream_batch_shapes_and_bounds(token_streams):
+    ts, js = token_streams
+    b = ts.sample_batch(8)
+    assert b.shape == (8, 64) and b.dtype == np.int32
+    assert b.min() >= 0 and b.max() < 31_000
+    np.testing.assert_array_equal(b, js.sample_batch(8))
+
+
+def test_token_stream_windows_are_contiguous(token_streams):
+    b = token_streams[0].sample_batch(4)
+    diffs = np.diff(b.astype(np.int64), axis=1) % 31_000
+    assert (diffs == 1).all()
+
+
+def test_token_stream_chunk_shape(token_streams):
+    ts, js = token_streams
+    c = ts.sample_chunk(5, 4)
+    assert c.shape == (5, 4, 64)
+    np.testing.assert_array_equal(c, js.sample_chunk(5, 4))
+
+
+def test_token_stream_eval_batches_deterministic(token_streams):
+    ts = token_streams[0]
+    a = list(ts.eval_batches(2, max_batches=3))
+    b = list(ts.eval_batches(2, max_batches=3))
+    assert len(a) == 3
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_token_stream_short_stream_rejected(tmp_path):
+    np.save(tmp_path / "s.npy", np.arange(10, dtype=np.uint16))
+    for package in (tdata, jdata):
+        with pytest.raises(AssertionError):
+            package.TokenStream(str(tmp_path / "s.npy"), seq_len=64)
