@@ -227,9 +227,11 @@ class ParallelConfig:
     """The strategies that change the program: sequence sharding (ring
     attention over a 'seq' axis, seq_shards > 1) and pipeline stages
     (GPipe over a 'stage' axis, pp_stages > 1). The port's
-    `Trainer.shard_to_mesh` runs data parallelism over the batch axes and
-    raises for a 'seq', 'stage' or 'model' axis larger than 1: those come
-    with the port's tensor/sequence/pipeline-parallel slice."""
+    `Trainer.shard_to_mesh` runs data parallelism over the batch axes,
+    tensor parallelism over 'model', ring attention over the axis named
+    `seq_axis_name`, and treats the axis named `stage_axis_name` as
+    replicated, as the JAX trainer does; the pipeline runs through
+    `models.pipelined` with `pp_microbatches` microbatches."""
 
     seq_shards: int = 1
     seq_axis_name: str = "seq"

@@ -5,8 +5,7 @@ Requests gather into batches of `batch_size` rows, prompts left-padded to
 `prompt_pad`, and each batch decodes a power-of-2 number of tokens (the
 JAX package's compile buckets; here they keep the batches' shapes few).
 Episodic memory conditions every request when a bank is attached.
-The `mesh` argument (tensor-parallel decode) comes with the parallel
-slice.
+With a `mesh` the server decodes tensor-parallel over its 'model' axis.
 """
 
 from __future__ import annotations
@@ -38,17 +37,36 @@ class BatchedGenerator:
     here (the model passed in is left as it is): small-batch decode reads
     every weight once per token, and with f32 weights the compute dtype
     cast (bf16 by default) reads f32 and writes bf16 on every use. Sampled
-    outputs may then differ in near-ties."""
+    outputs may then differ in near-ties.
+
+    `mesh` (a ('data', 'model') DeviceMesh; every rank of it runs the
+    server) places the parameters by `parallel.mesh.shard_params`: over a
+    'model' axis larger than 1 the server decodes tensor-parallel, on a
+    copy of the model split into this rank's parts (the model passed in
+    is left whole), with KV caches of this rank's H/n heads. The bank
+    (`memory_state`) and every batch are replicated over the mesh: the
+    first rank's bank is broadcast, and each rank decodes the whole
+    batch, drawing the same tokens from the same generator."""
 
     def __init__(self, model, batch_size: int = 8, prompt_pad: int = 64,
                  max_new_tokens: int = 64, memory_state=None,
                  pad_token_id: int = 0,
                  generator: Optional[torch.Generator] = None,
-                 weights_dtype: Optional[str] = None):
+                 weights_dtype: Optional[str] = None, mesh=None):
         if weights_dtype == "bfloat16":
             model = copy.deepcopy(model).to(torch.bfloat16)
         elif weights_dtype is not None:
             raise ValueError(f"weights_dtype {weights_dtype!r}")
+        if mesh is not None:
+            from aura_snn_rag_tpu_torch.parallel.mesh import (
+                mesh_broadcast_, shard_params, tensor_parallel)
+            if tensor_parallel(mesh) is not None and weights_dtype is None:
+                model = copy.deepcopy(model)
+            shard_params(model, mesh)
+            if memory_state is not None:     # as bytes: gloo takes no bool
+                for t in memory_state:
+                    mesh_broadcast_(t.reshape(-1).view(torch.uint8), mesh)
+        self.mesh = mesh
         self.model = model
         self.batch_size = batch_size
         self.prompt_pad = prompt_pad

@@ -21,6 +21,14 @@
 
 `capacity` is a Python int from B, k, E and the capacity factor;
 `dropped_fraction` stays a device scalar, so neither syncs.
+
+Expert parallelism: `parallel.mesh.shard_params` over a 'model' axis
+larger than 1 leaves each rank E/n of an `ExpertBank`'s stacked experts
+(the JAX rule `experts/` -> P('model', ...)); the bank then runs its own
+experts' buckets of the replicated dispatch plan and sums the ranks'
+partial [B, D] outputs with one `reduce_out` (dense mode gathers the
+experts' outputs). Routing, capacity and `dropped_fraction` are the
+whole bank's, as before.
 """
 
 from __future__ import annotations
@@ -42,6 +50,8 @@ from aura_snn_rag_tpu_torch.models.prosody import (
 from aura_snn_rag_tpu_torch.ops.neurons import gif_params, gif_scan
 from aura_snn_rag_tpu_torch.ops.spike_bridge import (
     continuous_to_spikes, spikes_to_continuous)
+from aura_snn_rag_tpu_torch.parallel.collectives import (
+    copy_in, gather_dim, reduce_out)
 
 
 class SNNExpert(nn.Module):
@@ -162,7 +172,10 @@ class ExpertBank(nn.Module):
     Dense (no routing): x [B, T, D] -> [B, E, output_dim], every expert on
     every row. Sparse (routing {'indices', 'weights'}): rows go into
     per-expert capacity buckets [E, C, T, D] -> (combined [B, output_dim],
-    {'dropped_fraction', 'capacity'})."""
+    {'dropped_fraction', 'capacity'}). Expert-parallel (`tp`), the rank
+    holds and runs experts [i E/n, (i + 1) E/n)."""
+
+    tp = None
 
     def __init__(self, num_experts: int, in_features: int, hidden_dim: int,
                  output_dim: int, levels: int = 8,
@@ -180,8 +193,12 @@ class ExpertBank(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 routing: Optional[Dict[str, torch.Tensor]] = None):
+        tp = self.tp
+        if tp is not None:
+            x = copy_in(x, tp.group)
         if routing is None:
-            return self.experts(x).transpose(0, 1)
+            out = self.experts(x).transpose(0, 1)              # [B, E, Do]
+            return out if tp is None else gather_dim(out, tp.group, 1)
         B = x.shape[0]
         k = routing["indices"].shape[-1]
         capacity = max(1, int(self.capacity_factor * B * k
@@ -189,10 +206,17 @@ class ExpertBank(nn.Module):
         dispatch, combine, dropped = topk_dispatch(
             routing["indices"], routing["weights"], self.num_experts,
             capacity)
+        if tp is not None:             # this rank's experts' buckets
+            mine = slice(tp.index * self.num_experts // tp.size,
+                         (tp.index + 1) * self.num_experts // tp.size)
+            dispatch = dispatch[:, mine]
+            combine = copy_in(combine, tp.group)[:, mine]
         expert_in = torch.einsum("bec,btd->ectd", dispatch,
                                  x.to(torch.float32))
         out_e = self.experts(expert_in)                        # [E, C, Do]
         y = torch.einsum("bec,ecd->bd", combine, out_e)
+        if tp is not None:
+            y = reduce_out(y, tp.group)
         return y, {"dropped_fraction": dropped, "capacity": capacity}
 
 

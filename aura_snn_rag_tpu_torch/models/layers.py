@@ -30,9 +30,31 @@ does it). Where flax and PyTorch differ, the port follows flax:
   come from JAX's PRNG and are not the same bits.
 
 `Synapsis` carries the JAX module's STDP traces and `stdp_update` (no
-module of the LM calls them). Ring attention over a mesh's 'seq' axis
-comes with the port's model-parallel slice, so no module takes a mesh;
-the RAG layers reach a sharded bank through their `retrieve_fn`.
+module of the LM calls them). The RAG layers reach a sharded bank
+through their `retrieve_fn`.
+
+Model parallelism (`parallel/`):
+- tensor parallelism: `parallel.mesh.shard_params` over a 'model' axis
+  larger than 1 leaves each rank its part of the sharded weights and
+  sets `tp` on the modules that compute on them. `ProsodyGatedAttention`
+  then runs its H/n local heads (the prosody gain sliced to match) and
+  one row-parallel `o_proj`; `MLP` a column-parallel `up` and a row-
+  parallel `down`; `SNNFFN` a column-parallel `syn1`, a row-parallel
+  `gif1_in` whose sum each rank keeps its part of, the first GIF scan on
+  that part, and a row-parallel `syn2`; `MultiHeadDotProductAttention`
+  its local heads; `PlaceCellEncoder` an embedding of D/n features
+  (gathered) and a tied head that sums the parts' logits. Each module
+  enters its per-rank math through `copy_in` (the gradient of a
+  replicated input sums every rank's part) and leaves it through one
+  `reduce_out`; a replicated bias or gate used in part is taken through
+  `copy_in` too, so every rank's replicated parameters get the whole
+  gradient. Biases stay replicated, as in JAX;
+- sequence parallelism: with a `mesh` whose 'seq' axis is larger than 1
+  (`HippocampalTransformer.set_mesh`), each rank holds one chunk of the
+  sequence; `ProsodyGatedAttention`'s causal core runs ring attention
+  over the axis (heads stay sharded over 'model' inside the ring), and
+  `MemoryAugmentedLayer`'s query is the mean over the whole sequence
+  (`all_reduce_sum` over 'seq').
 """
 
 from __future__ import annotations
@@ -51,6 +73,10 @@ from aura_snn_rag_tpu_torch.ops.neurons import (
 from aura_snn_rag_tpu_torch.ops.place_cells import sparse_place_code
 from aura_snn_rag_tpu_torch.ops.theta_gamma import (
     ThetaGammaParams, theta_gamma_encoding)
+from aura_snn_rag_tpu_torch.parallel.collectives import (
+    all_reduce_sum, copy_in, gather_dim, reduce_out, reduce_scatter_dim)
+from aura_snn_rag_tpu_torch.parallel.ring_attention import (
+    mesh_seq_axis, sequence_sharded_attention)
 
 LN_EPS = 1e-6            # flax nn.LayerNorm's epsilon
 PROSODY_DIM = 4          # prosody features: arousal, valence, ...
@@ -151,6 +177,31 @@ class Dense(nn.Module):
                         None if self.bias is None else self.bias.to(dt))
 
 
+def part(x: torch.Tensor, tp, dim: int = -1) -> torch.Tensor:
+    """This rank's part, along `dim`, of a tensor replicated over the
+    'model' axis `tp`; through `copy_in`, so the whole tensor's gradient
+    (every rank's part of it) reaches every rank."""
+    return copy_in(x, tp.group).chunk(tp.size, dim)[tp.index]
+
+
+def column_parallel(dense: "Dense", x: torch.Tensor, tp) -> torch.Tensor:
+    """A column-parallel `Dense` on its part of the outputs: x (entered
+    through `copy_in`) times this rank's rows of the [out, in] weight,
+    plus its part of the replicated bias."""
+    dt = dense.dtype
+    b = None if dense.bias is None else part(dense.bias, tp, 0).to(dt)
+    return F.linear(x.to(dt), dense.weight.to(dt), b)
+
+
+def row_parallel(dense: "Dense", x: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel `Dense`: this rank's part of the inputs times its
+    columns of the weight, summed over the ranks (`reduce_out`), plus the
+    replicated bias."""
+    dt = dense.dtype
+    y = reduce_out(F.linear(x.to(dt), dense.weight.to(dt)), tp.group)
+    return y if dense.bias is None else y + dense.bias.to(dt)
+
+
 class Embed(nn.Module):
     """flax `nn.Embed`: a [vocab, features] f32 table, normal(0.02)."""
 
@@ -190,7 +241,11 @@ class LayerNorm(nn.Module):
 
 class PlaceCellEncoder(nn.Module):
     """Token embedding with sparse place-cell population coding; `attend`
-    is the tied output head."""
+    is the tied output head. Tensor-parallel (`tp`), the table holds this
+    rank's D/n features: the embedding gathers them, and `attend` sums the
+    parts' logits."""
+
+    tp = None
 
     def __init__(self, config: ModelConfig, device=None):
         super().__init__()
@@ -206,8 +261,10 @@ class PlaceCellEncoder(nn.Module):
     def forward(self, input_ids: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.config
-        token_embeds = F.embedding(input_ids, self.token_embedding.weight) \
-            .to(self.dtype)                                       # [B, L, D]
+        token_embeds = F.embedding(input_ids, self.token_embedding.weight)
+        if self.tp is not None:
+            token_embeds = gather_dim(token_embeds, self.tp.group, -1)
+        token_embeds = token_embeds.to(self.dtype)                # [B, L, D]
         logits = self.semantic_projection(token_embeds)
         activity = sparse_place_code(logits.float(), cfg.place_k)
         recon = self.place_to_semantic(activity.to(token_embeds.dtype))
@@ -217,6 +274,10 @@ class PlaceCellEncoder(nn.Module):
     def attend(self, hidden: torch.Tensor) -> torch.Tensor:
         """Tied output head: hidden @ embedding^T (flax `Embed.attend`)."""
         dt = self.dtype
+        if self.tp is not None:
+            return reduce_out(F.linear(
+                part(hidden, self.tp).to(dt),
+                self.token_embedding.weight.to(dt)), self.tp.group)
         return F.linear(hidden.to(dt), self.token_embedding.weight.to(dt))
 
 
@@ -264,7 +325,12 @@ class ProsodyGatedAttention(nn.Module):
       q *= 1 + 0.2*tanh(arousal)             arousal boost
       q *= 1 + 0.05*tanh(valence)            valence gain
       q *= 1 + 0.5*sigmoid(W_m h)            memory gate
-    """
+    Tensor-parallel (`tp`), the rank runs its H/n heads; with a `mesh`
+    whose 'seq' axis is larger than 1, the causal core is ring attention
+    over it (the batch axes are the mesh's other axes but 'model' and
+    'stage')."""
+
+    tp = None
 
     def __init__(self, config: ModelConfig, device=None):
         super().__init__()
@@ -278,6 +344,8 @@ class ProsodyGatedAttention(nn.Module):
         self.memory_gate = Dense(D, 1, dt, device)
         self.o_proj = Dense(D, D, dt, device)
         self.dropout = Dropout(config.dropout)
+        self.mesh = None
+        self.seq_axis_name = "seq"
 
     def forward(self, hidden: torch.Tensor,
                 prosody: Optional[torch.Tensor] = None,
@@ -285,16 +353,23 @@ class ProsodyGatedAttention(nn.Module):
                 kv_cache: Optional[KVCache] = None,
                 cache_index=None, dropout_seed: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-        """hidden [B, L, D]; with `kv_cache` ([B, H, T, Hd] each, updated in
-        place) the L new keys and values go to rows [cache_index,
-        cache_index + L) and the queries attend rows [0, their position]."""
+        """hidden [B, L, D]; with `kv_cache` ([B, H, T, Hd] each, H this
+        rank's heads, updated in place) the L new keys and values go to
+        rows [cache_index, cache_index + L) and the queries attend rows
+        [0, their position]."""
         cfg = self.config
+        tp = self.tp
         B, L, D = hidden.shape
         H, Hd = cfg.num_heads, cfg.head_dim
-
-        q = self.q_proj(hidden).view(B, L, H, Hd)
-        k = self.k_proj(hidden).view(B, L, H, Hd)
-        v = self.v_proj(hidden).view(B, L, H, Hd)
+        if tp is not None:
+            H //= tp.size
+            x = copy_in(hidden, tp.group)
+            q, k, v = (column_parallel(p, x, tp) for p in
+                       (self.q_proj, self.k_proj, self.v_proj))
+        else:
+            q, k, v = (p(hidden) for p in
+                       (self.q_proj, self.k_proj, self.v_proj))
+        q, k, v = (t.view(B, L, H, Hd) for t in (q, k, v))
 
         if prosody is not None:
             prosody = prosody.to(compute_dtype(cfg))
@@ -304,15 +379,20 @@ class ProsodyGatedAttention(nn.Module):
             boost = ((1.0 + _scalar(0.2, prosody) * torch.tanh(arousal))
                      * (1.0 + _scalar(0.05, prosody)
                         * torch.tanh(valence)))                   # [B, L, 1]
+            if tp is not None:
+                gain = part(gain, tp)
+                boost = copy_in(boost, tp.group)
             q = q * (1.0 + gain)[..., None] * boost[..., None]
 
         if use_memory:
             mem_w = torch.sigmoid(self.memory_gate(hidden))        # [B, L, 1]
+            if tp is not None:
+                mem_w = copy_in(mem_w, tp.group)
             q = q * (1.0 + 0.5 * mem_w)[..., None]
 
-        q, k, v = (t.transpose(1, 2) for t in (q, k, v))           # [B,H,L,Hd]
         new_cache = None
         if kv_cache is not None:
+            q, k, v = (t.transpose(1, 2) for t in (q, k, v))       # [B,H,L,Hd]
             ck, cv = kv_cache
             idx = int(cache_index)
             if not 0 <= idx <= ck.shape[2] - L:
@@ -326,15 +406,31 @@ class ProsodyGatedAttention(nn.Module):
             ctx = F.scaled_dot_product_attention(
                 q, ck[:, :, :idx + L], cv[:, :, :idx + L],
                 attn_mask=_cache_mask(idx, L, hidden.device))
+            ctx = ctx.transpose(1, 2)
+        elif mesh_seq_axis(self.mesh, self.seq_axis_name) > 1:
+            names = self.mesh.mesh_dim_names
+            ctx = sequence_sharded_attention(
+                q, k, v, self.mesh, seq_axis=self.seq_axis_name,
+                batch_axes=tuple(a for a in names if a not in (
+                    self.seq_axis_name, "model", "stage")),
+                head_axis="model" if "model" in names else None,
+                causal=True)
         else:
-            ctx = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            q, k, v = (t.transpose(1, 2) for t in (q, k, v))       # [B,H,L,Hd]
+            ctx = F.scaled_dot_product_attention(
+                q, k, v, is_causal=True).transpose(1, 2)
 
-        ctx = ctx.transpose(1, 2).reshape(B, L, D)
-        return self.dropout(self.o_proj(ctx), dropout_seed), new_cache
+        ctx = ctx.reshape(B, L, H * Hd)
+        out = (row_parallel(self.o_proj, ctx, tp) if tp is not None
+               else self.o_proj(ctx))
+        return self.dropout(out, dropout_seed), new_cache
 
 
 class MLP(nn.Module):
-    """GELU MLP (tanh approximation, as flax's `nn.gelu`)."""
+    """GELU MLP (tanh approximation, as flax's `nn.gelu`); tensor-parallel
+    (`tp`), column-parallel `up` and row-parallel `down`."""
+
+    tp = None
 
     def __init__(self, config: ModelConfig, device=None):
         super().__init__()
@@ -347,8 +443,14 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 dropout_seed: Optional[int] = None) -> torch.Tensor:
-        return self.dropout(
-            self.down(F.gelu(self.up(x), approximate="tanh")), dropout_seed)
+        tp = self.tp
+        if tp is None:
+            h = self.down(F.gelu(self.up(x), approximate="tanh"))
+        else:
+            h = F.gelu(column_parallel(self.up, copy_in(x, tp.group), tp),
+                       approximate="tanh")
+            h = row_parallel(self.down, h, tp)
+        return self.dropout(h, dropout_seed)
 
 
 class Synapsis(nn.Module):
@@ -420,7 +522,15 @@ class Synapsis(nn.Module):
 class SNNFFN(nn.Module):
     """Spiking FFN: two Synapsis -> GIF stages over T time steps, mean over
     time. The first stage's linears run once per token and its GIF scan
-    takes the constant current T times (as the JAX package does)."""
+    takes the constant current T times (as the JAX package does).
+
+    Tensor-parallel (`tp`): `syn1` column-parallel (this rank's I/n
+    units), `gif1_in` row-parallel over them, its sum over the ranks of
+    which each rank keeps its I/n units (`reduce_scatter_dim`; GSPMD
+    all-reduces and re-slices), the first GIF scan on those units (the
+    neurons are independent), and `syn2` row-parallel over them."""
+
+    tp = None
 
     def __init__(self, config: ModelConfig, device=None):
         super().__init__()
@@ -439,10 +549,25 @@ class SNNFFN(nn.Module):
                 dropout_seed: Optional[int] = None) -> torch.Tensor:
         B, L, D = x.shape
         dt = self.dtype
-        h1 = self.gif1_in(self.syn1(x.reshape(B * L, D)))
+        tp = self.tp
+        if tp is None:
+            h1 = self.gif1_in(self.syn1(x.reshape(B * L, D)))
+        else:
+            syn1, gif1 = self.syn1, self.gif1_in
+            h1 = F.linear(copy_in(x.reshape(B * L, D), tp.group).to(dt),
+                          syn1.kernel.to(dt).t(),
+                          part(syn1.bias, tp, 0).to(dt))          # [N, I/n]
+            h1 = reduce_scatter_dim(F.linear(h1, gif1.weight.to(dt)),
+                                    tp.group, -1) \
+                + part(gif1.bias, tp, 0).to(dt)
         s1, _ = gif_scan_const(self.gif, h1.to(dt),
                                self.config.snn_timesteps)         # [N, T, I]
-        h2 = self.gif2_in(self.syn2(s1))
+        if tp is None:
+            h2 = self.syn2(s1)
+        else:
+            h2 = reduce_out(F.linear(s1.to(dt), self.syn2.kernel.to(dt).t()),
+                            tp.group) + self.syn2.bias.to(dt)
+        h2 = self.gif2_in(h2)
         s2, _ = gif_scan(self.gif, h2.to(dt))                     # [N, T, D]
         return self.dropout(s2.float().mean(dim=1).reshape(B, L, D).to(dt),
                             dropout_seed)
@@ -500,7 +625,10 @@ class MultiHeadDotProductAttention(nn.Module):
     """flax `nn.MultiHeadDotProductAttention(num_heads, dtype)` over
     inputs_q [B, L, D] and inputs_kv [B, S, D]. flax's kernels are [D, H,
     Hd] (query, key, value) and [H, Hd, D] (out); here they are flattened
-    to `Dense` weights [H*Hd, D] and [D, H*Hd]."""
+    to `Dense` weights [H*Hd, D] and [D, H*Hd]. Tensor-parallel (`tp`),
+    the rank runs its H/n heads and a row-parallel `out`."""
+
+    tp = None
 
     def __init__(self, num_heads: int, features: int, dtype: torch.dtype,
                  device=None):
@@ -514,14 +642,26 @@ class MultiHeadDotProductAttention(nn.Module):
     def forward(self, inputs_q: torch.Tensor,
                 inputs_kv: torch.Tensor) -> torch.Tensor:
         B, L, D = inputs_q.shape
-        H = self.num_heads
+        H, Hd = self.num_heads, D // self.num_heads
+        tp = self.tp
+        if tp is not None:
+            H //= tp.size
+            xq, xkv = copy_in(inputs_q, tp.group), copy_in(inputs_kv,
+                                                             tp.group)
+            q, k, v = (column_parallel(self.query, xq, tp),
+                       column_parallel(self.key, xkv, tp),
+                       column_parallel(self.value, xkv, tp))
+        else:
+            q, k, v = (self.query(inputs_q), self.key(inputs_kv),
+                       self.value(inputs_kv))
 
         def heads(t):
-            return t.view(B, t.shape[1], H, D // H).transpose(1, 2)
+            return t.view(B, t.shape[1], H, Hd).transpose(1, 2)
         ctx = F.scaled_dot_product_attention(
-            heads(self.query(inputs_q)), heads(self.key(inputs_kv)),
-            heads(self.value(inputs_kv)))                         # [B,H,L,Hd]
-        return self.out(ctx.transpose(1, 2).reshape(B, L, D))
+            heads(q), heads(k), heads(v))                         # [B,H,L,Hd]
+        ctx = ctx.transpose(1, 2).reshape(B, L, H * Hd)
+        return (row_parallel(self.out, ctx, tp) if tp is not None
+                else self.out(ctx))
 
 
 RetrieveFn = Callable[[MemoryConfig, Any, torch.Tensor, int], Any]
@@ -536,7 +676,9 @@ class MemoryAugmentedLayer(nn.Module):
     Retrieval is one batched call over the whole batch: `retrieve_fn(
     memory_config, memory_state, queries, k)` when given, else the
     engine's `retrieve_auto`. The query is the mean of the chunk's hidden
-    states, so in decode it is the one new token's."""
+    states, so in decode it is the one new token's; with a `mesh` whose
+    'seq' axis is larger than 1 it is the mean over every rank's chunk,
+    the whole sequence's."""
 
     def __init__(self, config: ModelConfig, memory_config: MemoryConfig,
                  use_snn_ffn: bool = False,
@@ -562,6 +704,18 @@ class MemoryAugmentedLayer(nn.Module):
             raise ValueError(f"memory_injection {mode!r}")
         self.ffn_norm = LayerNorm(D, dt, device)
         self.ffn = _ffn(config, use_snn_ffn, device)
+        self.mesh = None
+        self.seq_axis_name = "seq"
+
+    def _sequence_mean(self, hidden: torch.Tensor) -> torch.Tensor:
+        """[B, D] mean over the sequence: over every rank's chunk when the
+        mesh shards it."""
+        n = mesh_seq_axis(self.mesh, self.seq_axis_name)
+        if n == 1:
+            return hidden.mean(dim=1)
+        total = all_reduce_sum(hidden.float().sum(dim=1),
+                               self.mesh.get_group(self.seq_axis_name))
+        return (total / (hidden.shape[1] * n)).to(hidden.dtype)
 
     def forward(self, hidden, memory_state=None, prosody=None,
                 use_memory: bool = True, kv_cache=None, cache_index=None,
@@ -574,7 +728,7 @@ class MemoryAugmentedLayer(nn.Module):
         hidden = hidden + attn_out
 
         if use_memory and memory_state is not None:
-            query = self.query_proj(hidden.mean(dim=1))            # [B, D]
+            query = self.query_proj(self._sequence_mean(hidden))   # [B, D]
             if self.retrieve_fn is not None:
                 result = self.retrieve_fn(self.memory_config, memory_state,
                                           query.float(), cfg.num_retrieved)

@@ -19,6 +19,14 @@ with `torch.utils.checkpoint`, "dots" with selective checkpointing that
 saves the outputs of the matmuls and of attention (`_SAVED_OPS`) and
 recomputes the rest (norms, gates, GIF steps). A recompute sees the same
 seed, so it draws the same dropout masks.
+
+Model parallelism: `parallel.mesh.shard_params(model, mesh)` makes the
+layers tensor-parallel over the mesh's 'model' axis (the KV caches then
+hold this rank's H/n heads), and a `mesh` (the constructor's, or
+`set_mesh`) with a 'seq' axis larger than 1 makes the model sequence-
+parallel: each rank runs its chunk of the sequence, at its global
+positions, every attention core runs ring attention, and the RAG
+layers' query and `memory_summary` are means over the whole sequence.
 """
 
 from __future__ import annotations
@@ -34,8 +42,11 @@ from aura_snn_rag_tpu_torch._device import resolve_device
 from aura_snn_rag_tpu_torch.config import MemoryConfig, ModelConfig
 from aura_snn_rag_tpu_torch.models.layers import (
     Dense, Dropout, KVCache, LayerNorm, MemoryAugmentedLayer,
-    PlaceCellEncoder, RetrieveFn, ThetaGammaPositional, TransformerLayer,
-    compute_dtype, initialize)
+    PlaceCellEncoder, ProsodyGatedAttention, RetrieveFn,
+    ThetaGammaPositional, TransformerLayer, compute_dtype, initialize)
+from aura_snn_rag_tpu_torch.parallel.collectives import all_reduce_sum
+from aura_snn_rag_tpu_torch.parallel.mesh import axis_index
+from aura_snn_rag_tpu_torch.parallel.ring_attention import mesh_seq_axis
 
 # remat policy "dots": the ops whose outputs are saved (the Dense products
 # and the attention core); everything else is recomputed
@@ -71,13 +82,15 @@ class TransformerOutput(NamedTuple):
 class HippocampalTransformer(nn.Module):
     """The LM. Parameters are f32 on `device` (CUDA unless the caller asks
     for the CPU), drawn from `generator` (a `torch.Generator` on that
-    device; seed 0 when None); `device="meta"` builds the shapes only."""
+    device; seed 0 when None); `device="meta"` builds the shapes only.
+    `mesh` routes the attention over its 'seq' axis (`set_mesh`)."""
 
     def __init__(self, config: ModelConfig,
                  memory_config: Optional[MemoryConfig] = None,
                  retrieve_fn: Optional[RetrieveFn] = None,
                  device: Union[str, torch.device, None] = "cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 mesh=None, seq_axis_name: str = "seq"):
         super().__init__()
         dev = resolve_device(device)
         self.config = cfg = config
@@ -106,6 +119,21 @@ class HippocampalTransformer(nn.Module):
             if generator is None:
                 generator = torch.Generator(device=dev).manual_seed(0)
             initialize(self, generator)
+        self.set_mesh(mesh, seq_axis_name)
+
+    def set_mesh(self, mesh, seq_axis_name: str = "seq") -> None:
+        """Sequence-parallel routing: with a mesh whose `seq_axis_name`
+        axis is larger than 1, every attention core runs ring attention
+        over it and every sequence mean covers the whole sequence (None
+        turns it off). The JAX package's model takes the mesh as a field
+        and `Trainer.shard_to_mesh` clones the model with it."""
+        self.mesh, self.seq_axis_name = mesh, seq_axis_name
+        for m in self.modules():
+            if isinstance(m, (ProsodyGatedAttention, MemoryAugmentedLayer)):
+                m.mesh, m.seq_axis_name = mesh, seq_axis_name
+
+    def _seq_shards(self) -> int:
+        return mesh_seq_axis(self.mesh, self.seq_axis_name)
 
     @property
     def device(self) -> torch.device:
@@ -118,15 +146,22 @@ class HippocampalTransformer(nn.Module):
                 kv_caches: Optional[Tuple[KVCache, ...]] = None,
                 cache_index=None, dropout_seed: Optional[int] = None
                 ) -> Tuple[TransformerOutput, Optional[Tuple[KVCache, ...]]]:
-        """input_ids [B, L]; positions default to 0..L-1. With `kv_caches`
-        (`init_kv_caches`, updated in place) the L tokens sit at rows
-        [cache_index, cache_index + L) and the caches come back. In
-        training mode a `dropout_seed` turns dropout on."""
+        """input_ids [B, L]; positions default to 0..L-1 (sequence-parallel,
+        to this rank's chunk's global positions, rank * L + 0..L-1). With
+        `kv_caches` (`init_kv_caches`, updated in place) the L tokens sit
+        at rows [cache_index, cache_index + L) and the caches come back.
+        In training mode a `dropout_seed` turns dropout on."""
         cfg = self.config
         B, L = input_ids.shape
+        n_seq = self._seq_shards()
+        if n_seq > 1 and kv_caches is not None:
+            raise ValueError("a KV cache decodes one sequence on one rank; "
+                             "a 'seq'-sharded model has none")
         hidden, place_activity = self.semantic_encoder(input_ids)
         if positions is None:
-            positions = torch.arange(L, device=input_ids.device) \
+            start = (L * axis_index(self.mesh, self.seq_axis_name)
+                     if n_seq > 1 else 0)
+            positions = (start + torch.arange(L, device=input_ids.device)) \
                 .expand(B, L)
         hidden = self.input_norm(hidden + self.pos_encoder(positions))
         hidden = self.input_dropout(hidden, dropout_seed)
@@ -159,19 +194,28 @@ class HippocampalTransformer(nn.Module):
             logits = self.semantic_encoder.attend(hidden)
         else:
             logits = self.lm_head(hidden)
+        if n_seq > 1:                 # the mean over every rank's chunk
+            summary = all_reduce_sum(
+                hidden.float().sum(dim=1),
+                self.mesh.get_group(self.seq_axis_name)) / (L * n_seq)
+        else:
+            summary = hidden.mean(dim=1).float()
         out = TransformerOutput(
             logits=logits.float(),
             place_activity=place_activity,
-            memory_summary=hidden.mean(dim=1).float(),
+            memory_summary=summary,
             hidden=hidden)
         return out, (tuple(new_caches) if new_caches is not None else None)
 
     def init_kv_caches(self, batch_size: int, max_len: int
                        ) -> Tuple[KVCache, ...]:
         """Empty per-layer (K, V) caches [B, H, max_len, Hd] in the compute
-        dtype (the JAX package's are [B, max_len, H, Hd])."""
+        dtype (the JAX package's are [B, max_len, H, Hd]); H is this
+        rank's heads under tensor parallelism."""
         cfg = self.config
-        shape = (batch_size, cfg.num_heads, max_len, cfg.head_dim)
+        tp = self.layers[0].attention.tp if len(self.layers) else None
+        heads = cfg.num_heads // (tp.size if tp is not None else 1)
+        shape = (batch_size, heads, max_len, cfg.head_dim)
         dt = compute_dtype(cfg)
         return tuple((torch.zeros(shape, dtype=dt, device=self.device),
                       torch.zeros(shape, dtype=dt, device=self.device))

@@ -33,6 +33,12 @@ S) raises. Every rank of the mesh calls `save` and `restore`, and reads
 the same directory; ranks of the job outside the mesh take no part. A
 single-process trainer's checkpoint has no `memory_layout` and is
 written as before.
+
+A tensor-parallel trainer (a 'model' axis larger than 1) saves the whole,
+unsharded parameters and moments, in the unsharded trainer's layout
+(`Trainer.full_tensors`, gathered over the 'model' axis), and restores
+by taking its parts of them (`Trainer.local_tensors`): a checkpoint
+moves between meshes, as the JAX package's global arrays do.
 """
 
 from __future__ import annotations
@@ -145,6 +151,16 @@ def _gather_bank(trainer) -> Optional[Dict[str, torch.Tensor]]:
     return out if rank == writer else None
 
 
+def _full_like(trainer, flat: torch.Tensor) -> torch.Tensor:
+    """A tensor of the unsharded layout's shape and `flat`'s dtype, for
+    the checks (no collective)."""
+    if trainer._tp is None:
+        return flat
+    n = sum(p.numel() * (trainer._tp.size if d is not None else 1)
+            for p, d in zip(trainer.optimizer.params, trainer._tp_dims))
+    return torch.empty(n, dtype=flat.dtype, device="meta")
+
+
 class CheckpointManager:
     """Saves and restores a port `Trainer` (`training/trainer.py`) under
     `directory`, keeping the newest `max_to_keep` steps."""
@@ -174,15 +190,16 @@ class CheckpointManager:
         memory = (_gather_bank(trainer) if layout is not None else
                   {name: _host(t) for name, t in
                    zip(MemoryState._fields, hippo.state)})
+        count, mu, nu = opt.state
+        full = [trainer.full_tensors(t) for t in (opt.flat, mu, nu)]
         if not _writer(trainer):
             mesh_barrier(trainer.mesh)
             return
-        count, mu, nu = opt.state
         payload = {
-            "params": _host(opt.flat),
+            "params": _host(full[0]),
             "count": _host(count),
-            "mu": _host(mu),
-            "nu": _host(nu),
+            "mu": _host(full[1]),
+            "nu": _host(full[2]),
             "step": int(step),
             "memory_state": memory,
             "cognitive_map": {name: _host(t) for name, t in
@@ -253,9 +270,9 @@ class CheckpointManager:
                                      f"{layout['shards']} shards")
             memory = {name: t[s] for name, t in memory.items()}
         count, mu, nu = opt.state
-        for name, want in (("params", opt.flat), ("count", count),
-                           ("mu", mu), ("nu", nu)):
-            _expect(name, payload[name], want)
+        _expect("count", payload["count"], count)
+        for name, want in (("params", opt.flat), ("mu", mu), ("nu", nu)):
+            _expect(name, payload[name], _full_like(trainer, want))
         for group, values, fields, state in (
                 ("memory_state", memory, MemoryState._fields, hippo.state),
                 ("cognitive_map", payload["cognitive_map"],
@@ -276,12 +293,13 @@ class CheckpointManager:
                              f"bank of {mcfg.max_memories} in "
                              f"{mcfg.spatial_dims} dims")
 
+        local = trainer.local_tensors
         with torch.no_grad():
-            opt.flat.copy_(payload["params"])
+            opt.flat.copy_(local(payload["params"]))
             if load_optimizer:
                 count.copy_(payload["count"])
-                mu.copy_(payload["mu"])
-                nu.copy_(payload["nu"])
+                mu.copy_(local(payload["mu"]))
+                nu.copy_(local(payload["nu"]))
         trainer._step = int(payload["step"])
         trainer._pending = trainer._last_fetched = None
         hippo.load_state_dict({

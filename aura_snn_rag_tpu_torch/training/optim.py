@@ -20,13 +20,20 @@ An update follows optax's order of operations in f32:
 A non-finite loss leaves the parameters, both moments and the count as
 they were, selected on the device with `torch.where`, so the step needs
 no host sync.
+
+Under tensor parallelism (`sharded`, `group`) a rank holds its part of
+the sharded parameters and the whole of the replicated ones; the clip
+takes the global norm, as optax does on JAX's global arrays: the sharded
+parameters' sum of squares all-reduced over the 'model' axis, plus the
+replicated ones' counted once.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, NamedTuple, Union
+from typing import Callable, Iterable, NamedTuple, Optional, Sequence, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 B1, B2, EPS = 0.9, 0.999, 1e-8      # optax.adamw's defaults, as the JAX
@@ -44,12 +51,16 @@ class ClippedAdamW:
     buffer (see the module doc). `params` are f32 `Parameter`s on one
     device; `schedule(count)` gives the learning rate; `mu_dtype`
     "bfloat16" keeps the first moment in bf16, anything else in f32 (as
-    the JAX package's trainer reads `optimizer_mu_dtype`)."""
+    the JAX package's trainer reads `optimizer_mu_dtype`). `sharded`
+    flags the parameters that hold a part of a tensor-parallel one, and
+    `group` is the 'model' axis's process group their norm is summed
+    over."""
 
     def __init__(self, params: Iterable[nn.Parameter],
                  schedule: Callable[[torch.Tensor], torch.Tensor],
                  weight_decay: float = 0.01, gradient_clip: float = 1.0,
-                 mu_dtype: str = "float32"):
+                 mu_dtype: str = "float32",
+                 sharded: Optional[Sequence[bool]] = None, group=None):
         self.params = list(params)
         if any(p.dtype != torch.float32 for p in self.params):
             raise TypeError("ClippedAdamW holds f32 parameters only")
@@ -68,6 +79,12 @@ class ClippedAdamW:
         self.schedule = schedule
         self.weight_decay = weight_decay
         self.gradient_clip = gradient_clip
+        self.group = group
+        self.sharded = None
+        if sharded is not None and any(sharded):
+            self.sharded = torch.cat([
+                torch.full((p.numel(),), bool(f), device=dev)
+                for p, f in zip(self.params, sharded)])
         self.state = AdamWState(
             torch.zeros((), dtype=torch.int32, device=dev),
             torch.zeros(n, dtype=torch.bfloat16 if mu_dtype == "bfloat16"
@@ -76,6 +93,16 @@ class ClippedAdamW:
 
     def zero_grad(self) -> None:
         self.grad.zero_()
+
+    def global_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of a tensor laid out as `flat` over the whole model:
+        the sharded parameters' parts summed over the 'model' axis (every
+        rank of it calls this), the replicated ones counted once."""
+        if self.sharded is None:
+            return x.sum()
+        part = torch.where(self.sharded, x, 0.0).sum()
+        dist.all_reduce(part, group=self.group)
+        return torch.where(self.sharded, 0.0, x).sum() + part
 
     @torch.no_grad()
     def step(self, loss: torch.Tensor,
@@ -86,7 +113,7 @@ class ClippedAdamW:
         count, mu, nu = self.state
         # a sum of squares: PyTorch's f32 vector_norm on the CPU drifts
         # by ~5e-5 over 10^5-10^6 entries
-        norm = torch.sqrt((g * g).sum())
+        norm = torch.sqrt(self.global_sum(g * g))
         g = torch.where(norm < self.gradient_clip, g,
                         g / norm * self.gradient_clip)
         count_inc = count + 1

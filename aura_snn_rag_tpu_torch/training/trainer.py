@@ -26,17 +26,29 @@ What differs from the JAX package: no jit (each step runs eagerly), the
 parameters live in the optimizer's flat buffer, and the dropout masks
 come from per-step seeds (`layers.Dropout`) and are not JAX's bits.
 
-`shard_to_mesh` runs data parallelism over a DeviceMesh, one process per
-device: each rank takes its rows of every batch, the batch-level values
-(the amygdala's mean sentiment, the thalamus gate, the loss behind the
-endocrine step and the finite check) and the gradient are all-reduced
-to their global values, and the bank is sharded over the batch axes
-(`memory/sharded.py`). Tensor, sequence and pipeline parallelism (a
-'model', 'seq' or 'stage' axis larger than 1) are not ported yet.
+`shard_to_mesh` trains over a DeviceMesh, one process per device, on
+every mesh the JAX package's `Trainer.shard_to_mesh` takes:
+- data parallelism over the batch axes (every axis but 'model', 'seq'
+  and 'stage'): each rank takes its rows of every batch, the batch-level
+  values (the amygdala's mean sentiment, the thalamus gate, the loss
+  behind the endocrine step and the finite check) and the gradient are
+  all-reduced to their global values, and the bank is sharded over the
+  batch axes (`memory/sharded.py`);
+- tensor parallelism over 'model' (`parallel.mesh.shard_params`): the
+  optimizer is rebuilt over this rank's parts, its clip takes the global
+  norm, and a checkpoint holds the whole tensors;
+- sequence parallelism over 'seq': each rank takes its chunk of the
+  sequence, the model runs ring attention, the next-token targets cross
+  the chunks' edges (the last position of a chunk predicts the first
+  token of the next; the reversed replay's too), the losses are means
+  over the whole sequence, and the gradient is summed over the chunks;
+- 'stage' is a replicated axis, as in the JAX trainer (its pipeline is
+  `models/pipelined.py`'s functions, not the trainer).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, NamedTuple, Optional, Union
 
 import numpy as np
@@ -55,9 +67,10 @@ from aura_snn_rag_tpu_torch.models.brain.thalamus import Thalamus
 from aura_snn_rag_tpu_torch.models.layers import initialize
 from aura_snn_rag_tpu_torch.models.transformer import HippocampalTransformer
 from aura_snn_rag_tpu_torch.parallel.collectives import (
-    all_reduce_mean_, gather_rows)
+    all_reduce_mean_, gather_dim, gather_rows)
 from aura_snn_rag_tpu_torch.parallel.mesh import (
-    axis_size, batch_slice, mesh_device, shard_params)
+    axis_index, axis_size, batch_slice, mesh_device, param_specs,
+    shard_dim, shard_params, take_shard, tensor_parallel)
 from aura_snn_rag_tpu_torch.training.losses import hippocampal_loss
 from aura_snn_rag_tpu_torch.training.optim import AdamWState, ClippedAdamW
 from aura_snn_rag_tpu_torch.training.schedule import warmup_cosine_schedule
@@ -144,11 +157,13 @@ class EWCConsolidator:
         self.fisher = sq_sum / n
         self.theta_star = params.detach().clone()
 
-    def penalty(self, params: torch.Tensor) -> torch.Tensor:
+    def penalty(self, params: torch.Tensor, total=torch.sum) -> torch.Tensor:
+        """`total` sums the [N] terms (the optimizer's `global_sum` under
+        tensor parallelism)."""
         if self.fisher is None:
             return torch.zeros((), device=params.device)
-        return self.ewc_lambda * (self.fisher
-                                  * (params - self.theta_star) ** 2).sum()
+        return self.ewc_lambda * total(self.fisher
+                                       * (params - self.theta_star) ** 2)
 
     def penalty_grad(self, params: torch.Tensor) -> torch.Tensor:
         return (2.0 * self.ewc_lambda) * self.fisher \
@@ -226,6 +241,9 @@ class Trainer:
         self.mesh = None
         self._batch_axes: tuple = ()
         self._memory_mesh = None
+        self._seq_axis: Optional[str] = None
+        self._tp = None
+        self._tp_dims: List[Optional[int]] = []
 
     @property
     def state(self) -> TrainState:
@@ -233,8 +251,8 @@ class Trainer:
                           self._step)
 
     def shard_to_mesh(self, mesh, shard_memory: bool = True) -> None:
-        """Data-parallel training over `mesh` (a DeviceMesh over every
-        rank; each rank calls this, with the trainer on its device).
+        """Training over `mesh` (a DeviceMesh; each of its ranks calls this,
+        with the trainer on its device).
 
         Every axis but 'model', the sequence axis and the stage axis is a
         batch axis ('data', or ('replica', 'data') on a multislice mesh).
@@ -246,25 +264,32 @@ class Trainer:
         and the gradient (a mean over the batch axes, before clipping),
         and so takes the step JAX's whole-batch program takes.
 
+        A 'model' axis larger than 1 splits the model's tensor-parallel
+        weights (`shard_params`) and rebuilds the optimizer over this
+        rank's parts, its moments cut from the replicated ones. A
+        sequence axis larger than 1 (it must divide `max_seq_len`, as JAX
+        asserts) gives each rank its chunk of every sequence and routes
+        the model's attention through ring attention over it. A stage
+        axis is replicated.
+
         With `shard_memory` the bank becomes a fresh bank sharded over the
         batch axes (per-shard capacity `memory.max_memories`; an existing
         bank is not migrated, as in the JAX package): the RAG layers
         retrieve through `retrieve_sharded` and a store step writes each
         shard's rows through `write_memories_sharded`. Without it every
         rank keeps its own whole bank, writes the whole batch's rows into
-        it and retrieves its own rows through `retrieve_auto`.
-
-        A 'model', sequence or stage axis larger than 1 raises
-        `NotImplementedError`: tensor, sequence and pipeline parallelism
-        come with the port's model-parallel slice."""
+        it and retrieves its own rows through `retrieve_auto`."""
+        if self._tp is not None:
+            raise RuntimeError("the trainer's model is already split over "
+                               "a 'model' axis; place a new trainer")
         pcfg = self.config.parallel
         names = tuple(mesh.mesh_dim_names)
-        for axis in ("model", pcfg.seq_axis_name, pcfg.stage_axis_name):
-            if axis in names and axis_size(mesh, axis) > 1:
-                raise NotImplementedError(
-                    f"a {axis!r} axis of {axis_size(mesh, axis)}: tensor, "
-                    f"sequence and pipeline parallelism come with the "
-                    f"port's model-parallel slice")
+        seq_ax = pcfg.seq_axis_name
+        n_seq = axis_size(mesh, seq_ax) if seq_ax in names else 1
+        if self.config.model.max_seq_len % n_seq:
+            raise ValueError(f"max_seq_len {self.config.model.max_seq_len} "
+                             f"does not divide over {n_seq} {seq_ax!r} "
+                             f"shards")
         here = mesh_device(mesh)
         if here.type != self.device.type or (
                 self.device.index is not None
@@ -272,13 +297,18 @@ class Trainer:
             raise ValueError(f"mesh device {here}, trainer on "
                              f"{self.device}")
         self._batch_axes = tuple(
-            a for a in names if a not in ("model", pcfg.seq_axis_name,
+            a for a in names if a not in ("model", seq_ax,
                                           pcfg.stage_axis_name))
+        self._seq_axis = seq_ax if n_seq > 1 else None
         count, mu, nu = self.optimizer.state
         shard_params([self.optimizer.flat, count, mu, nu], mesh)
         for module in (self.amygdala, self.thalamus):
             if module is not None:
                 shard_params(module, mesh)
+        self._tp = tensor_parallel(mesh)
+        if self._tp is not None:
+            self._split_model(mesh)
+        self.model.set_mesh(mesh if n_seq > 1 else None, seq_ax)
         self._memory_mesh = None
         fn = None
         if shard_memory and self.config.model.use_rag:
@@ -290,6 +320,65 @@ class Trainer:
             if hasattr(layer, "retrieve_fn"):
                 layer.retrieve_fn = fn
         self.mesh = mesh
+
+    def _split_model(self, mesh) -> None:
+        """Tensor parallelism: the model's sharded weights cut to this
+        rank's parts, and a new `ClippedAdamW` over them whose moments and
+        count are the old optimizer's, cut the same way."""
+        old = self.optimizer
+        specs = param_specs(self.model, mesh)
+        self._tp_dims = [shard_dim(specs[n])
+                         for n, _ in self.model.named_parameters()]
+        # the parameters leave the old flat buffer before it is split
+        with torch.no_grad():
+            for p in old.params:
+                p.data = p.data.clone()
+                p.grad = None
+        shard_params(self.model, mesh)
+        tcfg = self.config.training
+        self.optimizer = ClippedAdamW(
+            self.model.parameters(), self.schedule, tcfg.weight_decay,
+            tcfg.gradient_clip, tcfg.optimizer_mu_dtype,
+            sharded=[d is not None for d in self._tp_dims],
+            group=self._tp.group)
+        with torch.no_grad():     # the old buffers: the unsharded layout
+            for new, was in zip(self.optimizer.state, old.state):
+                new.copy_(was if was.dim() == 0
+                          else self.local_tensors(was))
+
+    def full_tensors(self, flat: torch.Tensor) -> torch.Tensor:
+        """A buffer laid out as the optimizer's (`flat`, `mu` or `nu`) as
+        the unsharded trainer lays it out: each tensor-parallel part
+        gathered over the 'model' axis (every rank of the axis calls
+        this). The buffer itself when the trainer is not tensor-
+        parallel."""
+        if self._tp is None:
+            return flat
+        parts, off = [], 0
+        for p, dim in zip(self.optimizer.params, self._tp_dims):
+            k = p.numel()
+            x = flat[off:off + k].view(p.shape)
+            if dim is not None:
+                x = gather_dim(x, self._tp.group, dim)
+            parts.append(x.reshape(-1))
+            off += k
+        return torch.cat(parts)
+
+    def local_tensors(self, full: torch.Tensor) -> torch.Tensor:
+        """The inverse of `full_tensors`: this rank's parts of an unsharded
+        buffer, laid out as the optimizer's."""
+        if self._tp is None:
+            return full
+        parts, off = [], 0
+        for p, dim in zip(self.optimizer.params, self._tp_dims):
+            shape = list(p.shape)
+            if dim is not None:
+                shape[dim] *= self._tp.size
+            k = math.prod(shape)
+            x = full[off:off + k].view(shape)
+            parts.append(take_shard(x, dim, self._tp).reshape(-1))
+            off += k
+        return torch.cat(parts)
 
     def _global_mean(self, x: torch.Tensor) -> torch.Tensor:
         """A batch-level value's mean over the batch axes (itself when the
@@ -303,11 +392,48 @@ class Trainer:
     # one optimizer step
     # ------------------------------------------------------------------
     def _batch(self, x) -> torch.Tensor:
-        """The batch on the device: on a mesh, this rank's rows of it."""
+        """The batch on the device: on a mesh, this rank's rows of it (the
+        whole sequences; `_chunk` cuts a sequence-sharded rank's part)."""
         x = torch.as_tensor(x)
         if self.mesh is not None:
             x = x[batch_slice(x.shape[0], self.mesh, self._batch_axes)]
         return x.to(self.device, torch.long)
+
+    def _chunk(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's chunk of the sequence dimension (dim 1) of `x`; all
+        of it without a sequence axis."""
+        if self._seq_axis is None:
+            return x
+        n = axis_size(self.mesh, self._seq_axis)
+        if x.shape[1] % n:
+            raise ValueError(f"sequence of {x.shape[1]} does not divide "
+                             f"over {n} {self._seq_axis!r} shards")
+        return x.chunk(n, dim=1)[axis_index(self.mesh, self._seq_axis)]
+
+    def _lm_loss(self, logits: torch.Tensor, labels: torch.Tensor,
+                 place_activity=None, **kw) -> torch.Tensor:
+        """`hippocampal_loss` of next-token prediction: `logits` this rank's
+        [B, Lc, V], `labels` the whole sequences [B, L]. Without a sequence
+        axis, logits[:, :-1] against labels[:, 1:]. With one, position p's
+        target is label p + 1 wherever it lies (the global last position
+        has none) and the value is this rank's share of the loss over the
+        whole sequence (the shares add up to it)."""
+        if self._seq_axis is None:
+            return hippocampal_loss(logits[:, :-1], labels[:, 1:],
+                                    place_activity, **kw)
+        targets = self._chunk(torch.nn.functional.pad(
+            labels[:, 1:], (0, 1), value=-100))
+        return hippocampal_loss(logits, targets, place_activity,
+                                group=self.mesh.get_group(self._seq_axis),
+                                **kw)
+
+    def _seq_sum_(self, x: torch.Tensor) -> torch.Tensor:
+        """In place: the sum over the sequence axis of the ranks' shares
+        (of a loss, or of a gradient); `x` itself without the axis."""
+        if self._seq_axis is not None:
+            torch.distributed.all_reduce(
+                x, group=self.mesh.get_group(self._seq_axis))
+        return x
 
     def _modulate(self, ids: torch.Tensor):
         """(prosody [B, L, 4] or None, thalamus gate []) from the token
@@ -319,6 +445,8 @@ class Trainer:
         with torch.no_grad():
             emb = self.model.semantic_encoder.token_embedding.weight
             token_embeds = emb[ids].float()
+            if self._tp is not None:      # the table holds D/n features
+                token_embeds = gather_dim(token_embeds, self._tp.group, -1)
             arousal = torch.zeros((), device=self.device)
             if self.amygdala is not None:
                 limbic = self.amygdala(token_embeds)
@@ -336,29 +464,34 @@ class Trainer:
     def _batch_loss(self, ids, labels, prosody, use_memory, memory_state,
                     reverse_replay, dropout_seed):
         """(loss with regularisers, ce, memory_summary) of one
-        (micro-)batch; the EWC penalty is added once per step, not here."""
+        (micro-)batch of whole sequences (ids, labels and prosody [B, L]);
+        the EWC penalty is added once per step, not here. With a sequence
+        axis the model runs this rank's chunk, and the losses are this
+        rank's shares."""
         tcfg = self.config.training
-        out, _ = self.model(ids, prosody=prosody, use_memory=use_memory,
+        chunk = self._chunk
+        prosody = None if prosody is None else chunk(prosody)
+        out, _ = self.model(chunk(ids), prosody=prosody,
+                            use_memory=use_memory,
                             memory_state=memory_state,
                             dropout_seed=dropout_seed)
-        logits = out.logits[:, :-1]
         with torch.no_grad():
-            ce = hippocampal_loss(logits, labels[:, 1:], None,
-                                  label_smoothing=0.0, entropy_lambda=0.0,
-                                  sparsity_lambda=0.0)
-        loss = hippocampal_loss(
-            logits, labels[:, 1:], out.place_activity,
+            ce = self._lm_loss(out.logits, labels, None,
+                               label_smoothing=0.0, entropy_lambda=0.0,
+                               sparsity_lambda=0.0)
+        loss = self._lm_loss(
+            out.logits, labels, out.place_activity,
             label_smoothing=tcfg.label_smoothing,
             entropy_lambda=tcfg.entropy_lambda,
             sparsity_lambda=tcfg.sparsity_lambda,
             target_sparsity=tcfg.target_sparsity)
         if reverse_replay:
-            out_r, _ = self.model(ids.flip(1), prosody=prosody,
+            out_r, _ = self.model(chunk(ids.flip(1)), prosody=prosody,
                                   use_memory=use_memory,
                                   memory_state=memory_state,
                                   dropout_seed=dropout_seed)
-            loss = loss + 0.5 * hippocampal_loss(
-                out_r.logits[:, :-1], labels.flip(1)[:, 1:], None,
+            loss = loss + 0.5 * self._lm_loss(
+                out_r.logits, labels.flip(1), None,
                 label_smoothing=tcfg.label_smoothing,
                 entropy_lambda=tcfg.entropy_lambda, sparsity_lambda=0.0)
         return loss, ce, out.memory_summary.detach()
@@ -396,10 +529,12 @@ class Trainer:
             opt.grad.div_(accum)
             loss, ce = loss / accum, ce / accum
         if self.mesh is not None:
+            self._seq_sum_(opt.grad)
             all_reduce_mean_(opt.grad, self.mesh, self._batch_axes)
-            loss, ce = self._global_mean(loss), self._global_mean(ce)
+            loss = self._global_mean(self._seq_sum_(loss.clone()))
+            ce = self._global_mean(self._seq_sum_(ce.clone()))
         if self.ewc.fisher is not None:
-            loss = loss + self.ewc.penalty(opt.flat)
+            loss = loss + self.ewc.penalty(opt.flat, opt.global_sum)
             opt.grad.add_(self.ewc.penalty_grad(opt.flat))
         opt.step(loss, lr_scale)
 
@@ -561,12 +696,12 @@ class Trainer:
         def grad_fn(batch):
             ids, labels = self._batch(batch[0]), self._batch(batch[1])
             opt.zero_grad()
-            out, _ = self.model(ids, use_memory=use_memory,
+            out, _ = self.model(self._chunk(ids), use_memory=use_memory,
                                 memory_state=memory_state)
-            hippocampal_loss(out.logits[:, :-1], labels[:, 1:],
-                             entropy_lambda=0.0,
-                             label_smoothing=0.0).backward()
+            self._lm_loss(out.logits, labels, entropy_lambda=0.0,
+                          label_smoothing=0.0).backward()
             if self.mesh is not None:
+                self._seq_sum_(opt.grad)
                 all_reduce_mean_(opt.grad, self.mesh, self._batch_axes)
             return opt.grad.clone()
 
@@ -584,7 +719,8 @@ class Trainer:
     def eval_loss(self, input_ids, labels) -> float:
         """Plain cross-entropy without memory, dropout or gradients."""
         with torch.no_grad():
-            out, _ = self.model(self._batch(input_ids), use_memory=False)
-            return float(self._global_mean(hippocampal_loss(
-                out.logits[:, :-1], self._batch(labels)[:, 1:],
-                entropy_lambda=0.0, label_smoothing=0.0)))
+            out, _ = self.model(self._chunk(self._batch(input_ids)),
+                                use_memory=False)
+            return float(self._global_mean(self._seq_sum_(self._lm_loss(
+                out.logits, self._batch(labels), entropy_lambda=0.0,
+                label_smoothing=0.0))))

@@ -175,6 +175,25 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
    spikes; and the CLI's `mnist` in a subprocess on the card, within 3
    points of the JAX script's accuracy on the same digits.
 
+11. model-parallel phase: tensor, sequence, pipeline and expert
+   parallelism on a one-rank process group (NCCL on the card, as phase 10
+   opens it), at `get_full_config()` over phase 4's 100,000 x 768 bank:
+   phase 4's 11 requests, greedy, through `BatchedGenerator(mesh=
+   global_mesh(1))` and a plain server (the same tokens, kernel B 12 x
+   (1 + steps) per batch in each, ms per decode step of both);
+   `sequence_sharded_attention` on a ('data', 'seq', 'model') mesh at B =
+   8, L = 512, 12 x 64 heads against causal SDPA (forward and q/k/v
+   gradients within 1e-5 of each tensor's largest entry in f32 with TF32
+   off, 1e-2 in bf16; ms of both); `pipelined_rag_apply` over one stage
+   with 4 microbatches of phase 5's micro-batch of 8 against the plain
+   forward (logits within 1e-2, kernel B 12 x 4 and 12, one loss and its
+   gradients at phase 5's RMS bound; ms of both); `MoELanguageZone(
+   32000)` at B = 8, T = 256 with its experts placed by `shard_params` on
+   a ('data', 'model') mesh, equal to the unsharded zone bit for bit;
+   and a trainer after `shard_to_mesh` on a ('data', 'seq', 'model',
+   'stage') mesh, 2 steps bit-equal to a plain trainer's under
+   deterministic algorithms, kernel B 12 x 2 per step.
+
 `--profile` adds a torch.profiler breakdown of one call of each
 retrieval path (device time by kernel, device busy share) to phase 2,
 of decode steps (wall, device, busy, `retrieve_auto`'s share) to
@@ -187,8 +206,8 @@ runs, again just before phase 5's 8 counted train_steps, and again
 before phase 6, after which kernel B alone must have run, and again
 just before phase 7's retrievals, after which kernel A alone must have
 run, ceil(B / 256) times per funnel dispatch, and again at the start of
-phases 8 and 9, after each of which no kernel may have run; phase 10
-zeroes them around each call whose launches it checks. Any failed check
+phases 8 and 9, after each of which no kernel may have run; phases 10
+and 11 zero them around each call whose launches they check. Any failed check
 exits non-zero. The last lines are the card's name
 and power limit, one JSON object with the per-kernel numbers, and
 {"ok": true, "device": {...}}. Without a CUDA card the script exits 1 and
@@ -1270,6 +1289,18 @@ def kernel_vs_plain_prefill(model, ids, state):
             int((ka != kb).sum()), ka.numel())
 
 
+def lm_requests(vocab, g):
+    """Phase 4's N_REQUESTS requests (prompt ids, max_new_tokens,
+    temperature), drawn from the CPU generator `g`."""
+    import torch
+    return [(torch.randint(0, vocab,
+                           (int(torch.randint(5, 65, (1,), generator=g)),),
+                           generator=g).numpy(),
+             int(torch.randint(8, 65, (1,), generator=g)),
+             float(0.5 + torch.rand(1, generator=g))) for _ in range(
+                 N_REQUESTS)]
+
+
 def lm_phase(dev, profile=False):
     """The LM's serving path at get_full_config(); see the module doc."""
     import torch
@@ -1299,12 +1330,7 @@ def lm_phase(dev, profile=False):
         return counts["ivf_retrieve_fused"]
 
     # 1. 11 requests through the server under asyncio
-    reqs = [(torch.randint(0, cfg.model.vocab_size,
-                           (int(torch.randint(5, 65, (1,), generator=g)),),
-                           generator=g).numpy(),
-             int(torch.randint(8, 65, (1,), generator=g)),
-             float(0.5 + torch.rand(1, generator=g))) for _ in range(
-                 N_REQUESTS)]
+    reqs = lm_requests(cfg.model.vocab_size, g)
     server = BatchedGenerator(model, memory_state=state,
                               generator=torch.Generator(device=dev)
                               .manual_seed(3), **LM_SERVE)
@@ -3825,6 +3851,346 @@ def sharded_phase(dev):
     return stats
 
 
+# --------------------------------------------------------------------------
+# model-parallel phase (phase 11)
+# --------------------------------------------------------------------------
+
+# ring attention at the LM's shapes (get_full_config: 12 heads of 64, L =
+# 512, B = 8): the forward and the q/k/v gradients against SDPA within
+# these fractions of each tensor's largest entry (f32 with TF32 off; bf16
+# at the bound phase 4 puts on prefill logits)
+MP_RING = dict(B=8, L=512, H=12, Dh=64)
+MP_RING_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+MP_RING_REPS = 5
+MP_GREEDY = 1e-6                # the sampler's floor: a greedy draw
+MP_DECODE_STEPS = 15            # decode steps per server timing
+MP_MICROBATCHES = 4             # of phase 5's micro-batch of 8
+MP_TRAIN_STEPS = 2
+MP_ZONE_T = 256                 # MoELanguageZone at B = 8, T = 256
+
+
+def mp_mesh(names):
+    """A one-rank mesh with `names` (every axis of size 1)."""
+    import numpy as np
+    from aura_snn_rag_tpu_torch.parallel.distributed import mesh_from_ranks
+    return mesh_from_ranks(np.zeros((1,) * len(names), dtype=np.int64),
+                           names)
+
+
+def server_step_ms(server, reqs, steps=MP_DECODE_STEPS):
+    """ms per decode step of a server's batch: (time of 1 + steps tokens -
+    time of 1 token) / steps through `generate_batch`, after a warm-up."""
+    from aura_snn_rag_tpu_torch.generation import GenerationRequest
+
+    def batch(n):
+        return [GenerationRequest(ids, n, MP_GREEDY, 1.0)
+                for ids, _, _ in reqs]
+    server.generate_batch(batch(2))
+    _, t1 = synced(lambda: server.generate_batch(batch(1)))
+    _, tn = synced(lambda: server.generate_batch(batch(1 + steps)))
+    return (tn - t1) / steps * 1e3
+
+
+def mp_serve_check(dev, mesh, model, state, n_layers):
+    """Phase 4's requests, greedy, through a BatchedGenerator on the mesh
+    and through a plain one: the same tokens, kernel B 12 x (1 + steps)
+    per batch in each, and ms per decode step of both."""
+    import torch
+    from aura_snn_rag_tpu_torch.generation import (
+        BatchedGenerator, GenerationRequest)
+    from aura_snn_rag_tpu_torch.ops.cuda import _build
+
+    reqs = lm_requests(model.config.vocab_size,
+                       torch.Generator().manual_seed(11))
+    out, tokens = {}, {}
+    for name, kw in (("plain", {}), ("mesh", dict(mesh=mesh))):
+        server = BatchedGenerator(model, memory_state=state,
+                                  generator=torch.Generator(device=dev)
+                                  .manual_seed(3), **LM_SERVE, **kw)
+        toks, launches, secs = [], [], []
+        for batch in (reqs[:LM_SERVE["batch_size"]],
+                      reqs[LM_SERVE["batch_size"]:]):
+            rs = [GenerationRequest(ids, n, MP_GREEDY, 1.0)
+                  for ids, n, _ in batch]
+            _build.reset_launch_counts()
+            got, sec = synced(lambda: server.generate_batch(rs))
+            n = _build.launch_counts["ivf_retrieve_fused"]
+            want = n_layers * server._bucket(max(r.max_new_tokens
+                                                 for r in rs))
+            check(n == want and nonzero_counts(_build.launch_counts)
+                  == {"ivf_retrieve_fused": n},
+                  f"{name} server: kernel B launched {n} times, expected "
+                  f"12 x (1 + steps) = {want}")
+            toks += got
+            launches.append(n)
+            secs.append(sec)
+        tokens[name] = toks
+        out[name] = dict(kernel_B_launches=launches, batch_s=secs,
+                         ms_per_decode_step=server_step_ms(
+                             server, reqs[:LM_SERVE["batch_size"]]))
+    check(all((a == b).all() for a, b in zip(tokens["plain"],
+                                              tokens["mesh"])),
+          "the server on the mesh decodes other tokens than the plain one")
+    log(f"model-parallel serving: {len(reqs)} greedy requests, tokens equal "
+        f"to the plain server's; kernel B {out['mesh']['kernel_B_launches']}"
+        f" per batch; ms per decode step at B = 8 "
+        f"{out['mesh']['ms_per_decode_step']:.2f} (mesh) / "
+        f"{out['plain']['ms_per_decode_step']:.2f} (plain)")
+    return out
+
+
+def mp_ring_check(dev, mesh):
+    """sequence_sharded_attention against SDPA (causal) at the LM's
+    shapes, f32 and bf16: forward and q/k/v gradients, ms of each."""
+    import torch
+    import torch.nn.functional as F
+    from aura_snn_rag_tpu_torch.parallel.ring_attention import (
+        sequence_sharded_attention)
+
+    r = MP_RING
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[1]
+        gen = torch.Generator(device=dev).manual_seed(21)
+        q, k, v, do = (torch.randn(r["B"], r["L"], r["H"], r["Dh"],
+                                   device=dev, generator=gen).to(dt)
+                       for _ in range(4))
+
+        def ring(q, k, v):
+            return sequence_sharded_attention(
+                q, k, v, mesh, batch_axes=("data",), head_axis="model")
+
+        def sdpa(q, k, v):
+            return F.scaled_dot_product_attention(
+                *(t.transpose(1, 2) for t in (q, k, v)),
+                is_causal=True).transpose(1, 2)
+
+        def run(fn):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            o = fn(*leaves)
+            o.backward(do)
+            return [o.detach()] + [t.grad for t in leaves]
+
+        got, want = run(ring), run(sdpa)
+        errs = [((a.float() - b.float()).abs().max()
+                 / b.float().abs().max()).item() for a, b in zip(got, want)]
+        check(max(errs) <= MP_RING_TOL[name],
+              f"ring attention {name}: (out, dq, dk, dv) differ from SDPA by "
+              f"{errs} of each tensor's largest entry (tolerance "
+              f"{MP_RING_TOL[name]})")
+        with torch.no_grad():
+            fwd = {fn.__name__: time_ms([lambda f=fn: f(q, k, v)],
+                                        iters=MP_RING_REPS)
+                   for fn in (ring, sdpa)}
+        fb = {fn.__name__: wall_ms(lambda f=fn: run(f), MP_RING_REPS)
+              for fn in (ring, sdpa)}
+        out[name] = dict(rel_err=errs, ring_ms=fwd["ring"],
+                         sdpa_ms=fwd["sdpa"], ring_fwd_bwd_ms=fb["ring"],
+                         sdpa_fwd_bwd_ms=fb["sdpa"])
+        log(f"ring attention {name} at B={r['B']} L={r['L']} H={r['H']} "
+            f"Dh={r['Dh']}: (out, dq, dk, dv) within "
+            f"{[f'{e:.2g}' for e in errs]} of SDPA; forward ms ring "
+            f"{fwd['ring']:.3f} / SDPA {fwd['sdpa']:.3f}, forward + "
+            f"backward {fb['ring']:.2f} / {fb['sdpa']:.2f}")
+    return out
+
+
+def mp_pipeline_check(dev, model, state):
+    """pipelined_rag_apply over a one-stage mesh with MP_MICROBATCHES
+    microbatches of phase 5's micro-batch of 8 against the model's plain
+    forward over the same bank: logits, kernel B launches (12 x M), one
+    loss and its gradients (phase 5's RMS bound), ms of each forward."""
+    import torch
+    from aura_snn_rag_tpu_torch.models.pipelined import pipelined_rag_apply
+    from aura_snn_rag_tpu_torch.ops.cuda import _build
+    from aura_snn_rag_tpu_torch.training.losses import hippocampal_loss
+
+    mesh = mp_mesh(("stage",))
+    M, n_layers = MP_MICROBATCHES, len(model.layers)
+    ids = torch.randint(0, model.config.vocab_size, (8, TRAIN_SEQ),
+                        device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(13))
+
+    def pipelined():
+        return pipelined_rag_apply(model, ids, state, mesh, M)
+
+    def plain():
+        return model(ids, memory_state=state)[0].logits
+    out = {}
+    with torch.no_grad():
+        for name, fn, want in (("pipelined", pipelined, n_layers * M),
+                               ("plain", plain, n_layers)):
+            _build.reset_launch_counts()
+            logits = fn()
+            torch.cuda.synchronize()
+            launches = nonzero_counts(_build.launch_counts)
+            check(launches == {"ivf_retrieve_fused": want},
+                  f"{name} forward: launches {launches}, expected kernel B "
+                  f"{want}")
+            out[name] = dict(kernel_B_launches=want, logits=logits)
+        gap = (out["pipelined"].pop("logits")
+               - out["plain"].pop("logits")).abs().max().item()
+        check(gap <= LM_LOGIT_TOL, f"pipelined logits differ from the plain "
+              f"forward's by {gap} > {LM_LOGIT_TOL}")
+        for name, fn in (("pipelined", pipelined), ("plain", plain)):
+            out[name]["ms"] = wall_ms(fn, 3)
+
+    def grads(fn):
+        for p in model.parameters():
+            p.grad = None
+        loss = hippocampal_loss(fn()[:, :-1], ids[:, 1:], None,
+                                label_smoothing=0.0, entropy_lambda=0.0,
+                                sparsity_lambda=0.0)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone() for n, p in
+                             model.named_parameters() if p.grad is not None}
+    la, ga = grads(pipelined)
+    lb, gb = grads(plain)
+    for p in model.parameters():
+        p.grad = None
+
+    def rms(x):
+        return x.float().pow(2).mean().sqrt().item()
+    floor = 1e-3 * max(rms(g) for g in gb.values())
+    rel = {n: rms(ga[n] - gb[n]) / max(rms(gb[n]), floor) for n in gb}
+    worst = max(rel, key=rel.get)
+    check(set(ga) == set(gb) and rel[worst] <= TRAIN_GRAD_RTOL
+          and abs(la - lb) <= 1e-3 * abs(lb),
+          f"pipelined step: loss {la} / {lb}; {worst}'s gradient differs "
+          f"by {rel[worst]:.3g} of its RMS (tolerance {TRAIN_GRAD_RTOL})")
+    out.update(max_logit_diff=gap, loss=[la, lb], max_rms_gap=rel[worst],
+               worst=worst)
+    log(f"pipelined RAG, 1 stage x {M} microbatches of {8 // M}: logits "
+        f"within {gap:.3g} of the plain forward, kernel B "
+        f"{out['pipelined']['kernel_B_launches']} / "
+        f"{out['plain']['kernel_B_launches']} launches; loss {la:.6f} / "
+        f"{lb:.6f}, gradient RMS gap at most {rel[worst]:.3g} ({worst}); "
+        f"forward ms {out['pipelined']['ms']:.1f} / "
+        f"{out['plain']['ms']:.1f}")
+    return out
+
+
+def mp_expert_check(dev, mesh):
+    """MoELanguageZone(32000) with its experts placed by shard_params on a
+    one-rank ('data', 'model') mesh against the unsharded zone: outputs
+    equal bit for bit, ms of each."""
+    import copy
+    import torch
+    from aura_snn_rag_tpu_torch.models.language_zone import MoELanguageZone
+    from aura_snn_rag_tpu_torch.parallel.mesh import shard_params
+
+    zone = MoELanguageZone(NB_VOCAB, device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(31))
+    ep = shard_params(copy.deepcopy(zone), mesh)
+    ids = torch.randint(0, NB_VOCAB, (NB_BATCH, MP_ZONE_T), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(9))
+
+    def run(m):
+        return m(ids, torch.Generator(device=dev).manual_seed(5))
+    with torch.no_grad():
+        (a, ia), (b, ib) = run(zone), run(ep)
+        check(torch.equal(a, b) and torch.equal(ia["dropped_fraction"],
+                                                ib["dropped_fraction"]),
+              "expert-parallel zone differs from the unsharded one")
+        out = dict(ms=wall_ms(lambda: run(ep), 3),
+                   plain_ms=wall_ms(lambda: run(zone), 3),
+                   dropped_fraction=float(ia["dropped_fraction"]))
+    log(f"expert parallelism: MoELanguageZone({NB_VOCAB}) at B={NB_BATCH} "
+        f"T={MP_ZONE_T} on the mesh equals the unsharded zone bit for bit; "
+        f"ms {out['ms']:.1f} / {out['plain_ms']:.1f}")
+    return out
+
+
+def mp_train_check(dev, bank):
+    """Trainer.shard_to_mesh on a one-rank ('data', 'seq', 'model',
+    'stage') mesh against a plain trainer from the same seed over the
+    same bank: MP_TRAIN_STEPS train_steps each under deterministic
+    algorithms, kernel B 12 x 2 per step, losses and every tensor equal
+    bit for bit."""
+    import torch
+    import aura_snn_rag_tpu_torch as port
+    from aura_snn_rag_tpu_torch.ops.cuda import _build
+
+    cfg = train_config()
+    cfg = cfg.replace(training=dataclasses.replace(cfg.training,
+                                                   enable_thalamus=False))
+    n_layers = cfg.model.num_layers
+    accum = cfg.training.gradient_accumulation_steps
+    ids = torch.randint(0, cfg.model.vocab_size,
+                        (cfg.training.batch_size, TRAIN_SEQ), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(12))
+    out = {}
+    with deterministic():
+        mp_tr = port.Trainer(cfg, seed=7, device=dev)
+        mp_tr.shard_to_mesh(mp_mesh(("data", "seq", "model", "stage")))
+        mp_tr.hippocampus._set_state(clone_state(bank))
+        plain_tr = port.Trainer(cfg, seed=7, device=dev)
+        plain_tr.hippocampus._set_state(clone_state(bank))
+        for name, tr in (("mesh", mp_tr), ("plain", plain_tr)):
+            _build.reset_launch_counts()
+            times = []
+            for _ in range(MP_TRAIN_STEPS):
+                m, sec = synced(lambda: tr.train_step(ids, ids))
+                check(m["use_memory"], f"{name} trainer: memory off")
+                times.append(sec * 1e3)
+            launches = nonzero_counts(_build.launch_counts)
+            want = n_layers * accum * MP_TRAIN_STEPS
+            check(launches == {"ivf_retrieve_fused": want},
+                  f"{name} trainer: launches {launches}, expected {want}")
+            out[name] = dict(ms_per_step=times, losses=tr.history["loss"][1:]
+                             + [tr.latest_metrics()["loss"]])
+    differ = tensors_differ(mp_tr, plain_tr)
+    check(out["mesh"]["losses"] == out["plain"]["losses"] and not differ,
+          f"trainer on the ('data', 'seq', 'model', 'stage') mesh differs "
+          f"from the plain one: {out}, tensors {differ}")
+    log(f"model-parallel trainer: shard_to_mesh on a one-rank ('data', "
+        f"'seq', 'model', 'stage') mesh; {MP_TRAIN_STEPS} steps equal the "
+        f"plain trainer's bit for bit, losses "
+        f"{[round(x, 6) for x in out['mesh']['losses']]}")
+    del mp_tr, plain_tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def model_parallel_phase(dev):
+    """Phase 11: tensor-parallel serving, ring attention, the pipelined RAG
+    stack, expert parallelism and the trainer over 'model', 'seq' and
+    'stage' axes, on a one-rank process group (NCCL on the card); see the
+    module doc. Launch counters are zeroed inside, around each call they
+    check."""
+    import torch
+    import aura_snn_rag_tpu_torch as port
+    from aura_snn_rag_tpu_torch.parallel import distributed
+
+    t0 = time.perf_counter()
+    distributed.initialize(f"localhost:{free_port()}", 1, 0,
+                           device=dev.type, timeout=300)
+    try:
+        cfg = port.get_full_config()
+        model = port.SNNRAGTransformer.create(
+            cfg.model, cfg.memory, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(7))
+        bank = lm_bank(dev, cfg.memory)
+        stats = {"serve": mp_serve_check(
+            dev, distributed.global_mesh(1), model, bank,
+            cfg.model.num_layers)}
+        stats["ring"] = mp_ring_check(dev, mp_mesh(("data", "seq",
+                                                    "model")))
+        stats["pipeline"] = mp_pipeline_check(dev, model, bank)
+        del model
+        torch.cuda.empty_cache()
+        stats["expert"] = mp_expert_check(dev, mp_mesh(("data", "model")))
+        stats["train"] = mp_train_check(dev, bank)
+        del bank
+        torch.cuda.empty_cache()
+    finally:
+        distributed.shutdown()
+    stats["phase_s"] = time.perf_counter() - t0
+    log(f"model-parallel phase: {stats['phase_s']:.1f} s")
+    return stats
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3949,6 +4315,11 @@ def main() -> int:
     sharded = sharded_phase(dev)
     torch.cuda.empty_cache()
 
+    # ---- model parallelism on a one-rank group: counts zeroed inside,
+    # around each call they check ----
+    mp = model_parallel_phase(dev)
+    torch.cuda.empty_cache()
+
     main_shape = {"flat_blockmax": res_a[("int8", 1024)],
                   "ivf_retrieve_fused": res_bc[("ivf_retrieve_fused", 8)],
                   "ivf_scan_scores": res_bc[("ivf_scan_scores", 8)],
@@ -3976,6 +4347,12 @@ def main() -> int:
             row["launches_lm"] = launches_lm[name]
             row["launches_train"] = launches_train[name]
             row["launches_operator"] = launches_op[name]
+            # phase 11: the server on a mesh (both batches) and the
+            # pipelined RAG forward
+            row["launches_mp_serve"] = sum(
+                mp["serve"]["mesh"]["kernel_B_launches"])
+            row["launches_pipelined"] = \
+                mp["pipeline"]["pipelined"]["kernel_B_launches"]
             for B, suffix in ((8, ""), (1, "_b1")):
                 r = res_lm_b[(name, B)]
                 row.update({f"lm_{key}{suffix}": r[key] for key in (
@@ -3991,6 +4368,7 @@ def main() -> int:
     log(json.dumps({"brain": brain}))
     log(json.dumps({"natural_brain": natural}))
     log(json.dumps({"sharded": sharded}))
+    log(json.dumps({"model_parallel": mp}))
     log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -17,8 +17,9 @@ save -> restore -> next step chain.
   short never becomes `latest_step()`, a corrupt or mis-shaped checkpoint
   raises and leaves the trainer as it was, `load_optimizer=False`, and
   every parameter still a view of the optimizer's flat buffer.
-The sharded-bank cases of the JAX package's tests wait for the port's
-parallel slice.
+The sharded-bank cases of the JAX package's tests are held on gloo ranks
+by `tests/test_torch_dp_trainer.py` and, with a 'model' axis of 2,
+`tests/test_torch_mp_trainer.py`.
 """
 
 import dataclasses

@@ -2,8 +2,10 @@
 card, the neuromorphic brain system and the NaturalBrain path
 (NaturalBrain, the MoE language zone's forward and gradients, the
 prosody gains, the SRFFN; no kernel) on the card against the same port
-objects on the CPU, and the sharded bank and the data-parallel trainer on
-a one-rank NCCL group against the unsharded paths.
+objects on the CPU, the sharded bank and the data-parallel trainer on a
+one-rank NCCL group against the unsharded paths, and on the same group
+ring attention against SDPA and the pipelined RAG stack (one stage)
+against the model's forward, with kernel B's launches counted.
 
 Marked `cuda`: they skip without a card (decided in a fixture, so every
 xdist worker collects the same tests). On a machine with an H100:
@@ -968,3 +970,66 @@ def test_memory_stats_on_the_card(dev):
     assert stats["bytes_in_use"] == torch.cuda.memory_allocated()
     assert stats["bytes_limit"] > 0 and 0 < stats["free_ratio"] <= 1
     del x
+
+
+# --------------------------------------------------------------------------
+# model parallelism on a one-rank NCCL group: ring attention against SDPA,
+# the pipeline at S = 1 against the sequential run
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_ring_attention_matches_sdpa_on_the_card(nccl_mesh, dev, dtype,
+                                                 tol):
+    """sequence_sharded_attention over a 'seq' axis of one against causal
+    SDPA: the output and the q/k/v gradients within `tol` of each
+    tensor's largest entry (f32 with TF32 off; bf16)."""
+    import torch.nn.functional as F
+    from aura_snn_rag_tpu_torch.parallel.distributed import mesh_from_ranks
+    from aura_snn_rag_tpu_torch.parallel.ring_attention import (
+        sequence_sharded_attention)
+    mesh = mesh_from_ranks(np.zeros((1, 1), np.int64), ("data", "seq"))
+    rng = np.random.RandomState(5)
+    q, k, v, do = (torch.from_numpy(rng.randn(2, 128, 4, 32).astype(
+        np.float32)).to(dev, dtype) for _ in range(4))
+    outs = []
+    for fn in (lambda a, b, c: sequence_sharded_attention(a, b, c, mesh),
+               lambda a, b, c: F.scaled_dot_product_attention(
+                   *(t.transpose(1, 2) for t in (a, b, c)),
+                   is_causal=True).transpose(1, 2)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = fn(*leaves)
+        o.backward(do)
+        outs.append([o.detach()] + [t.grad for t in leaves])
+    for got, want in zip(*outs):
+        err = (got.float() - want.float()).abs().max()
+        assert err <= tol * want.float().abs().max(), err
+
+
+def test_pipelined_rag_matches_the_sequential_run_on_the_card(nccl_mesh,
+                                                               dev):
+    """pipelined_rag_apply over one stage and 4 microbatches against the
+    model's forward over the same bank: logits within 1e-2 (bf16), and
+    kernel B launched once per layer per microbatch."""
+    import aura_snn_rag_tpu_torch as port
+    from aura_snn_rag_tpu_torch.models.pipelined import pipelined_rag_apply
+    from aura_snn_rag_tpu_torch.parallel.distributed import mesh_from_ranks
+    mcfg, bank, _ = _small_bank(dev)
+    cfg = port.ModelConfig(vocab_size=512, embedding_dim=128, num_layers=2,
+                           num_heads=4, intermediate_size=256,
+                           max_seq_len=512, n_place_cells=128,
+                           snn_layers=(0,), use_rag=True)
+    model = port.HippocampalTransformer(
+        cfg, mcfg, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(4))
+    mesh = mesh_from_ranks(np.zeros((1,), np.int64), ("stage",))
+    ids = torch.randint(0, 512, (8, 32), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(2))
+    with torch.no_grad():
+        launch_counts.clear()
+        got = pipelined_rag_apply(model, ids, bank, mesh, 4)
+        assert dict(launch_counts) == {"ivf_retrieve_fused": 2 * 4}
+        launch_counts.clear()
+        want = model(ids, memory_state=bank)[0].logits
+        assert dict(launch_counts) == {"ivf_retrieve_fused": 2}
+    assert (got - want).abs().max() <= 1e-2

@@ -16,8 +16,11 @@ same host code: equal.
 
 import asyncio
 import csv
+import ctypes
 import json
+import os
 import sys
+import time
 
 import jax
 import jax.numpy as jnp
@@ -75,8 +78,47 @@ def close(got, want):
 # encoders
 # --------------------------------------------------------------------------
 
+@pytest.fixture(scope="module")
+def jax_native():
+    """The JAX package's native library, loaded. Its loader links
+    `native/libaura_native.so` in place (`g++ -o`, no temporary and
+    rename) and the JAX embedder module tries it once, at import: a test
+    worker that imports it while another worker is still linking gets
+    None for the process's life. So when the module holds None, this
+    retries the loader (its `_loaded` flag reset) for up to 60 s and
+    patches the module's `_NATIVE` with the library it gets, for this
+    module's tests; the JAX package itself is not changed. If none
+    loads, the test fails, naming the cause."""
+    from aura_snn_rag_tpu import _native
+    from aura_snn_rag_tpu.encoders import hash_embedder
+    if hash_embedder._NATIVE is not None:
+        yield hash_embedder._NATIVE
+        return
+    deadline = time.monotonic() + 60
+    with pytest.MonkeyPatch.context() as mp:
+        while True:
+            mp.setattr(_native, "_loaded", False)
+            mp.setattr(_native, "_lib", None)
+            lib = hash_embedder._load_native()
+            if lib is not None:
+                break
+            if time.monotonic() > deadline:
+                try:
+                    ctypes.CDLL(_native._SO_PATH)
+                    cause = "it loads, but lacks the embedder's symbols"
+                except OSError as exc:
+                    state = ("exists" if os.path.exists(_native._SO_PATH)
+                             else "is missing")
+                    cause = f"{_native._SO_PATH} {state}: {exc}"
+                pytest.fail(f"the JAX package's native library did not "
+                            f"load within 60 s: {cause}")
+            time.sleep(0.5)
+        mp.setattr(hash_embedder, "_NATIVE", lib)
+        yield lib
+
+
 @pytest.mark.parametrize("native", [True, False])
-def test_hash_embedder_equals_jax(native):
+def test_hash_embedder_equals_jax(native, jax_native):
     j = JEmbedder(dim=256, token_vocab=1000, use_native=native)
     t = FastHashEmbedder(dim=256, token_vocab=1000, use_native=native)
     assert t.native == native and (j._native is not None) == native

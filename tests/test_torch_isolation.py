@@ -168,3 +168,47 @@ def test_natural_brain_modules_are_in_the_probe():
                 every.add(node.module.split(".")[0])
         assert not every & {"jax", "jaxlib", "flax", "optax",
                             "aura_snn_rag_tpu"}, (mod, every)
+
+
+# the model-parallel slice: none imports JAX, flax, optax or the JAX
+# package
+MODEL_PARALLEL_MODULES = (
+    "parallel.collectives", "parallel.mesh", "parallel.pipeline",
+    "parallel.ring_attention", "models.pipelined", "models.layers",
+    "models.transformer", "models.language_zone", "training.trainer",
+    "training.optim", "training.losses", "training.checkpoint",
+    "generation.serving")
+
+
+def test_model_parallel_modules_are_in_the_probe():
+    import ast
+    import pkgutil
+    import aura_snn_rag_tpu_torch as pkg
+    names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                   pkg.__name__ + ".")}
+    for mod in MODEL_PARALLEL_MODULES:
+        assert f"aura_snn_rag_tpu_torch.{mod}" in names, mod
+        path = ROOT / "aura_snn_rag_tpu_torch" / (mod.replace(".", "/")
+                                                  + ".py")
+        every = set()
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                every |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                every.add(node.module.split(".")[0])
+        assert not every & {"jax", "jaxlib", "flax", "optax",
+                            "aura_snn_rag_tpu"}, (mod, every)
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py, which the card runs, imports none of JAX, flax,
+    optax or the JAX package."""
+    import ast
+    every = set()
+    for node in ast.walk(ast.parse((ROOT / "chip_smoke.py").read_text())):
+        if isinstance(node, ast.Import):
+            every |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            every.add(node.module.split(".")[0])
+    assert not every & {"jax", "jaxlib", "flax", "optax",
+                        "aura_snn_rag_tpu"}, every

@@ -4,11 +4,13 @@ spawns it.
 `spawn(scenario, world, tmp_path, inputs, **kw)` starts `world` processes
 (the spawn method), each of which joins a gloo group through a `file://`
 rendezvous under `tmp_path` (so parallel test workers never share a
-port), runs `SCENARIOS[scenario](inputs, **kw)` and writes what it
-returns to `out<rank>.npz`. Inputs travel as `inputs.npz`. Every
-collective and the rendezvous time out after GROUP_TIMEOUT seconds and
-the join after `timeout`, so a hang fails one test. This module imports
-torch, numpy and the port alone: the ranks never load JAX.
+port), runs `SCENARIOS[scenario](inputs, **kw)` (or, for a scenario
+named "module:function", that function of that module, which must not
+import JAX either) and writes what it returns to `out<rank>.npz`.
+Inputs travel as `inputs.npz`. Every collective and the rendezvous time
+out after GROUP_TIMEOUT seconds and the join after `timeout`, so a hang
+fails one test. This module imports torch, numpy and the port alone: the
+ranks never load JAX.
 """
 
 import multiprocessing
@@ -72,7 +74,13 @@ def _main(scenario, rank, world, tmp, kwargs):
             distributed.initialize(f"file://{tmp}/rendezvous", world, rank,
                                    device="cpu", timeout=GROUP_TIMEOUT)
         inputs = dict(np.load(os.path.join(tmp, "inputs.npz")))
-        out = SCENARIOS[scenario](inputs, tmp=tmp, **kwargs)
+        if ":" in scenario:
+            import importlib
+            module, name = scenario.split(":")
+            fn = getattr(importlib.import_module(module), name)
+        else:
+            fn = SCENARIOS[scenario]
+        out = fn(inputs, tmp=tmp, **kwargs)
         np.savez(os.path.join(tmp, f"out{rank}.npz"), **out)
     except BaseException:
         with open(os.path.join(tmp, f"error{rank}.txt"), "w") as f:
@@ -232,8 +240,8 @@ def two_process(inputs, tmp):
     """The launcher seam on two processes: `initialize` again (a no-op),
     meshes, this process's batch slice, a global array's slice and the
     collective that assembles it, the model-parallel axes that
-    `shard_to_mesh` and `shard_params` refuse, and a data-parallel
-    trainer and its checkpoint on a mesh of one of the two ranks."""
+    `shard_to_mesh` and `shard_params` take, and a data-parallel trainer
+    and its checkpoint on a mesh of one of the two ranks."""
     import torch.distributed as dist
     import aura_snn_rag_tpu_torch as port
     from aura_snn_rag_tpu_torch.parallel import distributed as d
@@ -255,10 +263,10 @@ def two_process(inputs, tmp):
     dist.all_gather(parts, g.local)
     out["total"] = np.float64(torch.cat(parts).sum())
     out["shard_batch"] = m.shard_batch({"x": full}, mesh)["x"].numpy()
-    tt = port.Trainer(port.get_debug_config(), device="cpu")
     raised = []
     for names in (("data", "model"), ("data", "seq"), ("data", "stage")):
         mp = d.mesh_from_ranks(np.arange(2).reshape(1, 2), names)
+        tt = port.Trainer(port.get_debug_config(), device="cpu")
         try:
             tt.shard_to_mesh(mp)
             raised.append(False)

@@ -327,12 +327,13 @@ def test_train_chunk_equals_train_steps_and_matches_jax():
 
 
 class _ModelParallelMesh:
-    """A ('data', 'model') mesh of (1, 2) as far as `shard_to_mesh` reads
-    it before it places anything."""
-    mesh_dim_names = ("data", "model")
+    """A ('data', 'seq') mesh of (1, 3) as far as `shard_to_mesh` reads
+    it before it places anything: 3 sequence shards, which divide no
+    power-of-two `max_seq_len`."""
+    mesh_dim_names = ("data", "seq")
 
     def size(self, dim):
-        return 2 if dim == 1 else 1
+        return 3 if dim == 1 else 1
 
 
 def test_eval_loss_and_state_match_jax():
@@ -344,8 +345,9 @@ def test_eval_loss_and_state_match_jax():
     st = tt.state
     assert st.step == 0 and st.params is tt.optimizer.flat
     assert int(st.opt_state.count) == 0
-    with pytest.raises(NotImplementedError, match="model-parallel"):
+    with pytest.raises(ValueError, match="does not divide"):
         tt.shard_to_mesh(_ModelParallelMesh())
+    assert tt.mesh is None
     with pytest.raises(RuntimeError, match="no step"):
         tt.latest_metrics()
     tt.train_step(ids, ids)
