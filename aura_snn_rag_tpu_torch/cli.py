@@ -16,6 +16,7 @@ this one needs argparse and asyncio alone):
     python -m aura_snn_rag_tpu_torch.cli corpus [--out D] [--vocab V]
     python -m aura_snn_rag_tpu_torch.cli mnist [--epochs N] [--hidden H]
         [--data mnist.npz]
+    python -m aura_snn_rag_tpu_torch.cli bench [--small]
 
 Every command but `corpus` takes `--device` (default cuda; raises
 without a card); every command is also a function of the same name and
@@ -42,8 +43,11 @@ subprocess with the JAX CLI's options: `--out` is passed on only when
 given, so the tool's own default applies. `mnist` runs the port's
 `bench_mnist` (whitener -> Oja -> readout) in this process, on the
 device; its data is `--data` (an MNIST .npz) or keras's cached
-`mnist.npz`, else sklearn's bundled digits. `bench` waits for the port's
-benchmark script.
+`mnist.npz`, else sklearn's bundled digits. `bench` runs the port's
+retrieval benchmark (`bench.main`, the counterpart of the root
+`bench.py`) in this process at its defaults (1M x 768 on the device) or
+`--small`, and prints its JSON line; a failed run raises, so the command
+exits non-zero.
 """
 
 from __future__ import annotations
@@ -378,6 +382,14 @@ def corpus(out: Optional[str] = None, vocab: int = 32_000
     return subprocess.run(args + ["--vocab", str(vocab)], check=True)
 
 
+def bench(small: bool = False, device: str = "cuda") -> Dict[str, Any]:
+    """The retrieval benchmark (`bench.main`), which prints its JSON
+    line; returns its object."""
+    from aura_snn_rag_tpu_torch import bench as bench_mod
+    return bench_mod.main((["--small"] if small else [])
+                          + ["--device", device])
+
+
 def mnist(epochs: int = 5, hidden: int = 1024, data: Optional[str] = None,
           device: str = "cuda") -> Dict[str, Any]:
     """The hybrid whitener -> Oja -> readout benchmark
@@ -395,7 +407,7 @@ def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m aura_snn_rag_tpu_torch.cli",
         description="aura-snn-rag on PyTorch/CUDA: train, generate, "
-                    "ingest, serve, brain-demo, corpus, mnist.")
+                    "ingest, serve, brain-demo, corpus, mnist, bench.")
     sub = p.add_subparsers(dest="command", required=True)
 
     def command(name, help_text):
@@ -461,6 +473,10 @@ def parser() -> argparse.ArgumentParser:
     c.add_argument("--hidden", type=int, default=1024)
     c.add_argument("--data", default=None,
                    help="an MNIST .npz (x_train, y_train, x_test, y_test)")
+
+    c = command("bench", "Run the retrieval benchmark (one JSON line).")
+    c.add_argument("--small", action="store_true",
+                   help="100,000 rows, K = 1024, probe 32, 8 batches of 32")
     return p
 
 
@@ -480,6 +496,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         corpus(**args)
     elif command == "mnist":
         print(json.dumps(mnist(**args)), flush=True)
+    elif command == "bench":
+        bench(**args)
     else:
         serve(**args)
     return 0

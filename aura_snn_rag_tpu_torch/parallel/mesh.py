@@ -273,6 +273,14 @@ def param_specs(params, mesh: Optional[DeviceMesh] = None
             for key, (path, ndim, layout) in param_paths(params).items()}
 
 
+def memory_state_specs(state):
+    """The episodic bank's specs (a MemoryState of specs): every field with
+    a dimension shards its leading dimension (bank rows, cluster buckets,
+    centroids) over 'data', as `memory/sharded.py` holds one shard per
+    rank; scalars replicate."""
+    return _map(lambda x: P() if x.ndim == 0 else P("data"), state)
+
+
 class TensorParallel(NamedTuple):
     """The 'model' axis as a tensor-parallel module sees it."""
     group: object        # the axis's process group

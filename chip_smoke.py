@@ -19,7 +19,9 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
    at B = 1 and 8 (C alone is the coarse pass that B and D run before
    their select pass, so B - C and D - C are the select passes' time; E
    scores and selects in one launch, so E - C is its select's cost over
-   the same byte stream); besides their CUDA-event time
+   the same byte stream), and B also at bench.py's batch of 1024 (its
+   plain version in chunks of 16 queries, its bound counting each
+   cluster the batch probes once); besides their CUDA-event time
    over back-to-back calls (`ms`, which the host's enqueue rate can set
    at B = 1) they are timed by CUDA-graph replay (`graph_ms`, device
    time), and at B = 1 by the host's median time per call up to its
@@ -194,6 +196,18 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
    'stage') mesh, 2 steps bit-equal to a plain trainer's under
    deterministic algorithms, kernel B 12 x 2 per step.
 
+12. bench phase: the port's counterpart of the root `bench.py`
+   (`aura_snn_rag_tpu_torch/bench.py`) in this process at bench.py's
+   full defaults (1,000,000 x 768 from its numpy seed, f16 ingest, int8
+   coarse rows, K = 4096, probe 64, 16 batches of 1024 queries through
+   the flat scan and through IVF v3r with aux built once, the host
+   baseline): recall@10 >= 0.99 against the device's exact search and
+   against the f32 rows, IVF recall@10 of the timed batches >= 0.98,
+   kernel B 1 + 16 times and no other kernel; then `--small
+   --flat-strategy=blockmax` (kernel A and kernel B 1 + 8 times each);
+   then the CLI's `bench --small` in a subprocess, whose last line must
+   carry bench.py's 16 keys.
+
 `--profile` adds a torch.profiler breakdown of one call of each
 retrieval path (device time by kernel, device busy share) to phase 2,
 of decode steps (wall, device, busy, `retrieve_auto`'s share) to
@@ -206,8 +220,8 @@ runs, again just before phase 5's 8 counted train_steps, and again
 before phase 6, after which kernel B alone must have run, and again
 just before phase 7's retrievals, after which kernel A alone must have
 run, ceil(B / 256) times per funnel dispatch, and again at the start of
-phases 8 and 9, after each of which no kernel may have run; phases 10
-and 11 zero them around each call whose launches they check. Any failed check
+phases 8 and 9, after each of which no kernel may have run; phases 10,
+11 and 12 zero them around each call whose launches they check. Any failed check
 exits non-zero. The last lines are the card's name
 and power limit, one JSON object with the per-kernel numbers, and
 {"ok": true, "device": {...}}. Without a CUDA card the script exits 1 and
@@ -333,6 +347,17 @@ GOEMOTIONS_LABELS = (
     "disgust", "embarrassment", "excitement", "fear", "gratitude", "grief",
     "joy", "love", "nervousness", "optimism", "pride", "realization",
     "relief", "remorse", "sadness", "surprise", "neutral")
+
+# the bench phase: the port's bench.py at its defaults, then `--small`
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "recall_at_10",
+              "recall_eval_queries", "recall_at_10_vs_f32_data",
+              "baseline_recall_at_10", "baseline_qps", "ivf_qps",
+              "index_build_s", "index_build_cold_s", "ingest_transfer_s",
+              "baseline_build_s", "n_vectors", "coarse_dtype")
+BENCH_RECALL = 0.99             # flat recall@10: oracle and f32 rows
+BENCH_IVF_RECALL = 0.98         # the engine phase's IVF bar
+BENCH_CLI_TIMEOUT = 600         # seconds for `cli bench --small`
+PLAIN_CHUNK = 16                # queries per plain IVF call (kernel phase)
 
 SOURCES = {
     "flat_blockmax": ("aura_snn_rag_tpu_torch/ops/cuda/csrc/flat_scan.cu",
@@ -620,7 +645,24 @@ def check_slots(name, s, sl, ps, psl):
                       f"{name} slot mismatch row={r} lane={j}")
 
 
-def kernel_B_C(ivf, K, C, D, M, P, kk, k, cases_B, cases_C):
+def in_chunks(call, qn, tc, chunk=PLAIN_CHUNK):
+    """call(qn, tc) -> a tuple of [B, ...] tensors, over `chunk` queries
+    at a time and concatenated: a plain IVF version gathers [B, P, C, D]
+    (25.8 GB of bf16 at B = 1024 and the engine's shapes)."""
+    import torch
+    if qn.shape[0] <= chunk:
+        return call(qn, tc)
+    parts = [call(qn[i:i + chunk], tc[i:i + chunk])
+             for i in range(0, qn.shape[0], chunk)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def kernel_B_C(ivf, K, C, D, M, P, kk, k, cases_B, cases_C,
+               union_cases=()):
+    """Kernels B and C against their plain versions at each batch of
+    `cases_B` / `cases_C`; at the batches of `union_cases` kernel B's
+    bound reads each cluster the batch probes once (a batch of 1024 probes
+    nearly all K), elsewhere once per query that probes it."""
     import numpy as np
     import torch
     from aura_snn_rag_tpu_torch.ops.cuda.ivf_scan import (
@@ -634,7 +676,8 @@ def kernel_B_C(ivf, K, C, D, M, P, kk, k, cases_B, cases_C):
                  for qn, tc in sets]
         qn, tc = bsets[0]
         s, sl = ivf_retrieve_fused(cl, aux, feats, qn, tc, kk, k)
-        ps, psl = ivf_retrieve_fused_plain(cl, aux, feats, qn, tc, kk, k)
+        ps, psl = in_chunks(lambda q, t: ivf_retrieve_fused_plain(
+            cl, aux, feats, q, t, kk, k), qn, tc)
         torch.cuda.synchronize()
         s, sl, ps, psl = (t.cpu().numpy() for t in (s, sl, ps, psl))
         hit = ps[:, :k] > -5e29
@@ -648,25 +691,30 @@ def kernel_B_C(ivf, K, C, D, M, P, kk, k, cases_B, cases_C):
             cl, aux, feats, q, t, kk, k) for q, t in bsets]
         ms, g_ms = time_ms(calls, iters=20), graph_ms(calls)
         h_us = host_us(calls) if B == 1 else None
-        plain_ms = time_ms([lambda q=q, t=t: ivf_retrieve_fused_plain(
-            cl, aux, feats, q, t, kk, k) for q, t in bsets], iters=4,
-            warmup=1)
-        # the probed bf16 blocks and aux rows 0-1 once, the query, the
-        # probe ids, the slots of the kk candidates, the f32 rows of the
-        # live ones (the rerank skips dead lanes), and the (score, slot)
-        # lanes written
-        n_live = int((ivf_candidates_plain(cl, aux, qn, tc, kk)[0] > -5e29)
-                     .sum())
-        nbytes = (B * (P * C * D * 2 + 2 * P * C * 4 + P * 4 + D * 4
-                       + kk * 4 + 2 * 128 * 4) + n_live * D * 4)
+        plain_ms = time_ms([lambda q=q, t=t: in_chunks(
+            lambda qc, tc_: ivf_retrieve_fused_plain(
+                cl, aux, feats, qc, tc_, kk, k), q, t) for q, t in bsets],
+            iters=4, warmup=1)
+        # the probed bf16 blocks and aux rows 0-1 once (per query, or per
+        # batch at `union_cases`), the query, the probe ids, the slots of
+        # the kk candidates, the f32 rows of the live ones (the rerank
+        # skips dead lanes), and the (score, slot) lanes written
+        n_live = int((in_chunks(lambda q, t: ivf_candidates_plain(
+            cl, aux, q, t, kk), qn, tc)[0] > -5e29).sum())
+        clusters = (int(torch.unique(tc).numel()) if B in union_cases
+                    else B * P)
+        nbytes = (clusters * (C * D * 2 + 2 * C * 4)
+                  + B * (P * 4 + D * 4 + kk * 4 + 2 * 128 * 4)
+                  + n_live * D * 4)
         ops = B * 2 * P * C * D + n_live * 4 * D
         b_ms, b_by = bound_ms(nbytes, ops, "bf16")
         res[("ivf_retrieve_fused", B)] = dict(
             max_abs_err=err, ms=ms, graph_ms=g_ms, host_us=h_us,
-            plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
+            plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            probed_clusters=clusters)
         log(f"kernel ivf_retrieve_fused B={B} K={K} C={C} P={P} D={D} "
-            f"kk={kk}: max_abs_err={err:.3g} ms={ms:.4f} "
-            f"graph_ms={g_ms:.4f} host_us={h_us} "
+            f"kk={kk} clusters read={clusters}: max_abs_err={err:.3g} "
+            f"ms={ms:.4f} graph_ms={g_ms:.4f} host_us={h_us} "
             f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
 
     for B in cases_C:
@@ -4191,6 +4239,81 @@ def model_parallel_phase(dev):
     return stats
 
 
+# --------------------------------------------------------------------------
+# bench phase (phase 12): the port's counterpart of bench.py
+# --------------------------------------------------------------------------
+
+def bench_run(argv, expect):
+    """The port's bench in this process at `argv`, the launch counts
+    zeroed just before it and read just after; fails unless they equal
+    `expect` (kernel -> launches, no other kernel). Returns its stats:
+    the JSON object, launches, seconds, the IVF recall@10 of the first
+    n_eval timed queries against the device's exact search."""
+    import numpy as np
+    import torch
+    from aura_snn_rag_tpu_torch import bench as port_bench
+    from aura_snn_rag_tpu_torch.ops.cuda import _build
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = port_bench.run(argv)
+    seconds = time.perf_counter() - t0
+    launches = {name: n for name, n in _build.launch_counts.items() if n}
+    line, eng = res.line, res.engine
+    log(f"bench {' '.join(argv) or '(defaults)'}: {seconds:.1f} s, "
+        f"launches {launches}")
+    log(json.dumps(line))
+    check(launches == expect, f"bench {argv}: launches {launches}, "
+          f"expected {expect}")
+    check(tuple(line) == BENCH_KEYS, f"bench {argv}: keys {list(line)}")
+    for key in ("recall_at_10", "recall_at_10_vs_f32_data"):
+        check(line[key] >= BENCH_RECALL,
+              f"bench {argv}: {key} = {line[key]} < {BENCH_RECALL}")
+    # the IVF results of every timed batch: finite, and those of the
+    # first n_eval queries against the device's exact search
+    check(eng.ivf_idx.shape == eng.approx_idx.shape
+          and bool((eng.ivf_idx >= 0).all())
+          and bool(np.isfinite(eng.ivf_scores).all()), f"bench {argv}: "
+          f"IVF results {eng.ivf_idx.shape}")
+    ivf_recall = recall_at_k(torch.from_numpy(eng.ivf_idx[:eng.n_eval]),
+                             torch.from_numpy(eng.exact_idx))
+    log(f"bench {' '.join(argv) or '(defaults)'}: IVF recall@10 "
+        f"{ivf_recall:.4f} over {eng.n_eval} queries")
+    return dict(line=line, launches=launches, seconds=seconds,
+                ivf_recall_at_10=ivf_recall,
+                queries=int(eng.approx_idx.shape[0]))
+
+
+def bench_phase():
+    """Phase 12: the port's bench at bench.py's defaults, then `--small
+    --flat-strategy=blockmax`, then the CLI's `bench --small`."""
+    import torch
+    t_phase = time.perf_counter()
+    stats = {}
+    # bench.py's defaults: 1 warm-up + 16 timed IVF batches through B
+    stats["full"] = bench_run([], {"ivf_retrieve_fused": 17})
+    check(stats["full"]["ivf_recall_at_10"] >= BENCH_IVF_RECALL,
+          f"bench: IVF recall@10 {stats['full']['ivf_recall_at_10']} < "
+          f"{BENCH_IVF_RECALL}")
+    check(stats["full"]["queries"] == 16 * 1024
+          and stats["full"]["line"]["n_vectors"] == 1_000_000,
+          "bench: not bench.py's defaults")
+    torch.cuda.empty_cache()
+    # the blockmax flat strategy at --small: A and B 1 + 8 times each
+    stats["blockmax"] = bench_run(
+        ["--small", "--flat-strategy=blockmax"],
+        {"flat_blockmax": 9, "ivf_retrieve_fused": 9})
+    torch.cuda.empty_cache()
+    # the CLI's bench in a subprocess
+    out, seconds = cli_run(["bench", "--small"], BENCH_CLI_TIMEOUT)
+    line = json.loads(out.strip().splitlines()[-1])
+    check(tuple(line) == BENCH_KEYS, f"cli bench: keys {list(line)}")
+    stats["cli"] = dict(line=line, seconds=seconds)
+    log(f"cli bench --small: {seconds:.1f} s; {json.dumps(line)}")
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"bench phase: {stats['phase_s']:.1f} s")
+    return stats
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4229,9 +4352,12 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(1234)
     res_a = kernel_A(dev, gen, s["M"], s["D"],
                      [("int8", 128), ("bf16", 128), ("int8", 1024)])
-    ivf = ivf_inputs(dev, gen, s["K"], s["C"], s["D"], s["M"], s["P"], 8, 4)
+    # 1024 queries per set: kernel B also runs at bench.py's batch
+    ivf = ivf_inputs(dev, gen, s["K"], s["C"], s["D"], s["M"], s["P"], 1024,
+                     4)
     res_bc = kernel_B_C(ivf, s["K"], s["C"], s["D"], s["M"], s["P"],
-                        s["kk"], s["k"], cases_B=(1, 8), cases_C=(1, 8))
+                        s["kk"], s["k"], cases_B=(1, 8, 1024),
+                        cases_C=(1, 8), union_cases=(1024,))
     # the engine's widths at these shapes: kk = 128 for D, and for E
     # per_k = min(max(k, ceil(kk / P)), C) = k
     res_de = kernel_D_E(ivf, s["K"], s["C"], s["D"], s["P"], s["kk"],
@@ -4320,6 +4446,11 @@ def main() -> int:
     mp = model_parallel_phase(dev)
     torch.cuda.empty_cache()
 
+    # ---- the port's bench.py: counts zeroed inside, around each run in
+    # this process ----
+    bench = bench_phase()
+    torch.cuda.empty_cache()
+
     main_shape = {"flat_blockmax": res_a[("int8", 1024)],
                   "ivf_retrieve_fused": res_bc[("ivf_retrieve_fused", 8)],
                   "ivf_scan_scores": res_bc[("ivf_scan_scores", 8)],
@@ -4340,6 +4471,8 @@ def main() -> int:
             # the spilled tier's device funnel: its chunk of 256 queries
             # over the 10M-row bank, and its launches there
             row["launches_spill"] = launches_spill[name]
+            row["launches_bench_blockmax"] = \
+                bench["blockmax"]["launches"][name]
             row.update({f"spill_{key}": value for key, value
                         in spill.pop("kernel_A").items()})
         if name == "ivf_retrieve_fused":
@@ -4353,6 +4486,15 @@ def main() -> int:
                 mp["serve"]["mesh"]["kernel_B_launches"])
             row["launches_pipelined"] = \
                 mp["pipeline"]["pipelined"]["kernel_B_launches"]
+            # phase 12: bench.py's defaults and its --small blockmax run;
+            # the kernel at their batch of 1024
+            row["launches_bench"] = bench["full"]["launches"][name]
+            row["launches_bench_blockmax"] = \
+                bench["blockmax"]["launches"][name]
+            r = res_bc[(name, 1024)]
+            row.update({f"b1024_{key}": r[key] for key in (
+                "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
+                "bound_by", "probed_clusters")})
             for B, suffix in ((8, ""), (1, "_b1")):
                 r = res_lm_b[(name, B)]
                 row.update({f"lm_{key}{suffix}": r[key] for key in (
@@ -4369,6 +4511,7 @@ def main() -> int:
     log(json.dumps({"natural_brain": natural}))
     log(json.dumps({"sharded": sharded}))
     log(json.dumps({"model_parallel": mp}))
+    log(json.dumps({"bench": bench}))
     log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -325,6 +325,44 @@ def test_ivf_retrieve_fused_kernel_at_the_lm_shape(dev, B):
     _assert_select_matches(s[:, :5], sl[:, :5], ps[:, :5], psl[:, :5], B)
 
 
+# Kernel B at bench.py's batch of 1024 queries: a [1024, P*C] scratch and
+# a coarse grid 1024 deep, at the engine's P = 64 and kk = 128 over 512
+# clusters of 128; the plain version runs 64 queries at a time.
+def test_ivf_retrieve_fused_kernel_at_the_bench_batch(dev):
+    B = 1024
+    cl, aux, feats, qn, top_c = (t.to(dev) for t in _ivf_inputs(
+        np.random.RandomState(80), 512, 128, 768, B, 64, 100_000))
+    s, sl = ivf_retrieve_fused(cl, aux, feats, qn, top_c, 128, 10)
+    parts = [ivf_retrieve_fused_plain(cl, aux, feats, qn[i:i + 64],
+                                      top_c[i:i + 64], 128, 10)
+             for i in range(0, B, 64)]
+    ps, psl = (torch.cat(p) for p in zip(*parts))
+    torch.cuda.synchronize()
+    assert (sl[:, 10:] == -1).all() and (s[:, 10:] == -1e30).all()
+    _assert_select_matches(s[:, :10], sl[:, :10], ps[:, :10], psl[:, :10],
+                           B)
+
+
+def test_port_bench_runs_kernel_b_on_the_card(dev, capsys):
+    """The port's bench at `--small` over 20,000 rows: one JSON line with
+    bench.py's keys, exact recall, kernel B once per IVF batch (1 + 8)
+    and no other kernel; with `--flat-strategy=blockmax` kernel A too."""
+    import json
+    from aura_snn_rag_tpu_torch import bench
+    for argv, want in (([], {"ivf_retrieve_fused": 9}),
+                       (["--flat-strategy=blockmax"],
+                        {"ivf_retrieve_fused": 9, "flat_blockmax": 9})):
+        n0 = dict(launch_counts)
+        line = bench.main(["--small", "--n=20000"] + argv)
+        got = {k: v - n0.get(k, 0) for k, v in launch_counts.items()
+               if v - n0.get(k, 0)}
+        assert got == want
+        out = capsys.readouterr().out.strip().splitlines()
+        assert json.loads(out[-1]) == line and len(line) == 16
+        assert line["recall_at_10"] >= 0.99
+        assert line["n_vectors"] == 20000
+
+
 def test_lm_prefill_through_kernel_b_matches_its_plain_version(dev):
     """A small LM (f32 compute) over a bank whose batches of 2 take IVF
     v3r: the prefill's logits through kernel B equal, within 1e-4, those

@@ -7,7 +7,8 @@ against the JAX package's:
   `models/convert.py` maps the tensors; every sharded dimension divides
   by 2 and 4 (a rank-free mirror of the slow
   `tests/parallel/test_flagship_shard_specs.py`); `param_sharding_rules`
-  equals JAX's on every path;
+  equals JAX's on every path; `memory_state_specs` of a bank equals
+  JAX's, field by field;
 - on gloo ranks ('data', 'model') of (1, 2) and (1, 4)
   (`test_torch_ranks.spawn`): `global_mesh(n_model=2)`
   (`tests/parallel/test_distributed.py::test_global_mesh_covers_all_
@@ -253,3 +254,16 @@ def test_tp_decode_matches_single_device(ranks):
         np.testing.assert_array_equal(o["serve/plain"], want["serve"])
         assert int(o["serve/local_heads"]) == 4 // world
         assert bool(o["serve/model_left_whole"])
+
+
+def test_memory_state_specs_match_jax():
+    cfg = get_debug_config().memory
+    jstate = init_memory_state(cfg)
+    tstate = port.state_from_numpy(jax.tree.map(np.asarray, jstate), "cpu")
+    want = jmesh.memory_state_specs(jstate)
+    got = tmesh.memory_state_specs(tstate)
+    assert type(got) is type(tstate)
+    assert got._fields == tuple(want._fields)
+    for name in got._fields:
+        assert getattr(got, name) == tuple(getattr(want, name)), name
+    assert got.features == ("data",) and got.count == ()
