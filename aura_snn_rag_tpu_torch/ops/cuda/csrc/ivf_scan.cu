@@ -18,21 +18,38 @@
 // aura_snn_rag_tpu/ops/pallas/ivf_scan.py:62): the same coarse score, then
 // the exact top-k of each probe (ties to the lowest c), in 128 lanes.
 //
-// Bound on the H100: all four read the P probed bf16 blocks once per query
-// (P*C*D*2 bytes, 50 MB at P=64, C=512, D=768) at 3.35 TB/s; the
-// arithmetic is a matrix-vector product, so bytes bound them. The TPU
-// kernels ran one program per query with [P, C] scratch in VMEM, which
-// neither fits a CTA's 227 KB of shared memory at full width nor fills
-// 132 SMs at B = 1. All four score a row the same way (`row_dot`: one
-// warp per clustered row, 16-byte loads, f32 accumulation in one fixed
-// order), so C's cosines and B, D and E's coarse scores agree bit for bit.
-// Keys are 64 bits: the score's bits, then the inverted index, which
-// encodes the lowest-index tie rule.
+// Bound on the H100: at a small batch all four read the P probed bf16
+// blocks once per query (P*C*D*2 bytes, 50 MB at P=64, C=512, D=768) at
+// 3.35 TB/s; the arithmetic is a matrix-vector product, so bytes bound
+// them. At a large batch the queries share clusters (bench.py's B = 1024
+// probes nearly all K = 4096 clusters, 16 pairs each), and the bound is
+// each probed block read once: 3.22 GB where per-pair reads move 51.5 GB.
+// Even then the product is 16 operations per byte, far below the ~295 at
+// which the tensor cores would bound it. The TPU kernels ran one program
+// per query with [P, C] scratch in VMEM, which neither fits a CTA's 227 KB
+// of shared memory at full width nor fills 132 SMs at B = 1.
+// Below the crossover (`cluster_major`) all four score a row the same way
+// (`row_dot`: one warp per clustered row, 16-byte loads, f32 accumulation
+// in one fixed order), so C's cosines and B, D and E's coarse scores agree
+// bit for bit there; above it B and D sum on the tensor cores, in another
+// fixed order. Keys are 64 bits: the score's bits, then the inverted
+// index, which encodes the lowest-index tie rule.
 // C is the coarse pass alone. B and D, whose top-kk spans all P*C entries
 // of a query, run in two passes:
-//   1. coarse pass: a (row chunk, probe, query) grid; writes the coarse
-//      score to a [B, P*C] scratch in device memory (L2-resident at small
-//      B);
+//   1. coarse pass, which writes the coarse score of pair (b, p) and row c
+//      to a [B, P*C] scratch in device memory at (b, p*C + c), one of two
+//      ways, chosen on the host from (B, P, K):
+//      - per pair, below the crossover: a (row chunk, probe, query) grid
+//        of `row_dot` (the scratch is L2-resident at small B);
+//      - cluster-major, at and above it: the B*P pairs are bucketed by
+//        cluster on the device (a histogram with atomics, one scan, a
+//        scatter; no host sync, so the call stays capturable in a CUDA
+//        graph), then each (cluster, tile of up to 64 of its pairs, 128
+//        rows) reads its rows from device memory once and scores them
+//        against the tile's queries with bf16 `mma.sync` (f32
+//        accumulation), both operands streamed through a 4-stage
+//        `cp.async` ring of 64-deep tiles (zero-filled past C and D);
+//        a hot cluster gets one tile per 64 pairs, an unprobed one none;
 //   2. select pass: a radix select that finds the top-kk keys, which are
 //      then put in order.
 //      B and D run it on a thread-block cluster of G CTAs per query
@@ -74,6 +91,8 @@
 // A cluster launch that the card refuses (cudaErrorClusterOutOfResources)
 // returns its error; nothing falls back to another launch.
 
+#include <algorithm>
+
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cooperative_groups.h>
@@ -101,6 +120,34 @@ constexpr float DEAD = -5e29f;         // scores at or below are dead lanes
 // E ranks its kept keys and a piece's keys with one thread (group) each
 static_assert(KPAD + TOPK_PIECE <= COARSE_THREADS, "E's candidates");
 
+// The cluster-major coarse pass of B and D (`ivf_coarse_cm_kernel`)
+constexpr int CM_ROWS = 128;           // clustered rows per CTA, 16 per warp
+constexpr int CM_N = 64;               // pairs (queries) per tile
+constexpr int CM_KC = 64;              // depth of a ring stage, bf16 values
+constexpr int CM_STAGES = 4;
+constexpr int CM_THREADS = 256;
+constexpr int CM_X_BYTES = CM_ROWS * CM_KC * 2;
+constexpr int CM_STAGE_BYTES = CM_X_BYTES + CM_N * CM_KC * 2;
+constexpr int CM_SMEM = CM_STAGES * CM_STAGE_BYTES;     // 96 KB: 2 CTAs/SM
+constexpr int BUCKET_THREADS = 256;
+constexpr int SCAN_THREADS = 1024;
+static_assert(CM_ROWS == 16 * (CM_THREADS / 32), "one m16 tile per warp");
+static_assert(CM_ROWS * 8 % CM_THREADS == 0 && CM_N * 8 % CM_THREADS == 0,
+              "whole 16-byte copies per thread");
+// Pairs per cluster, B*P / K, at and above which B and D take the
+// cluster-major pass. Set from both passes' graph times on the H100
+// (tools/ivf_coarse_crossover.py; PERF.md): at the engine's shape (K =
+// 4096, C = 512, D = 768, P = 64) kernel B took 0.160 / 0.153 ms
+// (cluster-major / per pair) at B = 8 (1/8 pair per cluster), 0.271 /
+// 0.284 at 16 (1/4), 0.464 / 0.552 at 32 (1/2), 0.740 / 1.083 at 64, 1.75
+// / 17.02 at 1024; at the LM's (K = 256, C = 896, P = 8, B = 8: 1/4)
+// 0.056 / 0.051. So 1/2: the engine's B = 32 and up.
+constexpr double CLUSTER_MAJOR_PAIRS = 0.5;
+
+bool cluster_major(int B, int P, int K) {
+  return (double)B * P >= CLUSTER_MAJOR_PAIRS * K;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -111,10 +158,11 @@ __device__ __forceinline__ float warp_sum(float v) {
 // query sq in shared memory (rounded to bf16): one warp per row, 16-byte
 // loads (ROW_LOADS of them issued before their FMAs: all of a row's at
 // D = 768), f32 FMAs in the per-lane order ch = lane + 32 t, then
-// warp_sum; every lane gets the sum. Every kernel here scores a row
-// through it, so their scores of one entry are the same bits. The second
-// loop guards with `if`: with `break` instead, E ran far slower on the
-// H100 (PERF.md).
+// warp_sum; every lane gets the sum. C, E and the per-pair coarse pass of
+// B and D score a row through it, so their scores of one entry are the
+// same bits (B and D's cluster-major pass, above the crossover, sums in
+// another order). The second loop guards with `if`: with `break` instead,
+// E ran far slower on the H100 (PERF.md).
 __device__ __forceinline__ float row_dot(const __nv_bfloat16* __restrict__ row,
                                          const float* sq, int D, int lane) {
   const uint4* v4 = reinterpret_cast<const uint4*>(row);
@@ -174,6 +222,291 @@ ivf_coarse_kernel(const __nv_bfloat16* __restrict__ clustered,
   // a select pass launched with programmatic stream serialisation may
   // start once every CTA got here; it waits for the whole grid before it
   // reads the scores
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+// ---- the cluster-major coarse pass ---------------------------------------
+
+// The workspace of the cluster-major pass, in 4-byte words after the
+// [B, P*C] scores, 16-byte aligned: the queries rounded to bf16 [B, D],
+// the pairs per cluster [K], the bucket cursors [K], the pair ids bucketed
+// by cluster [B*P], the tiles [max_tiles] as (cluster, first pair in
+// `list`, pairs), and the number of tiles.
+struct Workspace {
+  __nv_bfloat16* q16;
+  int *count, *cursor, *list, *tiles, *n_tiles;
+  long max_tiles;
+};
+
+// Tiles of up to CM_N pairs: at most one partial tile per probed cluster.
+long max_cm_tiles(int B, int P, int K) {
+  const long pairs = (long)B * P;
+  return pairs / CM_N + (pairs < K ? pairs : (long)K);
+}
+
+long workspace_words(int B, int P, int K, int D) {
+  if (!cluster_major(B, P, K)) return 0;
+  // + 4: room to align the start to 16 bytes
+  return 4 + (long)B * D / 2 + 2L * K + (long)B * P +
+         3 * max_cm_tiles(B, P, K) + 1;
+}
+
+Workspace workspace(float* scores, int C, int B, int P, int K, int D) {
+  uintptr_t at = reinterpret_cast<uintptr_t>(scores + (long)B * P * C);
+  at = (at + 15) & ~uintptr_t(15);
+  Workspace w;
+  w.q16 = reinterpret_cast<__nv_bfloat16*>(at);
+  w.count = reinterpret_cast<int*>(w.q16 + (long)B * D);
+  w.cursor = w.count + K;
+  w.list = w.cursor + K;
+  w.tiles = w.list + (long)B * P;
+  w.max_tiles = max_cm_tiles(B, P, K);
+  w.n_tiles = w.tiles + 3 * w.max_tiles;
+  return w;
+}
+
+// Two floats rounded to bf16 (to nearest even), a first, as 32 bits.
+__device__ __forceinline__ unsigned bf16x2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// Bucketing, pass 1: pairs per cluster (count zeroed before), and the
+// queries rounded to bf16 once, as the per-pair pass rounds them. A
+// cluster id outside [0, K) is bucketed nowhere (its scores are not
+// written), so that no atomic lands outside the workspace.
+__global__ void __launch_bounds__(BUCKET_THREADS)
+ivf_bucket_count_kernel(const int* __restrict__ top_c,
+                        const float* __restrict__ qn, int* __restrict__ count,
+                        __nv_bfloat16* __restrict__ q16, long n_pairs,
+                        long n_q8, int K) {
+  const long stride = (long)gridDim.x * BUCKET_THREADS;
+  const long i0 = (long)blockIdx.x * BUCKET_THREADS + threadIdx.x;
+  for (long i = i0; i < n_pairs; i += stride) {
+    const int c = top_c[i];
+    if ((unsigned)c < (unsigned)K) atomicAdd(&count[c], 1);
+  }
+  const float4* q4 = reinterpret_cast<const float4*>(qn);
+  for (long i = i0; i < n_q8; i += stride) {
+    const float4 u = q4[2 * i], v = q4[2 * i + 1];
+    reinterpret_cast<uint4*>(q16)[i] =
+        make_uint4(bf16x2(u.x, u.y), bf16x2(u.z, u.w), bf16x2(v.x, v.y),
+                   bf16x2(v.z, v.w));
+  }
+}
+
+// Bucketing, pass 2, one CTA: the exclusive scan of the K counts (each
+// bucket's cursor starts at its first place in `list`) and of their tiles,
+// and the tiles of every probed cluster.
+__global__ void __launch_bounds__(SCAN_THREADS)
+ivf_bucket_scan_kernel(const int* __restrict__ count, int* __restrict__ cursor,
+                       int* __restrict__ tiles, int* __restrict__ n_tiles,
+                       int K) {
+  __shared__ int wsum[2][SCAN_THREADS / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int per = (K + SCAN_THREADS - 1) / SCAN_THREADS;
+  const int k0 = min(K, tid * per), k1 = min(K, k0 + per);
+  int pairs = 0, ntile = 0;
+  for (int k = k0; k < k1; ++k) {
+    pairs += count[k];
+    ntile += (count[k] + CM_N - 1) / CM_N;
+  }
+  int ip = pairs, it = ntile;                     // inclusive, in the warp
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int vp = __shfl_up_sync(0xffffffffu, ip, o);
+    const int vt = __shfl_up_sync(0xffffffffu, it, o);
+    if (lane >= o) { ip += vp; it += vt; }
+  }
+  if (lane == 31) { wsum[0][warp] = ip; wsum[1][warp] = it; }
+  __syncthreads();
+  if (warp == 0) {
+    int vp = wsum[0][lane], vt = wsum[1][lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int up = __shfl_up_sync(0xffffffffu, vp, o);
+      const int ut = __shfl_up_sync(0xffffffffu, vt, o);
+      if (lane >= o) { vp += up; vt += ut; }
+    }
+    wsum[0][lane] = vp;
+    wsum[1][lane] = vt;
+  }
+  __syncthreads();
+  int op = ip - pairs + (warp ? wsum[0][warp - 1] : 0);
+  int ot = it - ntile + (warp ? wsum[1][warp - 1] : 0);
+  for (int k = k0; k < k1; ++k) {
+    const int n = count[k];
+    cursor[k] = op;
+    for (int t = 0; t * CM_N < n; ++t, ++ot) {
+      tiles[3 * ot] = k;
+      tiles[3 * ot + 1] = op + t * CM_N;
+      tiles[3 * ot + 2] = min(CM_N, n - t * CM_N);
+    }
+    op += n;
+  }
+  if (tid == SCAN_THREADS - 1) *n_tiles = ot;
+}
+
+// Bucketing, pass 3: each pair id b*P + p into its cluster's bucket. The
+// order within a bucket follows the atomics; a pair's scores do not
+// depend on its place in a tile (below).
+__global__ void __launch_bounds__(BUCKET_THREADS)
+ivf_bucket_scatter_kernel(const int* __restrict__ top_c,
+                          int* __restrict__ cursor, int* __restrict__ list,
+                          long n_pairs, int K) {
+  const long stride = (long)gridDim.x * BUCKET_THREADS;
+  for (long i = (long)blockIdx.x * BUCKET_THREADS + threadIdx.x; i < n_pairs;
+       i += stride) {
+    const int c = top_c[i];
+    if ((unsigned)c < (unsigned)K) list[atomicAdd(&cursor[c], 1)] = (int)i;
+  }
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled (nothing read)
+// unless `ok`.
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a (16 x 16, row-major) . b (16 x 8, column-major), bf16 in, f32 sum
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A [rows][CM_KC] bf16 tile in shared memory, one 128-byte line per row,
+// its 16-byte chunk ch stored at ch ^ (row % 8): the eight rows an
+// ldmatrix reads at one chunk fall on eight different bank groups.
+__device__ __forceinline__ unsigned swz(int row, int ch) {
+  return row * 128 + ((ch ^ (row & 7)) << 4);
+}
+
+// The cluster-major coarse pass: CTA (tile, row tile) scores CM_ROWS rows
+// of the tile's cluster against the tile's n <= CM_N queries,
+// [CM_ROWS, D] . [D, n] on the tensor cores, and writes aux0 * cos + aux1
+// of pair (b, p) and row c to out[(b*P + p)*C + c]. Warp w owns rows
+// 16w..16w+15 and every pair; n8 tiles past n are skipped. A score is the
+// f32 sum over the CM_KC-deep stages in order of the same mma sequence
+// whatever its column, so it does not depend on where the bucketing put
+// its pair. Grid: max_tiles * row_tiles; CTAs past the batch's tiles exit.
+__global__ void __launch_bounds__(CM_THREADS, 2)
+ivf_coarse_cm_kernel(const __nv_bfloat16* __restrict__ clustered,
+                     const float* __restrict__ aux,
+                     const __nv_bfloat16* __restrict__ q16,
+                     const int* __restrict__ list,
+                     const int* __restrict__ tiles,
+                     const int* __restrict__ n_tiles, float* __restrict__ out,
+                     int C, int D, int P, int row_tiles) {
+  extern __shared__ __align__(128) unsigned char ring[];
+  __shared__ int pair_s[CM_N];         // the tile's pair ids b*P + p
+  __shared__ int query_s[CM_N];        // and their queries b
+  const int tile = blockIdx.x / row_tiles;
+  // an exited CTA counts as launching the dependent select pass
+  if (tile >= *n_tiles) return;
+  const int rt = blockIdx.x - tile * row_tiles;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int k = tiles[3 * tile], n = tiles[3 * tile + 2];
+  const int r0 = rt * CM_ROWS, rows = min(CM_ROWS, C - r0);
+  if (tid < CM_N) {
+    const int pair = tid < n ? list[tiles[3 * tile + 1] + tid] : 0;
+    pair_s[tid] = pair;
+    query_s[tid] = pair / P;
+  }
+  __syncthreads();
+  const __nv_bfloat16* blk = clustered + ((long)k * C + r0) * D;
+  const int nk = (D + CM_KC - 1) / CM_KC, dch = D / 8;
+  const unsigned ring0 = (unsigned)__cvta_generic_to_shared(ring);
+
+  // stage s <- depth chunk kc of the rows and of the tile's queries
+  auto load = [&](int s, int kc) {
+    const unsigned xs = ring0 + s * CM_STAGE_BYTES, qs = xs + CM_X_BYTES;
+    const int ch0 = kc * (CM_KC / 8);
+#pragma unroll
+    for (int j = 0; j < CM_ROWS * 8 / CM_THREADS; ++j) {
+      const int i = tid + j * CM_THREADS, row = i >> 3, ch = i & 7;
+      const bool ok = row < rows && ch0 + ch < dch;
+      cp_async16(xs + swz(row, ch),
+                 ok ? blk + (long)row * D + (ch0 + ch) * 8 : clustered, ok);
+    }
+#pragma unroll
+    for (int j = 0; j < CM_N * 8 / CM_THREADS; ++j) {
+      const int i = tid + j * CM_THREADS, row = i >> 3, ch = i & 7;
+      const bool ok = row < n && ch0 + ch < dch;
+      cp_async16(qs + swz(row, ch),
+                 ok ? q16 + (long)query_s[row] * D + (ch0 + ch) * 8 : q16,
+                 ok);
+    }
+  };
+
+  float acc[CM_N / 8][4];
+#pragma unroll
+  for (int j = 0; j < CM_N / 8; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+  for (int s = 0; s < CM_STAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  const int a_row = warp * 16 + (lane & 15);
+  for (int kc = 0; kc < nk; ++kc) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(CM_STAGES - 2) : "memory");
+    __syncthreads();          // stage kc landed; stage kc - 1 was consumed
+    if (kc + CM_STAGES - 1 < nk)
+      load((kc + CM_STAGES - 1) % CM_STAGES, kc + CM_STAGES - 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const unsigned xs = ring0 + (kc % CM_STAGES) * CM_STAGE_BYTES;
+    const unsigned qs = xs + CM_X_BYTES;
+#pragma unroll
+    for (int ks = 0; ks < CM_KC / 16; ++ks) {
+      unsigned a[4];
+      ldsm_x4(a, xs + swz(a_row, 2 * ks + (lane >> 4)));
+#pragma unroll
+      for (int jp = 0; jp < CM_N / 16; ++jp) {
+        if (16 * jp < n) {                          // the same in the warp
+          const int brow = 16 * jp + ((lane >> 4) << 3) + (lane & 7);
+          unsigned b[4];
+          ldsm_x4(b, qs + swz(brow, 2 * ks + ((lane >> 3) & 1)));
+          mma_bf16(acc[2 * jp], a, b[0], b[1]);
+          if (16 * jp + 8 < n) mma_bf16(acc[2 * jp + 1], a, b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  // acc[j][2h + e]: row 16w + g + 8h, pair 8j + 2t + e (g = lane / 4,
+  // t = lane % 4); one rounding per operation, as in the per-pair pass
+  const int g = lane >> 2, t = lane & 3;
+  const float* a0p = aux + (long)k * 8 * C;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * 16 + g + 8 * h;
+    if (r < rows) {
+      const int c = r0 + r;
+      const float a0 = a0p[c], a1 = a0p[C + c];
+#pragma unroll
+      for (int j = 0; j < CM_N / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * t + e;
+          if (col < n)
+            out[(long)pair_s[col] * C + c] =
+                __fadd_rn(__fmul_rn(a0, acc[j][2 * h + e]), a1);
+        }
+    }
+  }
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 }
 
@@ -704,6 +1037,50 @@ cudaError_t opt_in(Kernel kernel, size_t smem, size_t* done) {
   return cudaSuccess;
 }
 
+int grid_for(long n, int threads) {
+  return (int)std::min<long>((n + threads - 1) / threads, 4096L);
+}
+
+// The coarse pass of B and D: cluster-major at and above the crossover
+// (bucketing in three launches, then the pass), per pair below it. The
+// last launch is the coarse kernel, which releases the select launched
+// after it with programmatic stream serialisation. Each launch's error is
+// returned; nothing falls back to the other pass.
+cudaError_t launch_coarse_aux(const void* clustered, const float* aux,
+                              const float* qn, const int* top_c,
+                              float* scratch, int C, int D, int K, int B,
+                              int P, cudaStream_t s) {
+  if (!cluster_major(B, P, K))
+    return launch_coarse<true>(clustered, aux, qn, top_c, scratch, C, D, B,
+                               P, s);
+  static size_t done = 0;
+  cudaError_t err = opt_in(ivf_coarse_cm_kernel, CM_SMEM, &done);
+  if (err != cudaSuccess) return err;
+  const Workspace w = workspace(scratch, C, B, P, K, D);
+  const long n_pairs = (long)B * P, n_q8 = (long)B * D / 8;
+  const int row_tiles = (C + CM_ROWS - 1) / CM_ROWS;
+  const long grid = w.max_tiles * row_tiles;
+  if (grid > 0x7fffffffL) return cudaErrorInvalidConfiguration;
+  err = cudaMemsetAsync(w.count, 0, (size_t)K * sizeof(int), s);
+  if (err != cudaSuccess) return err;
+  ivf_bucket_count_kernel<<<grid_for(std::max(n_pairs, n_q8),
+                                     BUCKET_THREADS),
+                            BUCKET_THREADS, 0, s>>>(top_c, qn, w.count,
+                                                    w.q16, n_pairs, n_q8, K);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ivf_bucket_scan_kernel<<<1, SCAN_THREADS, 0, s>>>(w.count, w.cursor,
+                                                     w.tiles, w.n_tiles, K);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ivf_bucket_scatter_kernel<<<grid_for(n_pairs, BUCKET_THREADS),
+                              BUCKET_THREADS, 0, s>>>(top_c, w.cursor,
+                                                      w.list, n_pairs, K);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ivf_coarse_cm_kernel<<<(unsigned)grid, CM_THREADS, CM_SMEM, s>>>(
+      static_cast<const __nv_bfloat16*>(clustered), aux, w.q16, w.list,
+      w.tiles, w.n_tiles, scratch, C, D, P, row_tiles);
+  return cudaGetLastError();
+}
+
 // Launches `kernel` on clusters of CLUSTER CTAs along x, after the
 // previous kernel with programmatic stream serialisation when `pdl`.
 // Returns the launch's error, read and cleared so the next launch does not
@@ -773,14 +1150,20 @@ extern "C" int ivf_scan_scores_launch(const void* clustered, const float* qn,
                                    reinterpret_cast<cudaStream_t>(stream));
 }
 
+// Words of workspace that B and D need after their [B, P*C] scratch: 0
+// below the crossover, where they take the per-pair coarse pass.
+extern "C" long ivf_coarse_workspace_words(int B, int P, int K, int D) {
+  return workspace_words(B, P, K, D);
+}
+
 extern "C" int ivf_retrieve_fused_launch(
     const void* clustered, const float* aux, const float* features,
     const float* qn, const int* top_c, float* scratch, float* out_s,
-    int* out_slot, int C, int D, long M, int B, int P, int kk, int k,
+    int* out_slot, int C, int D, int K, long M, int B, int P, int kk, int k,
     int kpad, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_coarse<true>(clustered, aux, qn, top_c, scratch, C,
-                                        D, B, P, s);
+  cudaError_t err = launch_coarse_aux(clustered, aux, qn, top_c, scratch, C,
+                                      D, K, B, P, s);
   if (err != cudaSuccess) return (int)err;
   const int kkp = pow2_at_least(kk);
   // rank 0's keys, the query, the exact scores and slots of the kk lanes
@@ -795,11 +1178,11 @@ extern "C" int ivf_retrieve_fused_launch(
 extern "C" int ivf_candidates_launch(const void* clustered, const float* aux,
                                      const float* qn, const int* top_c,
                                      float* scratch, float* out_s,
-                                     int* out_slot, int C, int D, int B,
-                                     int P, int kk, void* stream) {
+                                     int* out_slot, int C, int D, int K,
+                                     int B, int P, int kk, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_coarse<true>(clustered, aux, qn, top_c, scratch, C,
-                                        D, B, P, s);
+  cudaError_t err = launch_coarse_aux(clustered, aux, qn, top_c, scratch, C,
+                                      D, K, B, P, s);
   if (err != cudaSuccess) return (int)err;
   const int kkp = pow2_at_least(kk);
   return (int)launch_select(ivf_candidates_select_kernel<true>,

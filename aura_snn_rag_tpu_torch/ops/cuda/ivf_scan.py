@@ -17,8 +17,12 @@
   probe, sorted descending, ties to the lowest c.
 
 All four launch `csrc/ivf_scan.cu` for CUDA tensors (bound and design in
-its header; B and D in two launches through a [B, P*C] scratch, C and E in
-one) and run the `_plain` versions below for CPU tensors.
+its header; B and D through a [B, P*C] scratch, C and E in one launch)
+and run the `_plain` versions below for CPU tensors. B and D's coarse
+pass is chosen in the library from (B, P, K): per pair at small batches,
+cluster-major once the batch's pairs crowd the clusters (each probed
+cluster read once for all the queries that probe it; its workspace rides
+after the scratch, `_workspace_words`).
 `ivf_retrieve_fused_grad` is kernel B with a gradient into the queries
 (plain PyTorch backward, on either device), which training needs.
 
@@ -160,25 +164,52 @@ def _ivf_args(name, clustered, aux, qn, top_c, features=None):
 # each launcher's C arguments before the stream
 _ARGTYPES = {
     "ivf_scan_scores": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4,
-    "ivf_retrieve_fused": [ctypes.c_void_p] * 8 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_long] + [ctypes.c_int] * 5,
-    "ivf_candidates": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5,
+    "ivf_retrieve_fused": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
+        ctypes.c_long] + [ctypes.c_int] * 5,
+    "ivf_candidates": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6,
     "ivf_topk_scores": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5,
 }
 _bound: Dict[str, Callable[..., int]] = {}
 
 
-def _launch(name: str, *args) -> None:
-    """Calls `<name>_launch` on the current stream; the function is looked
-    up and its argument types set once per process."""
-    fn = _bound.get(name)
+def _bind(symbol: str, argtypes, restype):
+    """The library's `symbol`, looked up and typed once per process."""
+    fn = _bound.get(symbol)
     if fn is None:
-        fn = getattr(_build.load("ivf_scan"), f"{name}_launch")
-        fn.argtypes = _ARGTYPES[name] + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _bound[name] = fn
+        fn = getattr(_build.load("ivf_scan"), symbol)
+        fn.argtypes, fn.restype = argtypes, restype
+        _bound[symbol] = fn
+    return fn
+
+
+def _launch(name: str, *args) -> None:
+    """Calls `<name>_launch` on the current stream."""
+    fn = _bind(f"{name}_launch", _ARGTYPES[name] + [ctypes.c_void_p],
+               ctypes.c_int)
     _build.check(fn(*args, _build.stream()), name)
     _build.launch_counts[name] += 1
+
+
+def _workspace_words(B: int, P: int, K: int, D: int) -> int:
+    """f32 words that B and D's coarse pass needs after the [B, P*C]
+    scratch: 0 where it runs per pair, else the cluster-major pass's
+    buckets, tiles and bf16 queries."""
+    return _bind("ivf_coarse_workspace_words", [ctypes.c_int] * 4,
+                 ctypes.c_long)(B, P, K, D)
+
+
+def cluster_major(B: int, P: int, K: int) -> bool:
+    """Whether kernels B and D run the cluster-major coarse pass on a
+    card at this batch, probe count and cluster count (the library's own
+    choice; it needs the built library)."""
+    return _workspace_words(B, P, K, 8) > 0
+
+
+def _scratch(B: int, P: int, C: int, K: int, D: int, device) -> torch.Tensor:
+    """The coarse scores [B, P*C] f32 with the coarse pass's workspace
+    after them, in one allocation."""
+    n = B * P * C + _workspace_words(B, P, K, D)
+    return torch.empty(n, dtype=torch.float32, device=device)
 
 
 def ivf_scan_scores(clustered: torch.Tensor, qn: torch.Tensor,
@@ -203,7 +234,7 @@ def ivf_retrieve_fused(clustered: torch.Tensor, aux: torch.Tensor,
     """clustered [K, C, D] bf16; aux [K, 8, C] f32 (`build_ivf_aux`);
     features [M, D] f32; qn [B, D] f32 L2-normalised; top_c [B, P].
     Returns (scores [B, 128] f32, slots [B, 128] i32)."""
-    _, C, D = clustered.shape
+    K, C, D = clustered.shape
     B, P = top_c.shape
     if not (0 < kk <= P * C and kk <= KK_MAX_FUSED
             and 0 < k <= min(kk, KPAD)):
@@ -214,13 +245,13 @@ def ivf_retrieve_fused(clustered: torch.Tensor, aux: torch.Tensor,
     M = features.shape[0]
     qn, top_c = _ivf_args("ivf_retrieve_fused", clustered, aux, qn, top_c,
                           features)
-    scratch = torch.empty((B, P * C), dtype=torch.float32, device=qn.device)
+    scratch = _scratch(B, P, C, K, D, qn.device)
     out_s = torch.empty((B, KPAD), dtype=torch.float32, device=qn.device)
     out_slot = torch.empty((B, KPAD), dtype=torch.int32, device=qn.device)
     _launch("ivf_retrieve_fused", _build.ptr(clustered), _build.ptr(aux),
             _build.ptr(features), _build.ptr(qn), _build.ptr(top_c),
             _build.ptr(scratch), _build.ptr(out_s), _build.ptr(out_slot), C,
-            D, M, B, P, kk, k, KPAD)
+            D, K, M, B, P, kk, k, KPAD)
     return out_s, out_slot
 
 
@@ -285,7 +316,7 @@ def ivf_candidates(clustered: torch.Tensor, aux: torch.Tensor,
     L2-normalised; top_c [B, P]; kk a multiple of 128, at most P*C and
     16384. Returns (scores [B, kk] f32, slots [B, kk] i32), sorted
     descending."""
-    _, C, D = clustered.shape
+    K, C, D = clustered.shape
     B, P = top_c.shape
     if not (0 < kk <= min(P * C, KK_MAX_CANDIDATES) and kk % KPAD == 0):
         raise ValueError(f"ivf_candidates: kk={kk} must be a multiple of "
@@ -295,12 +326,12 @@ def ivf_candidates(clustered: torch.Tensor, aux: torch.Tensor,
         return ivf_candidates_plain(clustered, aux, qn, top_c, kk)
     qn, top_c = _ivf_args("ivf_candidates", clustered, aux, qn, top_c)
     # the coarse pass's scores, which the select pass reads
-    scratch = torch.empty((B, P * C), dtype=torch.float32, device=qn.device)
+    scratch = _scratch(B, P, C, K, D, qn.device)
     out_s = torch.empty((B, kk), dtype=torch.float32, device=qn.device)
     out_slot = torch.empty((B, kk), dtype=torch.int32, device=qn.device)
     _launch("ivf_candidates", _build.ptr(clustered), _build.ptr(aux),
             _build.ptr(qn), _build.ptr(top_c), _build.ptr(scratch),
-            _build.ptr(out_s), _build.ptr(out_slot), C, D, B, P, kk)
+            _build.ptr(out_s), _build.ptr(out_slot), C, D, K, B, P, kk)
     return out_s, out_slot
 
 

@@ -19,9 +19,13 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
    at B = 1 and 8 (C alone is the coarse pass that B and D run before
    their select pass, so B - C and D - C are the select passes' time; E
    scores and selects in one launch, so E - C is its select's cost over
-   the same byte stream), and B also at bench.py's batch of 1024 (its
-   plain version in chunks of 16 queries, its bound counting each
-   cluster the batch probes once); besides their CUDA-event time
+   the same byte stream), and B also at B = 64, 256 and bench.py's batch
+   of 1024, D at 1024 (plain versions in chunks of 16 queries); at the
+   batches where B and D take their cluster-major coarse pass (the
+   library's choice, `ivf_scan.cluster_major`) their bound counts each
+   cluster the batch probes once, and at 1024 torch.profiler reads the
+   device time of each of their launches (bucketing, coarse, select,
+   `launch_ms`); besides their CUDA-event time
    over back-to-back calls (`ms`, which the host's enqueue rate can set
    at B = 1) they are timed by CUDA-graph replay (`graph_ms`, device
    time), and at B = 1 by the host's median time per call up to its
@@ -658,11 +662,13 @@ def in_chunks(call, qn, tc, chunk=PLAIN_CHUNK):
 
 
 def kernel_B_C(ivf, K, C, D, M, P, kk, k, cases_B, cases_C,
-               union_cases=()):
+               union_cases=(), profile_cases=()):
     """Kernels B and C against their plain versions at each batch of
-    `cases_B` / `cases_C`; at the batches of `union_cases` kernel B's
-    bound reads each cluster the batch probes once (a batch of 1024 probes
-    nearly all K), elsewhere once per query that probes it."""
+    `cases_B` / `cases_C`; at the batches of `union_cases` (those on the
+    cluster-major coarse pass) kernel B's bound reads each cluster the
+    batch probes once (a batch of 1024 probes nearly all K), elsewhere once
+    per query that probes it; at `profile_cases` also the device time of
+    each of its launches (`launch_ms`)."""
     import numpy as np
     import torch
     from aura_snn_rag_tpu_torch.ops.cuda.ivf_scan import (
@@ -711,11 +717,15 @@ def kernel_B_C(ivf, K, C, D, M, P, kk, k, cases_B, cases_C,
         res[("ivf_retrieve_fused", B)] = dict(
             max_abs_err=err, ms=ms, graph_ms=g_ms, host_us=h_us,
             plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
-            probed_clusters=clusters)
+            probed_clusters=clusters,
+            coarse_pass="cluster" if B in union_cases else "pair")
+        if B in profile_cases:
+            res[("ivf_retrieve_fused", B)]["launch_ms"] = launch_ms(calls[0])
         log(f"kernel ivf_retrieve_fused B={B} K={K} C={C} P={P} D={D} "
             f"kk={kk} clusters read={clusters}: max_abs_err={err:.3g} "
             f"ms={ms:.4f} graph_ms={g_ms:.4f} host_us={h_us} "
-            f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+            f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+            f"{res[('ivf_retrieve_fused', B)].get('launch_ms', '')}")
 
     for B in cases_C:
         bsets = [(qn[:B].contiguous(), tc[:B].contiguous())
@@ -745,9 +755,13 @@ def kernel_B_C(ivf, K, C, D, M, P, kk, k, cases_B, cases_C,
     return res
 
 
-def kernel_D_E(ivf, K, C, D, P, kk, k, cases_B):
-    """ivf_candidates (width kk per query) and ivf_topk_scores (width k per
-    probe) against their plain versions on the kernel-phase inputs."""
+def kernel_D_E(ivf, K, C, D, P, kk, k, cases_D, cases_E, union_cases=(),
+               profile_cases=()):
+    """ivf_candidates (width kk per query) at each batch of `cases_D` and
+    ivf_topk_scores (width k per probe) at `cases_E` against their plain
+    versions (in chunks of PLAIN_CHUNK queries) on the kernel-phase
+    inputs; D's bound and launch times at `union_cases` and
+    `profile_cases` as in kernel_B_C."""
     import numpy as np
     import torch
     from aura_snn_rag_tpu_torch.ops.cuda import ivf_scan
@@ -755,17 +769,18 @@ def kernel_D_E(ivf, K, C, D, P, kk, k, cases_B):
     cl, aux, _, sets = ivf
     res = {}
     # per query: the selected lanes whose slot is read, and the lanes written
-    for name, width, picked, lanes in (
-            ("ivf_candidates", kk, kk, kk),
-            ("ivf_topk_scores", k, P * k, P * ivf_scan.KPAD)):
+    for name, width, picked, lanes, cases in (
+            ("ivf_candidates", kk, kk, kk, cases_D),
+            ("ivf_topk_scores", k, P * k, P * ivf_scan.KPAD, cases_E)):
         fn = getattr(ivf_scan, name)
         plain = getattr(ivf_scan, name + "_plain")
-        for B in cases_B:
+        for B in cases:
             bsets = [(qn[:B].contiguous(), tc[:B].contiguous())
                      for qn, tc in sets]
             qn, tc = bsets[0]
             s, sl = fn(cl, aux, qn, tc, width)
-            ps, psl = plain(cl, aux, qn, tc, width)
+            ps, psl = in_chunks(lambda q, t: plain(cl, aux, q, t, width),
+                                qn, tc)
             if name == "ivf_topk_scores":
                 # E scores an entry as kernel C's pass does (`row_dot`): its
                 # lanes are bit for bit the per-probe top-k of aux0 * cos +
@@ -799,23 +814,62 @@ def kernel_D_E(ivf, K, C, D, P, kk, k, cases_B):
                      for q, t in bsets]
             ms, g_ms = time_ms(calls, iters=20), graph_ms(calls)
             h_us = host_us(calls) if B == 1 else None
-            plain_ms = time_ms([lambda q=q, t=t: plain(cl, aux, q, t, width)
-                                for q, t in bsets], iters=4, warmup=1)
-            # the probed bf16 blocks and aux rows 0-1 once, the query, the
-            # probe ids, the slots (aux row 2) of the selected lanes only,
-            # and the (score, slot) lanes written
-            nbytes = B * (P * C * D * 2 + 2 * P * C * 4 + P * 4 + D * 4
-                          + picked * 4 + lanes * 8)
+            plain_ms = time_ms([lambda q=q, t=t: in_chunks(
+                lambda qc, tc_: plain(cl, aux, qc, tc_, width), q, t)
+                for q, t in bsets], iters=4, warmup=1)
+            # the probed bf16 blocks and aux rows 0-1 once (per query, or
+            # per batch on the cluster-major pass), the query, the probe
+            # ids, the slots (aux row 2) of the selected lanes only, and
+            # the (score, slot) lanes written
+            union = name == "ivf_candidates" and B in union_cases
+            clusters = int(torch.unique(tc).numel()) if union else B * P
+            nbytes = (clusters * (C * D * 2 + 2 * C * 4)
+                      + B * (P * 4 + D * 4 + picked * 4 + lanes * 8))
             b_ms, b_by = bound_ms(nbytes, B * 2 * P * C * D, "bf16")
             res[(name, B)] = dict(
                 max_abs_err=err, ms=ms, graph_ms=g_ms, host_us=h_us,
                 plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                bound_by=b_by)
+                bound_by=b_by, probed_clusters=clusters,
+                coarse_pass="cluster" if union else "pair")
+            if name == "ivf_candidates" and B in profile_cases:
+                res[(name, B)]["launch_ms"] = launch_ms(calls[0])
             log(f"kernel {name} B={B} K={K} C={C} P={P} D={D} "
                 f"width={width}: max_abs_err={err:.3g} ms={ms:.4f} "
                 f"graph_ms={g_ms:.4f} host_us={h_us} "
-                f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+                f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                f"{res[(name, B)].get('launch_ms', '')}")
     return res
+
+
+# B's and D's launches by CUDA function: the cluster-major pass's
+# bucketing (a memset and three kernels), the coarse pass (either one),
+# the select pass
+LAUNCH_GROUPS = (("bucketing", ("Memset", "ivf_bucket_")),
+                 ("coarse", ("ivf_coarse_",)),
+                 ("select", ("_select_",)))
+
+
+def launch_ms(fn, reps=5):
+    """Device ms per call of fn()'s launches, summed by LAUNCH_GROUPS
+    (others under "other"), from torch.profiler's kernel rows over `reps`
+    calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {group: 0.0 for group, _ in LAUNCH_GROUPS}
+    out["other"] = 0.0
+    for e in prof.key_averages():
+        if e.self_device_time_total <= 0:
+            continue
+        group = next((g for g, keys in LAUNCH_GROUPS
+                      if any(key in e.key for key in keys)), "other")
+        out[group] += e.self_device_time_total / 1e3 / reps
+    return out
 
 
 def topk_context(dev, gen, N, kk, cases_B):
@@ -867,6 +921,7 @@ def profile_paths(cfg, state, queries, reps=5):
     torch.profiler over `reps` calls; busy = device time / wall time."""
     import torch
     import aura_snn_rag_tpu_torch as port
+    from aura_snn_rag_tpu_torch.memory.engine import build_ivf_aux
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -887,6 +942,10 @@ def profile_paths(cfg, state, queries, reps=5):
             paths[f"ivf_{kern}_b{B}"] = (
                 lambda c=c, B=B: port.retrieve_auto(c, state, queries[:B],
                                                     None, TOPK))
+    # bench.py's IVF batch: retrieve at B = 1024 with aux built once
+    aux = build_ivf_aux(cfg, state)
+    paths["ivf_v3r_b1024_aux"] = lambda: port.retrieve(
+        cfg, state, queries[:1024], None, TOPK, aux=aux)
     out = {}
     for name, fn in paths.items():
         fn()
@@ -4352,16 +4411,25 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(1234)
     res_a = kernel_A(dev, gen, s["M"], s["D"],
                      [("int8", 128), ("bf16", 128), ("int8", 1024)])
-    # 1024 queries per set: kernel B also runs at bench.py's batch
+    # 1024 queries per set: kernels B and D also run at bench.py's batch;
+    # B and D take the cluster-major coarse pass at the batches where the
+    # library chooses it (B = 64, 256 and 1024 at these shapes), where
+    # their bounds read each probed cluster once
+    from aura_snn_rag_tpu_torch.ops.cuda.ivf_scan import cluster_major
+    cases_B = (1, 8, 64, 256, 1024)
+    union = tuple(B for B in cases_B if cluster_major(B, s["P"], s["K"]))
+    log(f"cluster-major coarse pass at B in {union} of {cases_B}")
     ivf = ivf_inputs(dev, gen, s["K"], s["C"], s["D"], s["M"], s["P"], 1024,
                      4)
     res_bc = kernel_B_C(ivf, s["K"], s["C"], s["D"], s["M"], s["P"],
-                        s["kk"], s["k"], cases_B=(1, 8, 1024),
-                        cases_C=(1, 8), union_cases=(1024,))
+                        s["kk"], s["k"], cases_B=cases_B,
+                        cases_C=(1, 8), union_cases=union,
+                        profile_cases=(1024,))
     # the engine's widths at these shapes: kk = 128 for D, and for E
     # per_k = min(max(k, ceil(kk / P)), C) = k
     res_de = kernel_D_E(ivf, s["K"], s["C"], s["D"], s["P"], s["kk"],
-                        s["k"], cases_B=(1, 8))
+                        s["k"], cases_D=(1, 8, 1024), cases_E=(1, 8),
+                        union_cases=union, profile_cases=(1024,))
     del ivf
     topk_ms = topk_context(dev, gen, s["P"] * s["C"], s["kk"], (1, 8))
     # kernel B at the LM's shape: P*C = 7168 keys over the select's 8 CTAs
@@ -4475,6 +4543,13 @@ def main() -> int:
                 bench["blockmax"]["launches"][name]
             row.update({f"spill_{key}": value for key, value
                         in spill.pop("kernel_A").items()})
+        if name == "ivf_candidates":
+            # bench.py's batch of 1024, on the cluster-major pass
+            r = res_de[(name, 1024)]
+            row.update({f"b1024_{key}": r[key] for key in (
+                "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
+                "bound_by", "probed_clusters", "coarse_pass", "launch_ms")
+                if key in r})
         if name == "ivf_retrieve_fused":
             # the LM's shape, and its launches on the LM and training paths
             row["launches_lm"] = launches_lm[name]
@@ -4491,10 +4566,12 @@ def main() -> int:
             row["launches_bench"] = bench["full"]["launches"][name]
             row["launches_bench_blockmax"] = \
                 bench["blockmax"]["launches"][name]
-            r = res_bc[(name, 1024)]
-            row.update({f"b1024_{key}": r[key] for key in (
-                "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
-                "bound_by", "probed_clusters")})
+            for B in (64, 256, 1024):
+                r = res_bc[(name, B)]
+                row.update({f"b{B}_{key}": r[key] for key in (
+                    "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
+                    "bound_by", "probed_clusters", "coarse_pass",
+                    "launch_ms") if key in r})
             for B, suffix in ((8, ""), (1, "_b1")):
                 r = res_lm_b[(name, B)]
                 row.update({f"lm_{key}{suffix}": r[key] for key in (

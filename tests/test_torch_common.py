@@ -152,10 +152,12 @@ def retrieve_both(jcfg, tcfg, js, ts, q, qloc, k):
     return jr, tr
 
 
-def ivf_kernel_inputs(seed, K=32, C=256, D=128, B=3, P=4, M=4096):
+def ivf_kernel_inputs(seed, K=32, C=256, D=128, B=3, P=4, M=4096,
+                      probes=None):
     """Inputs of the IVF kernels for both packages: a bf16 clustered store
     [K, C, D], its aux rows [K, 8, C] with 30% dead entries, a bank
-    [M, D], normalised queries [B, D] and P distinct probes per query.
+    [M, D], normalised queries [B, D] and P distinct probes per query
+    (drawn by `probes(rng)` when given, e.g. `crowded_probes`).
     Returns (jax arrays, torch tensors), each (clustered, aux, features,
     qn, top_c)."""
     rng = np.random.RandomState(seed)
@@ -170,8 +172,8 @@ def ivf_kernel_inputs(seed, K=32, C=256, D=128, B=3, P=4, M=4096):
     feats = rng.randn(M, D).astype(np.float32)
     q = rng.randn(B, D).astype(np.float32)
     qn = q / np.linalg.norm(q, axis=1, keepdims=True)
-    top_c = np.stack([rng.choice(K, P, replace=False)
-                      for _ in range(B)]).astype(np.int32)
+    top_c = (np.stack([rng.choice(K, P, replace=False) for _ in range(B)])
+             if probes is None else probes(rng)).astype(np.int32)
     jx = (cl16, jnp.asarray(aux), jnp.asarray(feats), jnp.asarray(qn),
           jnp.asarray(top_c))
     tx = (torch.from_numpy(np.array(cl16.astype(jnp.float32)))

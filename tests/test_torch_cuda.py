@@ -32,6 +32,7 @@ from aura_snn_rag_tpu_torch.ops.cuda.ivf_scan import (
     ivf_candidates, ivf_candidates_plain, ivf_retrieve_fused,
     ivf_retrieve_fused_plain, ivf_scan_scores, ivf_scan_scores_plain,
     ivf_topk_scores, ivf_topk_scores_plain)
+from tests.test_torch_probes import crowded_probes
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -341,6 +342,144 @@ def test_ivf_retrieve_fused_kernel_at_the_bench_batch(dev):
     assert (sl[:, 10:] == -1).all() and (s[:, 10:] == -1e30).all()
     _assert_select_matches(s[:, :10], sl[:, :10], ps[:, :10], psl[:, :10],
                            B)
+
+
+def _crowded_inputs(seed, K, C, D, B, P, hot=0, span=None, M=4096):
+    """_ivf_inputs with the probes of `crowded_probes`."""
+    rng = np.random.RandomState(seed)
+    cl, aux, feats, qn, _ = _ivf_inputs(rng, K, C, D, B, P, M)
+    top_c = crowded_probes(rng, K, B, P, hot, span)
+    return cl, aux, feats, qn, torch.from_numpy(top_c)
+
+
+def _kernel_names(fn):
+    """The CUDA kernels `fn()` launches, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return " ".join(e.key for e in prof.key_averages())
+
+
+# Kernels B and D on their cluster-major coarse pass: every shape is at
+# least 8 pairs per cluster (B*P/K), above the library's crossover, which
+# each case asserts. "bench": 16 pairs per cluster as at bench.py's batch
+# of 1024, at K = 256; "hot": cluster 0 in all 150 queries' probes, three
+# tiles of 64 pairs; "unprobed": 64 queries over clusters 0-15 of 64;
+# "c385": a ragged last row tile; "d72": a depth that is a multiple of 8
+# but not of 16 (zero-filled in both operands); "tied": exact ties
+# planted on the coarse and the exact score (`_tied_fused_inputs`, 9.6
+# pairs per cluster); "kk4096": the widest funnel kernel B takes.
+CM_CASES = {
+    # K, C, D, B, P, hot, span, kk (B), kk (D)
+    "bench": (256, 128, 128, 64, 64, 0, None, 128, 128),
+    "hot": (32, 256, 128, 150, 4, 1, None, 128, 256),
+    "unprobed": (64, 256, 128, 64, 8, 0, 16, 256, 512),
+    "c385": (16, 385, 128, 40, 4, 0, None, 128, 384),
+    "d72": (16, 256, 72, 40, 4, 0, None, 128, 256),
+    "tied": (40, 256, 128, 96, 4, 0, None, 256, 256),
+    "kk4096": (40, 128, 128, 16, 32, 0, None, 4096, 4096),
+}
+
+
+@pytest.mark.parametrize("case", list(CM_CASES))
+def test_ivf_kernels_b_and_d_on_the_cluster_major_pass_match_plain(dev,
+                                                                   case):
+    from aura_snn_rag_tpu_torch.ops.cuda.ivf_scan import cluster_major
+    K, C, D, B, P, hot, span, kk_b, kk_d = CM_CASES[case]
+    if case == "tied":
+        inputs = _tied_fused_inputs(11, C, B, P, D)
+    else:
+        inputs = _crowded_inputs(len(case), K, C, D, B, P, hot, span)
+    cl, aux, feats, qn, top_c = (t.to(dev) for t in inputs)
+    assert cl.shape[0] == K and B * P >= 8 * K and cluster_major(B, P, K)
+    k = 10
+    n0 = dict(launch_counts)
+    s, sl = ivf_retrieve_fused(cl, aux, feats, qn, top_c, kk_b, k)
+    ds, dsl = ivf_candidates(cl, aux, qn, top_c, kk_d)
+    torch.cuda.synchronize()
+    assert launch_counts["ivf_retrieve_fused"] == n0["ivf_retrieve_fused"] + 1
+    assert launch_counts["ivf_candidates"] == n0["ivf_candidates"] + 1
+    ps, psl = ivf_retrieve_fused_plain(cl, aux, feats, qn, top_c, kk_b, k)
+    pds, pdsl = ivf_candidates_plain(cl, aux, qn, top_c, kk_d)
+    assert (sl[:, k:] == -1).all() and (s[:, k:] == -1e30).all()
+    s, sl, psl = _assert_select_matches(s[:, :k], sl[:, :k], ps[:, :k],
+                                        psl[:, :k], B)
+    ds, dsl, pdsl = _assert_select_matches(ds, dsl, pds, pdsl, B)
+    assert (np.diff(ds, axis=1) <= 0).all()
+    if case == "tied":
+        # equal exact scores to the lower funnel lane, equal coarse scores
+        # to the lower flat index p*C + c, as in the TPU kernel
+        for b in range(B):
+            np.testing.assert_array_equal(sl[b, :3], 4096 + 3 * b
+                                          + np.arange(3))
+            np.testing.assert_array_equal(dsl[b, :3], 4096 + 3 * b
+                                          + np.arange(3))
+
+
+def _replayed(fn):
+    """fn()'s outputs from a CUDA graph that captured it, replayed once."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+# The cluster-major pass at the "hot" case: the bucketing's atomics order
+# each cluster's pairs anew on every call, and a pair's scores must not
+# depend on it; the bucketing allocates nothing and reads nothing back, so
+# a CUDA graph captures the whole call.
+def test_cluster_major_pass_is_bit_stable_and_graph_capturable(dev):
+    K, C, D, B, P, hot, span, kk_b, kk_d = CM_CASES["hot"]
+    cl, aux, feats, qn, top_c = (t.to(dev) for t in _crowded_inputs(
+        3, K, C, D, B, P, hot, span))
+    calls = (lambda: ivf_retrieve_fused(cl, aux, feats, qn, top_c, kk_b, 10),
+             lambda: ivf_candidates(cl, aux, qn, top_c, kk_d))
+    for fn in calls:
+        first, second = fn(), fn()
+        replay = _replayed(fn)
+        for a, b, c in zip(first, second, replay):
+            assert torch.equal(a, b) and torch.equal(a, c)
+
+
+# Which coarse pass runs, read from the kernels a call launches: the
+# engine's B = 1 and 8 (K = 4096, P = 64: 1/64 and 1/8 pair per cluster)
+# and the LM's B = 8 (K = 256, P = 8: 1/4) stay per pair; the smallest
+# batch on the cluster-major pass at the engine's K and P takes it, one
+# query fewer does not. C and D are cut (the choice reads B, P and K
+# only); both passes still match the plain versions.
+@pytest.mark.parametrize("case", ["engine_b1", "engine_b8", "lm_b8",
+                                  "below_crossover", "at_crossover"])
+def test_coarse_pass_by_batch(dev, case):
+    from aura_snn_rag_tpu_torch.ops.cuda.ivf_scan import cluster_major
+    K, P = (256, 8) if case == "lm_b8" else (4096, 64)
+    crossover = next(b for b in range(1, 4097) if cluster_major(b, P, K))
+    B = {"engine_b1": 1, "engine_b8": 8, "lm_b8": 8,
+         "below_crossover": crossover - 1,
+         "at_crossover": crossover}[case]
+    cl, aux, feats, qn, top_c = (t.to(dev) for t in _ivf_inputs(
+        np.random.RandomState(B), K, 16, 64, B, P, 4096))
+    out = {}
+    names = _kernel_names(lambda: out.update(
+        b=ivf_retrieve_fused(cl, aux, feats, qn, top_c, 128, 10),
+        d=ivf_candidates(cl, aux, qn, top_c, 128)))
+    want = "ivf_coarse_cm_kernel" if case == "at_crossover" \
+        else "ivf_coarse_kernel"
+    other = ({"ivf_coarse_cm_kernel", "ivf_coarse_kernel"} - {want}).pop()
+    assert want in names and other not in names, names
+    ps, psl = ivf_retrieve_fused_plain(cl, aux, feats, qn, top_c, 128, 10)
+    pds, pdsl = ivf_candidates_plain(cl, aux, qn, top_c, 128)
+    s, sl = out["b"]
+    _assert_select_matches(s[:, :10], sl[:, :10], ps[:, :10], psl[:, :10],
+                           B)
+    _assert_select_matches(*out["d"], pds, pdsl, B)
 
 
 def test_port_bench_runs_kernel_b_on_the_card(dev, capsys):

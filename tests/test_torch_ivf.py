@@ -22,6 +22,7 @@ from aura_snn_rag_tpu_torch.ops.cuda import ivf_scan as tivf
 from tests.test_torch_common import (
     assert_topk_match, bank_pair, highest, ivf_kernel_inputs, queries_near,
     result_np, retrieve_both, spy_ivf_kernels)
+from tests.test_torch_probes import crowded_probes
 
 torch.set_num_threads(1)
 
@@ -46,7 +47,27 @@ def test_ivf_scan_scores_plain_matches_pallas_kernel():
 
 @pytest.mark.parametrize("kk,k,B", [(128, 10, 3), (256, 5, 2)])
 def test_ivf_retrieve_fused_plain_matches_pallas_kernel(kk, k, B):
-    jx, tx = ivf_kernel_inputs(kk + k, B=B)
+    _assert_fused_matches(*ivf_kernel_inputs(kk + k, B=B), kk, k, B)
+
+
+# Crowded probes: many queries share each probed cluster, the inputs on
+# which a card's kernels B and D take the cluster-major coarse pass.
+# "shared": 32 queries over 16 clusters, 8 pairs per cluster; "same":
+# every query probes the same 4 clusters; "hot": cluster 0 in every row.
+CROWDED = {"shared": dict(hot=0), "same": dict(hot=4), "hot": dict(hot=1)}
+
+
+@pytest.mark.parametrize("crowd", sorted(CROWDED))
+def test_ivf_retrieve_fused_plain_matches_pallas_kernel_at_crowded_probes(
+        crowd):
+    B, K, P, kk, k = 32, 16, 4, 128, 10
+    inputs = ivf_kernel_inputs(
+        90, K=K, B=B, P=P,
+        probes=lambda rng: crowded_probes(rng, K, B, P, **CROWDED[crowd]))
+    _assert_fused_matches(*inputs, kk, k, B)
+
+
+def _assert_fused_matches(jx, tx, kk, k, B):
     with highest():
         js, jsl = (np.asarray(x) for x in jivf.ivf_retrieve_fused(
             *jx, kk, k, interpret=True))

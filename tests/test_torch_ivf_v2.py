@@ -27,6 +27,7 @@ from tests.test_torch_common import (
     SMALL, assert_topk_match, bank_pair, built_jax_state, configs, highest,
     ivf_kernel_inputs, make_data, queries_near, result_np, retrieve_both,
     spy_ivf_kernels, to_port)
+from tests.test_torch_probes import crowded_probes
 
 torch.set_num_threads(1)
 
@@ -81,7 +82,22 @@ def test_ivf_topk_scores_plain_matches_pallas_kernel(k, C):
 
 @pytest.mark.parametrize("kk", [128, 256, 1024])     # 1024 = P*C: every entry
 def test_ivf_candidates_plain_matches_pallas_kernel(kk):
-    jx, tx = ivf_kernel_inputs(kk + 7)
+    _assert_candidates_match(*ivf_kernel_inputs(kk + 7), kk)
+
+
+# Crowded probes, the inputs on which a card's kernel D takes the
+# cluster-major coarse pass: 32 queries over 16 clusters ("shared"), or
+# every query on the same 4 clusters ("same").
+@pytest.mark.parametrize("hot", [0, 4], ids=["shared", "same"])
+def test_ivf_candidates_plain_matches_pallas_kernel_at_crowded_probes(hot):
+    B, K, P, kk = 32, 16, 4, 256
+    inputs = ivf_kernel_inputs(
+        91, K=K, B=B, P=P,
+        probes=lambda rng: crowded_probes(rng, K, B, P, hot=hot))
+    _assert_candidates_match(*inputs, kk)
+
+
+def _assert_candidates_match(jx, tx, kk):
     cl, aux, _, qn, top_c = jx
     with highest():
         js, jsl = (np.asarray(x) for x in jivf.ivf_candidates(
@@ -89,11 +105,11 @@ def test_ivf_candidates_plain_matches_pallas_kernel(kk):
     tcl, taux, _, tqn, ttop = tx
     ts, tsl = (x.numpy() for x in tivf.ivf_candidates(tcl, taux, tqn, ttop,
                                                       kk))
-    assert ts.shape == tsl.shape == (3, kk)
+    assert ts.shape == tsl.shape == (ttop.shape[0], kk)
     assert tsl.dtype == np.int32
     _live_match(ts, tsl, js, jsl)
     assert (np.diff(ts, axis=1) <= 0).all()
-    if kk == 1024:
+    if kk == ttop.shape[1] * tcl.shape[1]:
         assert (ts <= DEAD).any()         # the dead entries come last
 
 
