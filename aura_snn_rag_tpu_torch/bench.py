@@ -18,9 +18,11 @@ score chain, and 16 batches of 1024 queries (`--small`: 8 of 32).
 `--flat-tile-m` and `--flat-recall` go into `MemoryConfig` as in the JAX
 script, and the port's engine ignores them by design: its block-max
 kernel scans contiguous 8-row blocks, and its coarse funnels are exact
-top-k. `--sharded=N` is refused: the JAX script hands it to
-`benchmarks/bench_sharded_scaling.py`, a JAX script of the benchmark
-folder, which has no counterpart here.
+top-k. `--sharded=N` runs this package's sharded-scaling check instead
+(`benchmarks.bench_sharded_scaling`) on N ranks of `--device`: one NCCL
+rank per card, or with `--device cpu` N gloo ranks on the host, as the
+root `bench.py` hands it to its JAX script on a virtual CPU mesh; it
+prints the check's line.
 
 The data is `bench.py`'s, bit for bit: numpy `RandomState` draws of
 clustered rows and of queries near them. Rows are shipped to the device
@@ -65,8 +67,10 @@ BASELINE_PROBE = 8
 # data, recall, the host baseline (copies of bench.py's)
 # ----------------------------------------------------------------------
 
-def make_data(n, d, n_centers=1024, seed=0):
-    rng = np.random.RandomState(seed)
+def make_data(n, d, n_centers=1024, seed=0, rng=None):
+    """(rows [n, d], centres): clustered rows, drawn from `rng` when given
+    (so a caller can go on drawing from it), else `RandomState(seed)`."""
+    rng = np.random.RandomState(seed) if rng is None else rng
     centers = rng.randn(n_centers, d).astype(np.float32) * 2.0
     assign = rng.randint(0, n_centers, n)
     feats = centers[assign] + rng.randn(n, d).astype(np.float32)
@@ -318,8 +322,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--ingest-f32", action="store_true",
                     help="alias of --ingest-dtype=f32")
     ap.add_argument("--sharded", type=int, default=None,
-                    help="refused: the JAX script's sharded-scaling run has "
-                         "no counterpart in the port")
+                    help="run the sharded-scaling check on N ranks "
+                         "instead (one per card; gloo ranks on the host "
+                         "with --device cpu)")
     ap.add_argument("--device", default="cuda")
     return ap
 
@@ -361,18 +366,20 @@ def settings(args: argparse.Namespace) -> Settings:
 
 class BenchResult(NamedTuple):
     line: dict                   # the JSON line's object
-    engine: EngineResult
+    engine: Optional[EngineResult]   # None for --sharded
 
 
 def run(argv: Optional[Sequence[str]] = None) -> BenchResult:
     """The benchmark at the flags in `argv`; returns its JSON object and
-    the engine half's results (the bank state, every batch's results)."""
+    the engine half's results (the bank state, every batch's results).
+    With `--sharded=N`, the sharded-scaling check's line on N ranks of
+    `--device` (NCCL, one per card; `--device cpu`: gloo ranks on the
+    host, the root bench.py's CPU mesh), and no engine half."""
     args = parser().parse_args(argv)
     if args.sharded is not None:
-        raise SystemExit(
-            "bench: --sharded is not supported by the port: bench.py hands "
-            "it to benchmarks/bench_sharded_scaling.py, a JAX script whose "
-            "folder has no counterpart here")
+        from aura_snn_rag_tpu_torch.benchmarks import bench_sharded_scaling
+        return BenchResult(bench_sharded_scaling.run(
+            [f"--n={args.sharded}", "--device", args.device]).line, None)
     s = settings(args)
     dev = resolve_device(s.device)
     if dev.type == "cuda":

@@ -16,7 +16,7 @@ this one needs argparse and asyncio alone):
     python -m aura_snn_rag_tpu_torch.cli corpus [--out D] [--vocab V]
     python -m aura_snn_rag_tpu_torch.cli mnist [--epochs N] [--hidden H]
         [--data mnist.npz]
-    python -m aura_snn_rag_tpu_torch.cli bench [--small]
+    python -m aura_snn_rag_tpu_torch.cli bench [--small] [--sharded=N]
 
 Every command but `corpus` takes `--device` (default cuda; raises
 without a card); every command is also a function of the same name and
@@ -46,8 +46,9 @@ device; its data is `--data` (an MNIST .npz) or keras's cached
 `mnist.npz`, else sklearn's bundled digits. `bench` runs the port's
 retrieval benchmark (`bench.main`, the counterpart of the root
 `bench.py`) in this process at its defaults (1M x 768 on the device) or
-`--small`, and prints its JSON line; a failed run raises, so the command
-exits non-zero.
+`--small`, and prints its JSON line (`--sharded=N`: the sharded-scaling
+check's, on N ranks of `--device`, gloo ranks on the host with `--device
+cpu`); a failed run raises, so the command exits non-zero.
 """
 
 from __future__ import annotations
@@ -382,12 +383,16 @@ def corpus(out: Optional[str] = None, vocab: int = 32_000
     return subprocess.run(args + ["--vocab", str(vocab)], check=True)
 
 
-def bench(small: bool = False, device: str = "cuda") -> Dict[str, Any]:
+def bench(small: bool = False, device: str = "cuda",
+          sharded: Optional[int] = None) -> Dict[str, Any]:
     """The retrieval benchmark (`bench.main`), which prints its JSON
-    line; returns its object."""
+    line; returns its object. `sharded` runs the sharded-scaling check on
+    that many ranks of `device` instead."""
     from aura_snn_rag_tpu_torch import bench as bench_mod
     return bench_mod.main((["--small"] if small else [])
-                          + ["--device", device])
+                          + ["--device", device]
+                          + ([f"--sharded={sharded}"] if sharded is not None
+                             else []))
 
 
 def mnist(epochs: int = 5, hidden: int = 1024, data: Optional[str] = None,
@@ -477,6 +482,10 @@ def parser() -> argparse.ArgumentParser:
     c = command("bench", "Run the retrieval benchmark (one JSON line).")
     c.add_argument("--small", action="store_true",
                    help="100,000 rows, K = 1024, probe 32, 8 batches of 32")
+    c.add_argument("--sharded", type=int, default=None,
+                   help="run the sharded-scaling check on N ranks "
+                        "instead (one per card; gloo ranks on the host "
+                        "with --device cpu)")
     return p
 
 

@@ -33,7 +33,7 @@ from aura_snn_rag_tpu_torch.memory.state import (
     MemoryState, init_memory_state, state_from_numpy, state_to_numpy)
 from aura_snn_rag_tpu_torch.parallel.collectives import gather_stack
 from aura_snn_rag_tpu_torch.parallel.mesh import (
-    Axes, axes_index, axes_tuple, batch_slice, mesh_device)
+    Axes, axes_index, axes_size, axes_tuple, batch_slice, mesh_device)
 
 
 def init_sharded_memory(config: MemoryConfig, mesh: DeviceMesh,
@@ -68,13 +68,16 @@ def rebuild_centroids_sharded(config: MemoryConfig, mesh: DeviceMesh,
         config, state, torch.Generator().manual_seed(seed + s))
 
 
-def _merge_topk(scores, slots, feats, k: int, group, grad: bool):
+def _merge_topk(scores, slots, feats, k: int, group, grad: bool,
+                narrow: bool = False):
     """all-gather [B, k'] candidates over `group` and keep the top k of
     the [B, S k'] row, in (group rank, candidate) order: a stable
     descending sort, so equal scores keep that order as `lax.top_k`
-    does."""
+    does. With `narrow` (every global slot fits in int32) the slots
+    travel as int32, as the JAX package's do."""
     all_scores = gather_stack(scores, group, grad)           # [S, B, k']
-    all_slots = gather_stack(slots, group)
+    all_slots = (gather_stack(slots.int(), group).long() if narrow
+                 else gather_stack(slots, group))
     all_feats = gather_stack(feats, group)
     S, B, K_ = all_scores.shape
     flat_scores = all_scores.transpose(0, 1).reshape(B, S * K_)
@@ -116,9 +119,11 @@ def retrieve_sharded(config: MemoryConfig, mesh: DeviceMesh,
     scores = res.scores
     slots = torch.where(res.indices >= 0, res.indices + shard * M, -1)
     feats = res.features
+    narrow = M * axes_size(mesh, axes) <= 2 ** 31
     for a in reversed(axes):                     # the inner axis first
         scores, slots, feats = _merge_topk(scores, slots, feats, k,
-                                           mesh.get_group(a), grad)
+                                           mesh.get_group(a), grad,
+                                           narrow=narrow)
     hit = torch.isfinite(scores)
     return RetrievalResult(
         torch.where(hit, slots, -1),

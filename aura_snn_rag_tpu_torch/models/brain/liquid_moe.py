@@ -101,6 +101,10 @@ class LiquidMoERouter(nn.Module):
                 "usage": usage}
 
 
+# the JAX package's back-compat name for the router
+LiquidGatingNetwork = LiquidMoERouter
+
+
 class BanditGating:
     """UCB-1 expert selection, host-side: reward max(0, 1 - error / 10)
     per update (incremental mean), a UCB exploration bonus, and the

@@ -12,6 +12,9 @@ resumption, no live elastic scaling.
   or the environment (AURA_COORDINATOR / AURA_NUM_PROCESSES /
   AURA_PROCESS_ID; a process started by torchrun takes its rank from
   RANK and its card from LOCAL_RANK);
+- `spawn_ranks(target, world, out_dir)`: a local launcher, one process
+  per rank, with `free_port()` for a TCP rendezvous and
+  `record_failure` for a rank's traceback;
 - `global_mesh(n_model)`: a ('data', 'model') mesh over every rank;
 - `multislice_mesh(n_slices, n_model)`: a ('replica', 'data', 'model')
   mesh;
@@ -27,8 +30,12 @@ outermost.
 from __future__ import annotations
 
 import datetime
+import multiprocessing
 import os
-from typing import NamedTuple, Optional, Sequence, Tuple, Union
+import socket
+import time
+import traceback
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -111,6 +118,54 @@ def shutdown() -> None:
     """Leave the default process group, if there is one."""
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def free_port() -> int:
+    """A free TCP port on localhost, for a rendezvous."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def record_failure(out_dir: str, rank: int) -> None:
+    """Write the exception being handled to `out_dir`/error<rank>.txt,
+    where `spawn_ranks` reads it."""
+    with open(os.path.join(out_dir, f"error{rank}.txt"), "w") as f:
+        f.write(traceback.format_exc())
+
+
+def spawn_ranks(target: Callable, world: int, out_dir: str,
+                args: Sequence = (), timeout: float = 900.0,
+                name: str = "ranks") -> None:
+    """Run `target(rank, *args)` in `world` processes (the spawn method;
+    `target` must be importable by its module's name) and wait up to
+    `timeout` seconds for all of them; a rank still running then is
+    killed. Raises RuntimeError naming the hung ranks, the exit codes and
+    every rank's traceback left by `record_failure` in `out_dir`, if any
+    rank hung, failed or exited non-zero."""
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(rank, *args))
+             for rank in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [rank for rank, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    errors = []
+    for rank in range(world):
+        path = os.path.join(out_dir, f"error{rank}.txt")
+        if os.path.exists(path):
+            with open(path) as f:
+                errors.append(f"rank {rank}:\n{f.read()}")
+    if hung or errors or any(p.exitcode for p in procs):
+        raise RuntimeError(
+            f"{name} on {world} ranks: hung {hung}, exit codes "
+            f"{[p.exitcode for p in procs]}\n" + "\n".join(errors))
 
 
 def _world() -> Tuple[int, int]:

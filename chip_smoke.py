@@ -105,8 +105,9 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
    `bulk_load_chunked`; queries are stored rows plus
    0.5 x noise. `retrieve_stream` at B = 1024 and 128 (coalesce = B) over
    4096 queries after a warm call, with the benchmark's per-batch
-   breakdown (dispatch, device funnel, transfer, host rerank); the
-   native rerank must serve every timed query; the stream must equal
+   breakdown (dispatch, device funnel, transfer, host rerank), all
+   through `bench_host_spill.measure`; the native rerank must serve every
+   query of the warm call, the stream and the breakdown; the stream must equal
    `retrieve` batch for batch; recall@10 of 256 queries against the
    exact cosine top-10 over all rows (f32 products on the card) >= 0.99;
    one chunk's funnel through kernel A and through its plain version
@@ -212,6 +213,25 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
    then the CLI's `bench --small` in a subprocess, whose last line must
    carry bench.py's 16 keys.
 
+13. benchmarks phase: the ports of the repo's benchmark scripts
+   (`aura_snn_rag_tpu_torch/benchmarks/`), each run in this process
+   through its `run(argv)`: `bench_host_spill --small --breakdown`
+   (1,000,000 x 768 from the script's numpy chunks; recall@10 >= 0.99,
+   kernel A ceil(B / 256) times per funnel dispatch and no other kernel),
+   `bench_sharded_scaling --n=1` (one NCCL rank; top-k agreement with
+   one flat bank 1.0, the counted all-gather bytes equal to the analytic
+   count, no kernel; then the port's `bench --sharded=1`, which hands
+   the check over on its default device, the card),
+   `bench_retrieval_latency` at its defaults (1M x
+   768, B = 1, 8, 32, 128; IVF recall@10 >= 0.98, flat >= 0.99, kernel B
+   once per IVF call), `bench_retrieval_breakdown` at its defaults
+   (kernels C, D and E once per call of their stages, B once per call of
+   the full v3r retrievals), and `bench_decode`, `bench_generation`,
+   `bench_decode_breakdown` and `bench_rag_overhead` at `--preset full`
+   (`get_full_config()`), cut in new tokens, reps and steps
+   (`LM_BENCHMARK_ARGS`; tokens within the vocabulary, losses finite, no
+   kernel). Every JSON line must carry its JAX script's keys in order.
+
 `--profile` adds a torch.profiler breakdown of one call of each
 retrieval path (device time by kernel, device busy share) to phase 2,
 of decode steps (wall, device, busy, `retrieve_auto`'s share) to
@@ -225,7 +245,7 @@ before phase 6, after which kernel B alone must have run, and again
 just before phase 7's retrievals, after which kernel A alone must have
 run, ceil(B / 256) times per funnel dispatch, and again at the start of
 phases 8 and 9, after each of which no kernel may have run; phases 10,
-11 and 12 zero them around each call whose launches they check. Any failed check
+11, 12 and 13 zero them around each call whose launches they check. Any failed check
 exits non-zero. The last lines are the card's name
 and power limit, one JSON object with the per-kernel numbers, and
 {"ok": true, "device": {...}}. Without a CUDA card the script exits 1 and
@@ -362,6 +382,56 @@ BENCH_RECALL = 0.99             # flat recall@10: oracle and f32 rows
 BENCH_IVF_RECALL = 0.98         # the engine phase's IVF bar
 BENCH_CLI_TIMEOUT = 600         # seconds for `cli bench --small`
 PLAIN_CHUNK = 16                # queries per plain IVF call (kernel phase)
+
+# the benchmarks phase (phase 13): the JAX scripts' JSON keys, in order
+SPILL_KEYS = ("metric", "value", "unit", "recall_at_10", "ingest_s",
+              "n_vectors", "coarse_dtype", "batch", "funnel_blocks",
+              "funnel_rows", "query_chunk", "hbm_resident_gb",
+              "host_resident_gb")
+SPILL_BREAKDOWN_KEYS = ("breakdown_per_batch_ms", "funnel_bytes_per_batch",
+                        "funnel_blocks", "funnel_rows", "n_vectors")
+SPILL_STAGES = ("dispatch", "device_funnel", "transfer", "host_rerank")
+SHARDED_KEYS = ("metric", "n_shards", "per_shard_rows", "total_rows",
+                "topk_agreement_vs_flat", "collective_bytes_per_batch",
+                "collective_bytes_total", "analytic_allgather_bytes",
+                "bytes_per_query", "batch")
+LATENCY_KEYS = ("wall_latency_ms", "device_ms", "device_qps",
+                "recall_at_10")
+STAGE_KEYS = ("aux_build_ms", "centroid_topP_ms", "kernel_v2_ms",
+              "kernel_v1_ms", "kernel_v3_ms", "funnel_rerank_ms",
+              "full_v3_ms", "full_v3r_ms", "full_v2_ms", "full_noaux_ms")
+# the kernel each stage of bench_retrieval_breakdown launches, once per
+# call (full_v3 and full_noaux run the config's default kernel, v3r)
+STAGE_KERNELS = {"kernel_v2": "ivf_topk_scores",
+                 "kernel_v1": "ivf_scan_scores",
+                 "kernel_v3": "ivf_candidates",
+                 "full_v3": "ivf_retrieve_fused",
+                 "full_v3r": "ivf_retrieve_fused",
+                 "full_v2": "ivf_topk_scores",
+                 "full_noaux": "ivf_retrieve_fused"}
+DECODE_KEYS = ("tokens_per_s", "latency_s", "per_token_ms")
+GENERATION_KEYS = ("cached_tokens_per_s", "recompute_tokens_per_s",
+                   "speedup", "batch", "new_tokens")
+DECODE_BREAKDOWN_KEYS = ("preset", "batch", "new_tokens", "ms_per_token",
+                         "sampler_share_ms", "f32_weight_read_share_ms")
+DECODE_VARIANTS = ("full", "greedy", "forward_only", "bf16_full",
+                   "blockwise_topk", "bf16_blockwise")
+RAG_OVERHEAD_KEYS = ("metric", "n_params", "batch", "seq_len",
+                     "step_ms_memory_off", "step_ms_rag_no_store",
+                     "step_ms_rag_store", "mfu_memory_off",
+                     "mfu_rag_no_store", "mfu_rag_store_every_step",
+                     "isolated_retrieval_ms", "isolated_write_ms",
+                     "retrieval_gap_ms", "store_gap_ms",
+                     "retrieval_hbm_gb_per_step", "tok_s_rag_live_store10")
+# the LM benchmarks at --preset full, cut to fit the phase (printed)
+LM_BENCHMARK_ARGS = {
+    "bench_decode": ["--preset", "full", "--new-tokens", "8", "--reps",
+                     "1"],
+    "bench_generation": ["--preset", "full", "--new-tokens", "8"],
+    "bench_decode_breakdown": ["--preset", "full", "--new-tokens", "8",
+                               "--reps", "1"],
+    "bench_rag_overhead": ["--steps=2"],
+}
 
 SOURCES = {
     "flat_blockmax": ("aura_snn_rag_tpu_torch/ops/cuda/csrc/flat_scan.cu",
@@ -2392,7 +2462,9 @@ def spill_rows(M, D):
 
 def spill_truth(dev, host_features, queries, k, rows=1 << 20):
     """Exact cosine top-k over every stored row, independent of the port:
-    chunks of the host rows go to the card, f32 products (TF32 off)."""
+    chunks of the host rows go to the card, f32 products (TF32 off). It
+    is the reference the spill phase's recall is held to, so it shares no
+    code with the port, `bench_host_spill.exact_ground_truth` included."""
     import numpy as np
     import torch
     qn = torch.from_numpy(queries / np.linalg.norm(
@@ -2406,33 +2478,6 @@ def spill_truth(dev, host_features, queries, k, rows=1 << 20):
         best_v, pick = torch.topk(torch.cat([best_v, v], 1), k, dim=1)
         best_i = torch.cat([best_i, i + off], 1).gather(1, pick)
     return best_i
-
-
-def spill_breakdown(bank, batches, k):
-    """The benchmark's per-batch stages (bench_host_spill.py --breakdown),
-    ms per batch: dispatch (enqueue every funnel), device funnel (from the
-    same start until the card is done), transfer (slot ids to the host),
-    host rerank."""
-    import torch
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    inflight = [bank._dispatch_funnel(b) for b in batches]
-    dispatch_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    device_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    pulled = [f.cpu().numpy() for _, _, f in inflight]
-    transfer_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    for (qn, B, _), f in zip(inflight, pulled):
-        bank._host_rerank(qn, B, f, k, None)
-    rerank_s = time.perf_counter() - t0
-    n = len(batches)
-    return {"dispatch": dispatch_s / n * 1e3,
-            "device_funnel": device_s / n * 1e3,
-            "transfer": transfer_s / n * 1e3,
-            "host_rerank": rerank_s / n * 1e3,
-            "funnel_bytes_per_batch": pulled[0].nbytes}
 
 
 def spill_kernel_A(bank, queries, B):
@@ -2485,6 +2530,7 @@ def spill_phase(dev):
     import numpy as np
     import torch
     import aura_snn_rag_tpu_torch as port
+    from aura_snn_rag_tpu_torch.benchmarks import bench_host_spill
     from aura_snn_rag_tpu_torch.memory import host_spill
     from aura_snn_rag_tpu_torch.ops.cuda import _build
     from aura_snn_rag_tpu_torch.ops.cuda.flat_scan import flat_blockmax_plain
@@ -2568,20 +2614,18 @@ def spill_phase(dev):
     results = {}
     for B in SPILL_BATCHES:
         batches = [queries[i:i + B] for i in range(0, SPILL_QUERIES, B)]
-        bank.retrieve(batches[0])                                # warm-up
         served0 = bank.served["native"]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = bank.retrieve_stream(batches, coalesce=B)
-        dt = time.perf_counter() - t0
-        check(bank.served["native"] - served0 == SPILL_QUERIES,
-              f"B={B}: the native rerank served "
-              f"{bank.served['native'] - served0} of {SPILL_QUERIES}")
-        stats[f"qps_b{B}"] = SPILL_QUERIES / dt
-        stats[f"breakdown_b{B}_ms"] = spill_breakdown(bank, batches,
-                                                      cfg.retrieve_k)
-        expect += launches_for([B] + [B] * len(batches) * 2)
-        results[B] = (batches, res)
+        # the benchmark's measurement: a warm call, the timed stream, the
+        # per-batch stages (each batch reranked once more)
+        run = bench_host_spill.measure(bank, batches, breakdown=True)
+        served = bank.served["native"] - served0
+        check(served == B + 2 * SPILL_QUERIES, f"B={B}: the native rerank "
+              f"served {served} of {B + 2 * SPILL_QUERIES}")
+        stats[f"qps_b{B}"] = run.qps
+        stats[f"breakdown_b{B}_ms"] = dict(
+            run.stages_ms, funnel_bytes_per_batch=run.funnel_bytes)
+        expect += launches_for(run.dispatches)
+        results[B] = (batches, run.results)
         log(f"spill: retrieve_stream B={B}: {stats[f'qps_b{B}']:.1f} QPS "
             f"over {SPILL_QUERIES} queries; per batch (ms) "
             f"{stats[f'breakdown_b{B}_ms']}")
@@ -3640,13 +3684,6 @@ MNIST_JAX_ACCURACY = 92.22
 MNIST_TOLERANCE = 3.0           # points; the Oja basis starts elsewhere
 
 
-def free_port():
-    import socket
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def states_equal(a, b):
     import torch
     return all(x.dtype == y.dtype and torch.equal(x, y)
@@ -3696,7 +3733,7 @@ def sharded_bank_check(dev, mesh):
                   f"once")
         merge_ms = wall_ms(lambda: sharded._merge_topk(
             plain.scores, plain.indices, plain.features, TOPK,
-            mesh.get_group("data"), False), SHARDED_REPS)
+            mesh.get_group("data"), False, narrow=True), SHARDED_REPS)
         out[f"b{B}"] = dict(
             launches=n_sharded,
             retrieve_auto_ms=wall_ms(lambda: engine.retrieve_auto(
@@ -3933,7 +3970,7 @@ def sharded_phase(dev):
     from aura_snn_rag_tpu_torch.parallel import distributed
 
     t0 = time.perf_counter()
-    distributed.initialize(f"localhost:{free_port()}", 1, 0,
+    distributed.initialize(f"localhost:{distributed.free_port()}", 1, 0,
                            device=dev.type, timeout=300)
     try:
         mesh = distributed.global_mesh(1)
@@ -4271,7 +4308,7 @@ def model_parallel_phase(dev):
     from aura_snn_rag_tpu_torch.parallel import distributed
 
     t0 = time.perf_counter()
-    distributed.initialize(f"localhost:{free_port()}", 1, 0,
+    distributed.initialize(f"localhost:{distributed.free_port()}", 1, 0,
                            device=dev.type, timeout=300)
     try:
         cfg = port.get_full_config()
@@ -4370,6 +4407,190 @@ def bench_phase():
     log(f"cli bench --small: {seconds:.1f} s; {json.dumps(line)}")
     stats["phase_s"] = time.perf_counter() - t_phase
     log(f"bench phase: {stats['phase_s']:.1f} s")
+    return stats
+
+
+# --------------------------------------------------------------------------
+# benchmarks phase (phase 13): the ports of the repo's benchmark scripts
+# --------------------------------------------------------------------------
+
+def benchmark_run(name, argv):
+    """`aura_snn_rag_tpu_torch.benchmarks.<name>.run(argv)` in this
+    process, the launch counts zeroed just before it and read just after:
+    (its result, {kernel: launches} of the kernels that ran, seconds)."""
+    import importlib
+    from aura_snn_rag_tpu_torch.ops.cuda import _build
+    module = importlib.import_module(
+        f"aura_snn_rag_tpu_torch.benchmarks.{name}")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = module.run(argv)
+    seconds = time.perf_counter() - t0
+    launches = {k: n for k, n in _build.launch_counts.items() if n}
+    log(f"{name} {' '.join(argv) or '(defaults)'}: {seconds:.1f} s, "
+        f"launches {launches}")
+    return res, launches, seconds
+
+
+def check_launches(name, launches, expect):
+    want = {k: n for k, n in expect.items() if n}
+    check(launches == want, f"{name}: launches {launches}, expected {want} "
+          f"and no other kernel")
+
+
+def check_keys(name, obj, keys):
+    check(tuple(obj) == tuple(keys), f"{name}: keys {list(obj)}, expected "
+          f"{list(keys)}")
+
+
+def tokens_ok(name, ids, vocab):
+    import torch
+    check(ids.dtype == torch.long and bool(((ids >= 0) & (ids < vocab))
+                                           .all()),
+          f"{name}: tokens outside [0, {vocab})")
+
+
+def benchmarks_phase():
+    """Phase 13: each of the eight benchmark modules in this process, its
+    launches counted around its run; see the module doc."""
+    import math
+    import numpy as np
+    import torch
+    t_phase = time.perf_counter()
+    stats = {}
+
+    # S1: the spilled tier at --small (1M x 768) with the breakdown
+    res, launches, seconds = benchmark_run("bench_host_spill",
+                                        ["--small", "--breakdown"])
+    (m,) = res.configs
+    check_keys("bench_host_spill", m.line, SPILL_KEYS)
+    check_keys("bench_host_spill breakdown", m.breakdown,
+               SPILL_BREAKDOWN_KEYS)
+    check_keys("bench_host_spill stages", m.breakdown[
+        "breakdown_per_batch_ms"], SPILL_STAGES)
+    check(m.line["n_vectors"] == 1_000_000 and res.truth.shape[0] ==
+          min(256, len(res.queries)), "bench_host_spill: not --small")
+    check(m.line["recall_at_10"] >= SPILL_RECALL,
+          f"bench_host_spill: recall@10 {m.line['recall_at_10']} < "
+          f"{SPILL_RECALL}")
+    chunk = m.line["query_chunk"]
+    check_launches("bench_host_spill", launches, {
+        "flat_blockmax": sum(-(-b // chunk) for b in m.dispatches)})
+    stats["spill"] = dict(line=m.line, breakdown=m.breakdown,
+                          launches=launches, seconds=seconds)
+    del res
+    torch.cuda.empty_cache()
+
+    # S2: the sharded check on one NCCL rank
+    res, launches, seconds = benchmark_run("bench_sharded_scaling", ["--n=1"])
+    check_keys("bench_sharded_scaling", res.line, SHARDED_KEYS)
+    check(res.line["topk_agreement_vs_flat"] == 1.0,
+          f"bench_sharded_scaling: agreement "
+          f"{res.line['topk_agreement_vs_flat']}")
+    analytic = res.line["analytic_allgather_bytes"]
+    check(res.line["collective_bytes_per_batch"] == {"all-gather": analytic}
+          and res.line["collective_bytes_total"] == analytic,
+          f"bench_sharded_scaling: counted "
+          f"{res.line['collective_bytes_per_batch']}, analytic {analytic}")
+    check_launches("bench_sharded_scaling", launches, {})
+    # the port's `bench --sharded=1` hands the check over on its default
+    # device, the card
+    from aura_snn_rag_tpu_torch import bench as bench_mod
+    handed = bench_mod.run(["--sharded=1"]).line
+    check(handed["n_shards"] == 1
+          and handed["topk_agreement_vs_flat"] == 1.0
+          and handed["collective_bytes_total"] == analytic,
+          f"bench --sharded=1: {handed}")
+    stats["sharded"] = dict(line=res.line, launches=launches,
+                            seconds=seconds)
+    torch.cuda.empty_cache()
+
+    # S3a: IVF against flat at the defaults (1M x 768; B = 1, 8, 32, 128)
+    res, launches, seconds = benchmark_run("bench_retrieval_latency", [])
+    batches = (1, 8, 32, 128)
+    check_keys("bench_retrieval_latency", res.line,
+               ("metric", "n_vectors") + tuple(
+                   f"{p}_B{B}" for B in batches for p in ("ivf", "flat")))
+    for key, value in res.line.items():
+        if key.startswith(("ivf_", "flat_")):
+            check_keys(f"bench_retrieval_latency {key}", value,
+                       LATENCY_KEYS)
+            bar = BENCH_IVF_RECALL if key.startswith("ivf") else BENCH_RECALL
+            check(value["recall_at_10"] >= bar,
+                  f"bench_retrieval_latency: {key} recall@10 "
+                  f"{value['recall_at_10']} < {bar}")
+    check_launches("bench_retrieval_latency", launches, {
+        "ivf_retrieve_fused": sum(n for key, n in res.calls.items()
+                                  if key.startswith("ivf_"))})
+    stats["latency"] = dict(line=res.line, launches=launches,
+                            seconds=seconds)
+    del res
+    torch.cuda.empty_cache()
+
+    # S3b: the stage breakdown at the defaults (B = 1 and 8)
+    res, launches, seconds = benchmark_run("bench_retrieval_breakdown", [])
+    check_keys("bench_retrieval_breakdown", res.line,
+               ("metric", "n_vectors", "probe", "bucket_capacity", "per_k",
+                "B1", "B8"))
+    expect = {}
+    for B, calls in res.calls.items():
+        check_keys(f"bench_retrieval_breakdown B{B}", res.line[f"B{B}"],
+                   STAGE_KEYS)
+        for stage, kernel in STAGE_KERNELS.items():
+            expect[kernel] = expect.get(kernel, 0) + calls[stage]
+        for stage, out in res.outputs[B].items():
+            for t in (out if isinstance(out, tuple) else (out,)):
+                if t.is_floating_point():
+                    check(bool(torch.isfinite(t[t > NEG_INF / 2]).all()),
+                          f"bench_retrieval_breakdown: {stage} at B={B} "
+                          f"not finite")
+    check_launches("bench_retrieval_breakdown", launches, expect)
+    stats["breakdown"] = dict(line=res.line, launches=launches,
+                              seconds=seconds)
+    del res
+    torch.cuda.empty_cache()
+
+    # S4: the LM's benchmarks at --preset full, cut (printed); no bank in the
+    # decode models, and the training step's batch of 16 takes the flat
+    # scan: no kernel of the port's runs
+    for name, argv in LM_BENCHMARK_ARGS.items():
+        log(f"{name}: cut to {' '.join(argv)}")
+        res, launches, seconds = benchmark_run(name, argv)
+        line = res.line
+        if name == "bench_decode":
+            check_keys(name, line, ("metric", "preset", "new_tokens", "B1",
+                                    "B8", "B32"))
+            for B, ids in res.tokens.items():
+                check_keys(f"{name} B{B}", line[f"B{B}"], DECODE_KEYS)
+                check(ids.shape == (B, 32 + 8), f"{name}: {ids.shape}")
+                tokens_ok(name, ids, res.vocab_size)
+        elif name == "bench_generation":
+            check_keys(name, line, GENERATION_KEYS)
+            check(res.cached.shape == (8, 64 + 8), f"{name}: "
+                  f"{res.cached.shape}")
+            tokens_ok(name, res.cached, res.vocab_size)
+            tokens_ok(name, res.context, res.vocab_size)
+        elif name == "bench_decode_breakdown":
+            check_keys(name, line, DECODE_BREAKDOWN_KEYS)
+            check_keys(f"{name} ms_per_token", line["ms_per_token"],
+                       DECODE_VARIANTS)
+            for variant, ids in res.outputs.items():
+                tokens_ok(f"{name} {variant}", ids, res.vocab_size)
+            check(all(math.isfinite(v) and v > 0
+                      for v in line["ms_per_token"].values()),
+                  f"{name}: {line['ms_per_token']}")
+        else:
+            check_keys(name, line, RAG_OVERHEAD_KEYS)
+            check(bool(np.isfinite(res.losses).all()) and len(res.losses)
+                  == 3 * (1 + 2), f"{name}: losses {res.losses}")
+            check(line["n_params"] > 200e6 and line["seq_len"] == 512,
+                  f"{name}: not the full preset")
+        check_launches(name, launches, {})
+        stats[name] = dict(line=line, launches=launches, seconds=seconds)
+        del res
+        torch.cuda.empty_cache()
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"benchmarks phase: {stats['phase_s']:.1f} s")
     return stats
 
 
@@ -4519,6 +4740,11 @@ def main() -> int:
     bench = bench_phase()
     torch.cuda.empty_cache()
 
+    # ---- the benchmark modules: counts zeroed inside, around each
+    # module's run ----
+    benchmarks = benchmarks_phase()
+    torch.cuda.empty_cache()
+
     main_shape = {"flat_blockmax": res_a[("int8", 1024)],
                   "ivf_retrieve_fused": res_bc[("ivf_retrieve_fused", 8)],
                   "ivf_scan_scores": res_bc[("ivf_scan_scores", 8)],
@@ -4543,6 +4769,8 @@ def main() -> int:
                 bench["blockmax"]["launches"][name]
             row.update({f"spill_{key}": value for key, value
                         in spill.pop("kernel_A").items()})
+            row["launches_benchmarks_spill"] = \
+                benchmarks["spill"]["launches"][name]
         if name == "ivf_candidates":
             # bench.py's batch of 1024, on the cluster-major pass
             r = res_de[(name, 1024)]
@@ -4577,6 +4805,12 @@ def main() -> int:
                 row.update({f"lm_{key}{suffix}": r[key] for key in (
                     "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
                     "bound_by", "host_us") if r[key] is not None})
+        # phase 13: the retrieval benchmarks' launches
+        if name != "flat_blockmax":
+            row["launches_benchmarks_latency"] = \
+                benchmarks["latency"]["launches"].get(name, 0)
+            row["launches_benchmarks_breakdown"] = \
+                benchmarks["breakdown"]["launches"][name]
         kernels.append(row)
     log(json.dumps({"torch_topk_ms": topk_ms}))
     log(json.dumps({"engine": stats}))
@@ -4589,6 +4823,7 @@ def main() -> int:
     log(json.dumps({"sharded": sharded}))
     log(json.dumps({"model_parallel": mp}))
     log(json.dumps({"bench": bench}))
+    log(json.dumps({"benchmarks": benchmarks}))
     log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -11,7 +11,8 @@ the baseline's query count, which `--small` sets at import):
   ground truth and the flat results are equal, so is recall@10;
 - `main()` at `--small --n=4096` prints one JSON line whose keys are the
   JAX script's and whose values that do not depend on time are equal;
-- the CLI's `bench`, `--sharded`, and the device rule.
+- the CLI's `bench` and the device rule (`--sharded` is held in
+  `tests/test_torch_bench_sharded.py`).
 """
 
 import contextlib
@@ -201,13 +202,6 @@ def test_flags_reach_the_memory_config():
             small.batch, small.n_batches, small.baseline_queries,
             small.ingest_dtype, small.device) == (
         100_000, 1024, 32, 8, 32, 8, 8, "u16", "cpu")
-
-
-def test_sharded_exits_nonzero():
-    with pytest.raises(SystemExit) as exc:
-        tbench.main(["--sharded=2", "--device", "cpu"])
-    assert exc.value.code not in (0, None)
-    assert "bench_sharded_scaling" in str(exc.value.code)
 
 
 def test_bench_refuses_cuda_without_a_card():

@@ -4,6 +4,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
 import torch
 
 torch.set_num_threads(1)
@@ -212,3 +213,105 @@ def test_chip_smoke_imports_no_jax():
             every.add(node.module.split(".")[0])
     assert not every & {"jax", "jaxlib", "flax", "optax",
                         "aura_snn_rag_tpu"}, every
+
+
+# the JAX package's names the port has no use for: the Pallas helpers and
+# flax's `setup` (the port's modules build their parts in `__init__`);
+# files: XLA's compilation cache (the port's counterpart is
+# `ops/cuda/_build.py`) and the Pallas kernels (ported as CUDA in
+# `ops/cuda/`)
+NAMES_WITHOUT_A_COUNTERPART = {"TILE_M", "pallas_available",
+                               "default_interpret", "PlaceCellEncoder.setup"}
+FILES_WITHOUT_A_COUNTERPART = ("_cache.py", "ops/pallas/")
+
+
+def public_names(path, package):
+    """A module's public top-level functions, classes and assigned names,
+    its public classes' public methods as "Class.method", and, in an
+    `__init__.py`, the names it re-exports from its own package."""
+    import ast
+    out = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            out.add(node.name)
+        elif isinstance(node, ast.ClassDef):
+            out.add(node.name)
+            out |= {f"{node.name}.{sub.name}" for sub in node.body
+                    if isinstance(sub, (ast.FunctionDef,
+                                        ast.AsyncFunctionDef))
+                    and not sub.name.startswith("_")}
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            out |= {n.id for t in targets for n in ast.walk(t)
+                    if isinstance(n, ast.Name)}
+        elif (isinstance(node, ast.ImportFrom) and path.name == "__init__.py"
+              and (node.level
+                   or (node.module or "").split(".")[0] == package)):
+            out |= {a.asname or a.name for a in node.names}
+    return {n for n in out if not n.split(".")[-1].startswith("_")}
+
+
+def test_every_public_name_has_a_counterpart():
+    """Every JAX module has a port module of the same path, and every
+    public name of it (top-level names, public methods, an `__init__`'s
+    re-exports) is there too, but for the listed exceptions."""
+    jax_root = ROOT / "aura_snn_rag_tpu"
+    port_root = ROOT / "aura_snn_rag_tpu_torch"
+    missing = {}
+    for path in sorted(jax_root.rglob("*.py")):
+        rel = path.relative_to(jax_root).as_posix()
+        if rel.startswith(FILES_WITHOUT_A_COUNTERPART):
+            continue
+        port = port_root / rel
+        assert port.exists(), f"{rel} has no port"
+        gap = (public_names(path, "aura_snn_rag_tpu")
+               - public_names(port, "aura_snn_rag_tpu_torch")
+               - NAMES_WITHOUT_A_COUNTERPART)
+        if gap:
+            missing[rel] = sorted(gap)
+    assert missing == {}
+
+
+def test_public_names_reach_the_port_s_namespaces():
+    import aura_snn_rag_tpu_torch as port
+    from aura_snn_rag_tpu_torch.config import MeshConfig
+    from aura_snn_rag_tpu_torch.models.brain import liquid_moe
+    assert port.MeshConfig is MeshConfig
+    assert liquid_moe.LiquidGatingNetwork is liquid_moe.LiquidMoERouter
+
+
+# the benchmark modules: one module per JAX script of `benchmarks/`, none
+# of which imports JAX, flax, optax or the JAX package
+BENCHMARK_MODULES = (
+    "bench_host_spill", "bench_sharded_scaling", "bench_retrieval_latency",
+    "bench_retrieval_breakdown", "bench_decode", "bench_generation",
+    "bench_decode_breakdown", "bench_rag_overhead")
+
+
+@pytest.mark.parametrize("name", BENCHMARK_MODULES)
+def test_benchmark_modules_are_in_the_probe(name):
+    import ast
+    import pkgutil
+    import aura_snn_rag_tpu_torch as pkg
+    names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                   pkg.__name__ + ".")}
+    assert f"aura_snn_rag_tpu_torch.benchmarks.{name}" in names
+    assert (ROOT / "benchmarks" / f"{name}.py").exists()
+    path = ROOT / "aura_snn_rag_tpu_torch" / "benchmarks" / f"{name}.py"
+    tree = ast.parse(path.read_text())
+    every = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            every |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            every.add(node.module.split(".")[0])
+    assert not every & {"jax", "jaxlib", "flax", "optax",
+                        "aura_snn_rag_tpu"}, (name, every)
+    # nothing at import: no statement at the top level reads sys.argv or
+    # writes os.environ
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            continue
+        src = ast.unparse(node)
+        assert "sys.argv" not in src and "os.environ" not in src, src

@@ -2,9 +2,9 @@
 spawns it.
 
 `spawn(scenario, world, tmp_path, inputs, **kw)` starts `world` processes
-(the spawn method), each of which joins a gloo group through a `file://`
-rendezvous under `tmp_path` (so parallel test workers never share a
-port), runs `SCENARIOS[scenario](inputs, **kw)` (or, for a scenario
+(the port's launcher, `parallel.distributed.spawn_ranks`), each of which
+joins a gloo group through a `file://` rendezvous under `tmp_path` (so
+parallel test workers never share a port), runs `SCENARIOS[scenario](inputs, **kw)` (or, for a scenario
 named "module:function", that function of that module, which must not
 import JAX either) and writes what it returns to `out<rank>.npz`.
 Inputs travel as `inputs.npz`. Every collective and the rendezvous time
@@ -13,10 +13,7 @@ fails one test. This module imports torch, numpy and the port alone: the
 ranks never load JAX.
 """
 
-import multiprocessing
 import os
-import time
-import traceback
 
 import numpy as np
 import pytest
@@ -30,37 +27,21 @@ def spawn(scenario, world, tmp_path, inputs=None, timeout=JOIN_TIMEOUT,
           **kwargs):
     """Run `scenario` on `world` gloo ranks; returns each rank's outputs
     (a dict of numpy arrays) in rank order."""
+    from aura_snn_rag_tpu_torch.parallel import distributed
     tmp = str(tmp_path)
     os.makedirs(tmp, exist_ok=True)
     np.savez(os.path.join(tmp, "inputs.npz"), **(inputs or {}))
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_main,
-                         args=(scenario, rank, world, tmp, kwargs))
-             for rank in range(world)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + timeout
-    for p in procs:
-        p.join(max(0.0, deadline - time.monotonic()))
-    hung = [rank for rank, p in enumerate(procs) if p.is_alive()]
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join(10)
-    errors = []
-    for rank in range(world):
-        path = os.path.join(tmp, f"error{rank}.txt")
-        if os.path.exists(path):
-            with open(path) as f:
-                errors.append(f"rank {rank}:\n{f.read()}")
-    if hung or errors or any(p.exitcode for p in procs):
-        pytest.fail(f"{scenario} on {world} ranks: hung {hung}, exit codes "
-                    f"{[p.exitcode for p in procs]}\n" + "\n".join(errors))
+    try:
+        distributed.spawn_ranks(_main, world, tmp,
+                                (scenario, world, tmp, kwargs), timeout,
+                                scenario)
+    except RuntimeError as e:
+        pytest.fail(str(e))
     return [dict(np.load(os.path.join(tmp, f"out{rank}.npz")))
             for rank in range(world)]
 
 
-def _main(scenario, rank, world, tmp, kwargs):
+def _main(rank, scenario, world, tmp, kwargs):
     torch.set_num_threads(1)
     from aura_snn_rag_tpu_torch.parallel import distributed
     try:
@@ -83,8 +64,7 @@ def _main(scenario, rank, world, tmp, kwargs):
         out = fn(inputs, tmp=tmp, **kwargs)
         np.savez(os.path.join(tmp, f"out{rank}.npz"), **out)
     except BaseException:
-        with open(os.path.join(tmp, f"error{rank}.txt"), "w") as f:
-            f.write(traceback.format_exc())
+        distributed.record_failure(tmp, rank)
         raise SystemExit(1)
     finally:
         distributed.shutdown()
