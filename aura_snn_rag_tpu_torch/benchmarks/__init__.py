@@ -19,5 +19,15 @@ raises without a card.
   (kernels B, C, D and E);
 - `bench_decode`, `bench_generation`, `bench_decode_breakdown`: the LM's
   KV-cached decode;
-- `bench_rag_overhead`: memory's share of a training step.
+- `bench_rag_overhead`: memory's share of a training step;
+- `bench_flat_kernel`: kernel A against the library's coarse scan;
+- `bench_flat_batch_sweep`: the flat path over batches and strategies
+  (kernel A in `blockmax`);
+- `bench_rescue_ab`: the flat funnel's variants;
+- `bench_h2d_dtypes`: host-to-device rate by dtype;
+- `bench_prosody`, `bench_prosody_sweep`: the prosody bridge and the
+  prosody-modulated GIF scan;
+- `bench_moe_routing`, `ablation_moe_routing`: the Liquid-MoE router;
+- `bench_energy_tracking`: spiking against dense energy estimates;
+- `bench_emotion_e2e`: the emotion head on labelled text.
 """

@@ -193,14 +193,19 @@ class _Metrics:
 class Trainer:
     """End-to-end training harness for the hippocampal transformer. The
     model, bank and modulators live on `device` (CUDA unless the caller
-    asks for the CPU); their weights are drawn from `seed`."""
+    asks for the CPU, or for "meta"); their weights are drawn from
+    `seed`."""
 
     def __init__(self, config: AuraConfig, seed: int = 0,
                  device: Union[str, torch.device, None] = "cuda"):
         self.config = config
         cfg, mcfg, tcfg = config.model, config.memory, config.training
         self.device = dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        # the meta device (a template: shapes and dtypes, no storage,
+        # as `tools/verify_checkpoint` builds it) has no generator of its
+        # own; its draws are no-ops
+        gen = torch.Generator(device=dev if dev.type != "meta" else "cpu"
+                              ).manual_seed(seed)
         self.model = HippocampalTransformer(
             cfg, mcfg if cfg.use_rag else None, device=dev, generator=gen)
         self.model.train()

@@ -232,6 +232,28 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
    (`LM_BENCHMARK_ARGS`; tokens within the vocabulary, losses finite, no
    kernel). Every JSON line must carry its JAX script's keys in order.
 
+14. drivers phase II: the remaining ports of the repo's benchmark
+   scripts and its tools (`aura_snn_rag_tpu_torch/benchmarks/`,
+   `aura_snn_rag_tpu_torch/tools/`), each run in this process through its
+   `run(argv)`: `bench_flat_kernel --small` at int8 and `--bf16` (100,000
+   x 768; kernel A exactly 1 + 4 times, its surface equal to
+   `flat_blockmax_plain`'s, bit for bit at int8 and within 1e-5 at
+   bf16, the kernel phase's bound), `bench_flat_batch_sweep --small
+   --out` (a temporary file; recall@10 >= 0.99 in every row, kernel A
+   once per `blockmax` call and never in `blockmax-plain` or the
+   scans), `bench_rescue_ab --small`
+   (recall@10 >= 0.99 in every row, each row's indices those of the
+   default funnel at its rerank width, no kernel), `bench_h2d_dtypes`,
+   `bench_prosody`, `bench_prosody_sweep --json`, `bench_moe_routing`,
+   `ablation_moe_routing`, `bench_energy_tracking` and
+   `bench_emotion_e2e` at their defaults (no kernel; the emotion head's
+   top-1 above 1/28), `neuron_firing_diag`, `continuous_learning_runner
+   --duration 2`, and on phase 6's `--preset full` CLI checkpoint
+   `verify_checkpoint` (exit 0, with and without `--deep`; exit 1 on a
+   copy with one NaN in `params`, naming the parameter) and
+   `inspect_checkpoint` (the full preset's width, depth and vocabulary).
+   Every JSON line must carry its JAX script's keys in order.
+
 `--profile` adds a torch.profiler breakdown of one call of each
 retrieval path (device time by kernel, device busy share) to phase 2,
 of decode steps (wall, device, busy, `retrieve_auto`'s share) to
@@ -244,10 +266,10 @@ runs, again just before phase 5's 8 counted train_steps, and again
 before phase 6, after which kernel B alone must have run, and again
 just before phase 7's retrievals, after which kernel A alone must have
 run, ceil(B / 256) times per funnel dispatch, and again at the start of
-phases 8 and 9, after each of which no kernel may have run; phases 10,
-11, 12 and 13 zero them around each call whose launches they check. Any failed check
-exits non-zero. The last lines are the card's name
-and power limit, one JSON object with the per-kernel numbers, and
+phases 8 and 9, after each of which no kernel may have run; phases 10
+to 14 zero them around each call whose launches they check. Any failed
+check exits non-zero. The last lines are the card's name and power
+limit, one JSON object with the per-kernel numbers, and
 {"ok": true, "device": {...}}. Without a CUDA card the script exits 1 and
 prints no result.
 """
@@ -362,15 +384,8 @@ NB_CHECK = 2                    # batches held to the CPU port, per case
 NB_TIMED = 3                    # calls per timing
 NB_DRIVE = 1.0                  # std of the driven case's embedding table
 NB_GRAD_RTOL = 1e-4             # MoE gradients, of each tensor's RMS
-PROSODY_BATCHES = 16            # bench_prosody.py's seeded batches
-EMOTION_DIM, EMOTION_EPOCHS, EMOTION_LR = 1024, 600, 3e-3
+EMOTION_EPOCHS = 600            # bench_emotion_e2e.py's default
 SRFFN_TEXTS = 1000
-GOEMOTIONS_LABELS = (
-    "admiration", "amusement", "anger", "annoyance", "approval", "caring",
-    "confusion", "curiosity", "desire", "disappointment", "disapproval",
-    "disgust", "embarrassment", "excitement", "fear", "gratitude", "grief",
-    "joy", "love", "nervousness", "optimism", "pride", "realization",
-    "relief", "remorse", "sadness", "surprise", "neutral")
 
 # the bench phase: the port's bench.py at its defaults, then `--small`
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "recall_at_10",
@@ -600,31 +615,11 @@ def blockmax_bound(M, D, B, dtype):
     return bound_ms(nbytes, 2 * B * M * D, dtype)
 
 
-def blockmax_library(bank, q, mul, add, q_scale, slab=None):
-    """Kernel A's yardstick: the library product (`_int_mm` for int8, bf16
-    `matmul`), then the same epilogue in PyTorch; over `slab` bank rows at
-    a time (default all), so that the [B, slab] products fit beside a
-    10M-row bank."""
-    import torch
-    from aura_snn_rag_tpu_torch.memory.engine import _int8_matmul
-    M, B = bank.shape[0], q.shape[0]
-    slab = slab or M
-    out = []
-    for r in range(0, M, slab):
-        part = bank[r:r + slab]
-        if bank.dtype == torch.int8:
-            acc = _int8_matmul(q, part).float()
-            cos = acc * (1.0 / (127 * 127)) * q_scale[:, None]
-        else:
-            cos = torch.matmul(q, part.T).float()
-        comb = cos * mul[r:r + part.shape[0]] + add[r:r + part.shape[0]]
-        out.append(comb.reshape(B, -1, 8).amax(-1))
-    return out[0] if len(out) == 1 else torch.cat(out, dim=1)
-
-
 def kernel_A(dev, gen, M, D, cases):
     """flat_blockmax vs its plain version; returns {case: numbers}."""
     import torch
+    from aura_snn_rag_tpu_torch.benchmarks.bench_flat_kernel import (
+        blockmax_library)
     from aura_snn_rag_tpu_torch.memory.engine import _to_coarse_rows
     from aura_snn_rag_tpu_torch.ops.cuda.flat_scan import (
         BLOCK_R, flat_blockmax, flat_blockmax_plain, pack_row_terms)
@@ -2204,11 +2199,13 @@ def cli_serve(args, tmp, n_tokens, timeout):
         err.close()
 
 
-def operator_phase(dev):
+def operator_phase(dev, keep_dir=None):
     """The operator's path at get_full_config() (see the module doc):
     ingest, train, checkpoint and restore, resume, serve from the
     checkpoint, and the CLI in subprocesses. Launch counters are zeroed
-    by the caller just before this phase and read just after it."""
+    by the caller just before this phase and read just after it. The
+    CLI's `--preset full` checkpoint directory is moved to `keep_dir`
+    when one is given (phase 14 audits it)."""
     import shutil
     import tempfile
     import torch
@@ -2416,6 +2413,8 @@ def operator_phase(dev):
         stats["steps"].update(cli_train_s=train_cli_s,
                               cli_generate_s=gen_cli_s,
                               cli_serve_s=ready_s + request_s)
+        if keep_dir is not None:
+            shutil.move(d, keep_dir)
         log(f"operator CLI at --preset {OPERATOR_PRESET}: train --steps "
             f"{OPERATOR_STEPS} {train_cli_s:.1f} s (latest_step {latest}), "
             f"generate {gen_cli_s:.1f} s ({len(toks)} tokens), serve ready "
@@ -2485,6 +2484,8 @@ def spill_kernel_A(bank, queries, B):
     queries over the whole bank) against its plain version and the
     library yardstick, in 1M-row slabs for the two."""
     import torch
+    from aura_snn_rag_tpu_torch.benchmarks.bench_flat_kernel import (
+        blockmax_library)
     from aura_snn_rag_tpu_torch.ops.cuda.flat_scan import (
         flat_blockmax, flat_blockmax_plain, pack_row_terms)
     cfg, dev = bank.config, bank.dev
@@ -3433,40 +3434,26 @@ def moe_check(dev):
 
 
 def prosody_check(dev):
-    """`CachedProsodyBridge(ANALYTICAL_BALANCED)` over bench_prosody.py's
-    16 seeded [8, 256] batches (as ids on the card), cold then warm, as
-    the bench times them; the gains against a CPU bridge's where the LIF
-    chains' spikes agree."""
-    import numpy as np
+    """benchmarks/bench_prosody.py's run on the card (`CachedProsodyBridge(
+    ANALYTICAL_BALANCED)` over its 16 seeded [8, 256] batches as ids on
+    the card, cold then warm): one host copy per call, the key; the cold
+    pass's gains against a CPU bridge's where the LIF chains' spikes
+    agree."""
     import torch
+    from aura_snn_rag_tpu_torch.benchmarks import bench_prosody
     from aura_snn_rag_tpu_torch.models.prosody import (
         ANALYTICAL_BALANCED, CachedProsodyBridge, _lif_chains,
         prosody_channels_from_tokens)
-    rng = np.random.RandomState(0)
-    batches = [torch.from_numpy(rng.randint(0, NB_VOCAB, (8, 256)))
-               for _ in range(PROSODY_BATCHES)]
-    on_card = [b.to(dev) for b in batches]
-    bridge = CachedProsodyBridge(ANALYTICAL_BALANCED, device=dev)
-    ref = CachedProsodyBridge(ANALYTICAL_BALANCED, device="cpu")
-    bridge(on_card[0])
-    bridge(on_card[1])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    gains = [bridge(b) for b in on_card]
-    torch.cuda.synchronize()
-    cold = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    for b in on_card:
-        bridge(b)
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
-    calls = 2 + 2 * PROSODY_BATCHES
-    copies = calls if dev.type == "cuda" else 0      # one per call, the key
+    res = bench_prosody.run(["--device", dev.type])
+    bridge = res.bridge
+    copies = res.calls if dev.type == "cuda" else 0  # one per call, the key
     check(bridge.host_copies == copies, f"{bridge.host_copies} host copies "
-          f"over {calls} calls")
+          f"over {res.calls} calls")
+    ref = CachedProsodyBridge(ANALYTICAL_BALANCED, device="cpu")
     err, flipped = 0.0, 0
     decay = torch.tensor(ANALYTICAL_BALANCED.decay)[:, None]
-    for b, g in zip(batches, gains):
+    for b, g in zip(res.batches, res.gains):
+        b = torch.from_numpy(b)
         check(bool(torch.isfinite(g).all()), "prosody gains not finite")
         spikes = [_lif_chains(torch.stack(prosody_channels_from_tokens(x)),
                               decay.to(x.device)).cpu()
@@ -3474,40 +3461,11 @@ def prosody_check(dev):
         rows = (spikes[0] != spikes[1]).any(dim=2).any(dim=0)
         flipped += int(rows.sum())
         keep = ~rows
-        err = max(err, (g.cpu()[keep] - ref(b)[keep]).abs().max().item())
+        err = max(err, (g[keep] - ref(b)[keep]).abs().max().item())
     check(err <= 1e-5, f"prosody gains on the card against the CPU: {err}")
-    tokens = sum(b.numel() for b in batches)
-    return dict(tokens_per_s_uncached=tokens / cold,
-                cache_speedup_pct=100 * (1 - warm / cold),
-                hit_rate=bridge.stats["hit_rate"], cold_s=cold, warm_s=warm,
-                host_copies=bridge.host_copies, calls=calls,
+    return dict(**res.line, cold_s=res.cold_s, warm_s=res.warm_s,
+                host_copies=bridge.host_copies, calls=res.calls,
                 max_abs_err_vs_cpu=err, rows_with_lif_flips=flipped)
-
-
-def emotion_data():
-    """benchmarks/bench_emotion_e2e.py's data: the bundled
-    data/emotion_eval.jsonl (28 labels) and its stratified split (a
-    quarter of each label to test, seed 0)."""
-    import numpy as np
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
-                        "emotion_eval.jsonl")
-    lab_idx = {n: i for i, n in enumerate(GOEMOTIONS_LABELS)}
-    texts, labels = [], []
-    with open(path) as f:
-        for line in f:
-            row = json.loads(line)
-            texts.append(row["text"])
-            labels.append(lab_idx[row["label"]])
-    labels = np.asarray(labels)
-    rng = np.random.RandomState(0)
-    train, test = [], []
-    for lab in np.unique(labels):
-        idx = np.where(labels == lab)[0]
-        rng.shuffle(idx)
-        n_test = max(1, int(round(0.25 * len(idx))))
-        test.extend(idx[:n_test])
-        train.extend(idx[n_test:])
-    return texts, labels, np.asarray(train), np.asarray(test)
 
 
 def emotion_check(dev):
@@ -3515,26 +3473,26 @@ def emotion_check(dev):
     on the card and, from the same weights, on the CPU: the loss must
     fall and the card's top-1 test accuracy beat chance."""
     import torch
+    from aura_snn_rag_tpu_torch.benchmarks.bench_emotion_e2e import (
+        DIM, LR, load_curated, stratified_split)
     from aura_snn_rag_tpu_torch.encoders.hash_embedder import (
         FastHashEmbedder)
     from aura_snn_rag_tpu_torch.models.emotion_head import (
         EmotionHeadConfig, EmotionPersonalityHead, emotion_multitask_loss)
-    texts, labels, train, test = emotion_data()
-    X = torch.from_numpy(FastHashEmbedder(dim=EMOTION_DIM).embed_batch(
-        texts))
+    texts, labels, n_cls = load_curated()
+    train, test = stratified_split(labels)
+    X = torch.from_numpy(FastHashEmbedder(dim=DIM).embed_batch(texts))
     y = torch.from_numpy(labels)
-    cfg = EmotionHeadConfig(d_model=EMOTION_DIM,
-                            n_emotions=len(GOEMOTIONS_LABELS))
+    cfg = EmotionHeadConfig(d_model=DIM, n_emotions=n_cls)
     card, ref = lm_pair(lambda d, g: EmotionPersonalityHead(
         cfg, device=d, generator=g), dev, 61)
-    out = dict(n=len(texts), n_test=int(len(test)),
-               chance=1 / len(GOEMOTIONS_LABELS))
+    out = dict(n=len(texts), n_test=int(len(test)), chance=1 / n_cls)
     for name, head in (("card", card), ("cpu", ref)):
         d = next(head.parameters()).device
         Xtr, ytr = X[train].to(d), y[train].to(d)
         Xte, yte = X[test].to(d), y[test].to(d)
         head.requires_grad_(True)
-        opt = torch.optim.Adam(head.parameters(), lr=EMOTION_LR)
+        opt = torch.optim.Adam(head.parameters(), lr=LR)
         losses = []
         if d.type == "cuda":
             torch.cuda.synchronize()
@@ -4414,14 +4372,14 @@ def bench_phase():
 # benchmarks phase (phase 13): the ports of the repo's benchmark scripts
 # --------------------------------------------------------------------------
 
-def benchmark_run(name, argv):
-    """`aura_snn_rag_tpu_torch.benchmarks.<name>.run(argv)` in this
+def benchmark_run(name, argv, package="benchmarks"):
+    """`aura_snn_rag_tpu_torch.<package>.<name>.run(argv)` in this
     process, the launch counts zeroed just before it and read just after:
     (its result, {kernel: launches} of the kernels that ran, seconds)."""
     import importlib
     from aura_snn_rag_tpu_torch.ops.cuda import _build
     module = importlib.import_module(
-        f"aura_snn_rag_tpu_torch.benchmarks.{name}")
+        f"aura_snn_rag_tpu_torch.{package}.{name}")
     _build.reset_launch_counts()
     t0 = time.perf_counter()
     res = module.run(argv)
@@ -4594,6 +4552,274 @@ def benchmarks_phase():
     return stats
 
 
+# --------------------------------------------------------------------------
+# drivers phase II (phase 14): the flat, transfer, brain and emotion
+# benchmarks and the operator's tools
+# --------------------------------------------------------------------------
+
+FLAT_KERNEL_KEYS = ("name", "ms_per_batch", "gb_s_eff", "qps_coarse")
+SWEEP_KEYS = ("variant", "batch", "qps", "ms_per_batch", "recall_at_10")
+RESCUE_KEYS = ("variant", "qps", "recall_at_10", "n_vectors", "batch")
+H2D_KEYS = ("metric", "payload_mb", "f32", "f16", "bf16", "u16", "i8",
+            "u8_raw")
+PROSODY_KEYS = ("tokens_per_s_uncached", "cache_speedup_pct", "hit_rate")
+PROSODY_SWEEP_KEYS = ("config", "total_spikes", "avg_spike_rate",
+                      "inference_ms", "spike_ratio_vs_baseline",
+                      "winner_utilization", "attention_entropy",
+                      "mean_gain")
+MOE_KEYS = ("routing_accuracy", "utilization_entropy", "final_loss")
+ABLATION_KEYS = ("rows", "baseline_corr", "full_corr", "corr_degradation",
+                 "prosody_signal_survives")
+ABLATION_ROW_KEYS = ("config", "use_bandit", "usage_beta", "low_entropy",
+                     "high_entropy", "gain_entropy_corr", "status")
+ENERGY_KEYS = ("per_component", "summary")
+EMOTION_KEYS = ("dataset", "n", "n_classes", "n_test", "test_accuracy",
+                "test_top3_accuracy", "final_loss", "chance")
+DIAG_KEYS = ("lif", "gif", "izhikevich_rs", "adex",
+             "izhikevich_pattern_spike_counts")
+RUNNER_KEYS = ("stats", "health")
+FLAT_RECALL = 0.99              # the flat drivers' rows (the engine's bar)
+# kernel A's bf16 surface against its plain version: the kernel phase's
+# bound for the same comparison (f32 sums of exact products in another
+# order; at bench_flat_kernel's self-matching queries, whose block maxima
+# are cosines near 1, the gap measured 1.13e-6)
+BF16_SURFACE_TOL = 1e-5
+
+
+def flat_drivers(tmp):
+    """bench_flat_kernel (int8 and bf16), bench_flat_batch_sweep and
+    bench_rescue_ab at `--small`; see the module doc."""
+    import torch
+    from aura_snn_rag_tpu_torch.benchmarks import (
+        bench_flat_kernel, bench_flat_batch_sweep)
+    from aura_snn_rag_tpu_torch.memory import retrieve_flat
+    from aura_snn_rag_tpu_torch.ops.cuda.flat_scan import flat_blockmax_plain
+    stats = {}
+    M, reps = bench_flat_kernel.sizes(True)
+    for dtype, argv in (("int8", ["--small"]), ("bf16", ["--small",
+                                                          "--bf16"])):
+        res, launches, seconds = benchmark_run("bench_flat_kernel", argv)
+        kernel = bench_flat_kernel.KERNEL[dtype]
+        check([line["name"] for line in res.lines]
+              == [bench_flat_kernel.LIBRARY, kernel],
+              f"bench_flat_kernel {dtype}: lines {res.lines}")
+        for line in res.lines:
+            check_keys("bench_flat_kernel", line, FLAT_KERNEL_KEYS)
+        check(res.calls[kernel] == 1 + reps, f"bench_flat_kernel: "
+              f"{res.calls[kernel]} kernel calls")
+        check_launches(f"bench_flat_kernel {dtype}", launches,
+                       {"flat_blockmax": 1 + reps})
+        want = flat_blockmax_plain(*res.inputs)
+        err = (res.surfaces[kernel] - want).abs().max().item()
+        lib_err = (res.surfaces[bench_flat_kernel.LIBRARY]
+                   - want).abs().max().item()
+        tol = 0.0 if dtype == "int8" else BF16_SURFACE_TOL
+        check(res.surfaces[kernel].shape == (bench_flat_kernel.B, M // 8)
+              and err <= tol, f"bench_flat_kernel {dtype}: kernel A's "
+              f"surface against its plain version: {err} > {tol}")
+        b_ms, b_by = blockmax_bound(M, bench_flat_kernel.D,
+                                    bench_flat_kernel.B, dtype)
+        stats[f"flat_kernel_{dtype}"] = dict(
+            lines=res.lines, launches=launches, seconds=seconds,
+            max_abs_err=err, library_max_abs_err=lib_err, bound_ms=b_ms,
+            bound_by=b_by)
+        log(f"bench_flat_kernel {dtype} --small: kernel A "
+            f"{res.lines[1]['ms_per_batch']:.4f} ms (bound {b_ms:.4f}, "
+            f"{b_by}), library {res.lines[0]['ms_per_batch']:.4f} ms; "
+            f"surface err {err} (library's {lib_err})")
+        del res, want
+        torch.cuda.empty_cache()
+
+    out = os.path.join(tmp, "flat_batch_sweep.json")
+    res, launches, seconds = benchmark_run("bench_flat_batch_sweep",
+                                           ["--small", "--out", out])
+    _, _, _, batches = bench_flat_batch_sweep.sizes(True)
+    check(len(res.rows) == len(batches) * len(
+        bench_flat_batch_sweep.VARIANTS), f"bench_flat_batch_sweep: "
+        f"{len(res.rows)} rows (an error row?)")
+    for row in res.rows:
+        check_keys("bench_flat_batch_sweep", row, SWEEP_KEYS)
+        check(row["recall_at_10"] >= FLAT_RECALL, f"bench_flat_batch_sweep "
+              f"{row['variant']} B={row['batch']}: recall@10 "
+              f"{row['recall_at_10']} < {FLAT_RECALL}")
+    check_launches("bench_flat_batch_sweep", launches, {
+        "flat_blockmax": sum(n for (variant, _), n in res.calls.items()
+                             if variant == "blockmax")})
+    with open(out) as f:
+        check(json.load(f) == json.loads(json.dumps(res.summary)),
+              "bench_flat_batch_sweep: --out differs from the summary")
+    stats["flat_batch_sweep"] = dict(rows=res.rows, winner=res.summary[
+        "winner"], launches=launches, seconds=seconds)
+    del res
+    torch.cuda.empty_cache()
+
+    res, launches, seconds = benchmark_run("bench_rescue_ab", ["--small"])
+    check(len(res.lines) == 11, f"bench_rescue_ab: {len(res.lines)} rows")
+    for line in res.lines:
+        check_keys("bench_rescue_ab", line, RESCUE_KEYS)
+        check(line["recall_at_10"] >= FLAT_RECALL, f"bench_rescue_ab "
+              f"{line['variant']}: recall@10 {line['recall_at_10']} < "
+              f"{FLAT_RECALL}")
+    check_launches("bench_rescue_ab", launches, {})
+    # the funnel options leave the exact scan as it is: each row's indices
+    # are those of the default funnel at its rerank width
+    base = res.configs["approx95_kk128"]
+    twins = {}
+    for name, cfg in res.configs.items():
+        plain = dataclasses.replace(
+            cfg, flat_funnel_recall=base.flat_funnel_recall,
+            flat_exact_funnel=base.flat_exact_funnel,
+            flat_wide_funnel=base.flat_wide_funnel)
+        key = plain.rerank_candidates
+        if key not in twins:
+            twins[key] = torch.cat([
+                retrieve_flat(plain, res.state, b, None, 10).indices
+                for b in res.batches]).cpu().numpy()
+        check((res.indices[name] == twins[key]).all(), f"bench_rescue_ab "
+              f"{name}: indices differ from the default funnel's at "
+              f"rerank {key}")
+    stats["rescue_ab"] = dict(lines=res.lines, launches=launches,
+                              seconds=seconds)
+    del res
+    torch.cuda.empty_cache()
+    return stats
+
+
+def checkpoint_tools(ckpt_dir, tmp):
+    """verify_checkpoint and inspect_checkpoint on the operator phase's
+    `--preset full` checkpoint; see the module doc."""
+    import shutil
+    import torch
+    import aura_snn_rag_tpu_torch as port
+    from aura_snn_rag_tpu_torch.tools.verify_checkpoint import (
+        build_template)
+    stats = {}
+    for argv in ([ckpt_dir], [ckpt_dir, "--deep"]):
+        res, launches, seconds = benchmark_run("verify_checkpoint", argv,
+                                               "tools")
+        check(res.status == 0 and res.preset == "full", f"verify_checkpoint "
+              f"{argv}: exit {res.status}, preset {res.preset}, findings "
+              f"{res.findings}")
+        check_launches("verify_checkpoint", launches, {})
+        stats["verify" + ("_deep" if "--deep" in argv else "")] = dict(
+            status=res.status, seconds=seconds)
+    # a copy with one NaN in the flat parameter buffer
+    step = res.step
+    _, layout = build_template("full")
+    name, shape = layout[len(layout) // 2]
+    offset = sum(math.prod(s) for _, s in layout[:len(layout) // 2])
+    bad = os.path.join(tmp, "nan_ckpt")
+    os.makedirs(bad)
+    payload = torch.load(os.path.join(ckpt_dir, f"ckpt_{step}.pt"),
+                         map_location="cpu", weights_only=True)
+    payload["params"][offset + math.prod(shape) // 2] = float("nan")
+    torch.save(payload, os.path.join(bad, f"ckpt_{step}.pt"))
+    del payload
+    shutil.copy(os.path.join(ckpt_dir, f"meta_{step}.json"), bad)
+    res, launches, seconds = benchmark_run(
+        "verify_checkpoint", [bad, "--deep"], "tools")
+    named = [f for f in res.findings
+             if f.startswith(f"NONFINITE ['params']['{name}']")]
+    check(res.status == 1 and named, f"verify_checkpoint on a NaN in "
+          f"{name}: exit {res.status}, findings {res.findings}")
+    stats["verify_nan"] = dict(status=res.status, findings=res.findings,
+                               seconds=seconds)
+    shutil.rmtree(bad)
+    res, launches, seconds = benchmark_run("inspect_checkpoint", [ckpt_dir],
+                                           "tools")
+    model = port.get_full_config().model
+    got = {k: res.config.get(k) for k in ("embedding_dim", "num_layers",
+                                          "vocab_size")}
+    check(got == dict(embedding_dim=model.embedding_dim,
+                      num_layers=model.num_layers,
+                      vocab_size=model.vocab_size),
+          f"inspect_checkpoint: {res.config}")
+    check_launches("inspect_checkpoint", launches, {})
+    stats["inspect"] = dict(config=res.config, count=res.count,
+                            seconds=seconds)
+    log(f"checkpoint tools: verify exit 0 ({stats['verify']['seconds']:.1f}"
+        f" s; --deep {stats['verify_deep']['seconds']:.1f} s), NaN in "
+        f"{name}: exit 1 naming it; inspect {res.config}")
+    return stats
+
+
+def drivers_phase(ckpt_dir):
+    """Phase 14: the flat and transfer drivers, the brain and emotion
+    drivers and the four tools, each in this process, its launches
+    counted around its run; see the module doc."""
+    import tempfile
+    import numpy as np
+    t_phase = time.perf_counter()
+    stats = {}
+    with tempfile.TemporaryDirectory(prefix="aura_drivers_") as tmp:
+        stats.update(flat_drivers(tmp))
+
+        res, launches, seconds = benchmark_run("bench_h2d_dtypes", [])
+        check_keys("bench_h2d_dtypes", res.line, H2D_KEYS)
+        mib = res.line["payload_mb"] << 20
+        check(res.nbytes == dict(f32=mib, f16=mib // 2, bf16=mib // 2,
+                                 u16=mib // 2, i8=mib // 4, u8_raw=mib)
+              and all(res.line[k] > 0 for k in H2D_KEYS[2:]),
+              f"bench_h2d_dtypes: {res.nbytes} {res.line}")
+        check_launches("bench_h2d_dtypes", launches, {})
+        stats["h2d"] = dict(line=res.line, seconds=seconds)
+
+        # the brain, emotion and neuron drivers: no kernel
+        brain = (("bench_prosody", []), ("bench_prosody_sweep", ["--json"]),
+                 ("bench_moe_routing", []), ("ablation_moe_routing", []),
+                 ("bench_energy_tracking", []), ("bench_emotion_e2e", []))
+        for name, argv in brain:
+            res, launches, seconds = benchmark_run(name, argv)
+            check_launches(name, launches, {})
+            if name == "bench_prosody":
+                check_keys(name, res.line, PROSODY_KEYS)
+                line = res.line
+            elif name == "bench_prosody_sweep":
+                check(len(res.rows) == 8, f"{name}: {len(res.rows)} rows")
+                for row in res.rows:
+                    check_keys(name, row, PROSODY_SWEEP_KEYS)
+                line = res.rows
+            elif name == "bench_moe_routing":
+                check_keys(name, res.line, MOE_KEYS)
+                check(all(np.isfinite(res.losses)), f"{name}: losses")
+                line = res.line
+            elif name == "ablation_moe_routing":
+                check_keys(name, res, ABLATION_KEYS)
+                for row in res["rows"]:
+                    check_keys(name, row, ABLATION_ROW_KEYS)
+                line = res
+            elif name == "bench_energy_tracking":
+                check_keys(name, res.line, ENERGY_KEYS)
+                line = res.line
+            else:
+                check_keys(name, res.line, EMOTION_KEYS)
+                check(res.line["test_accuracy"] > 1 / 28, f"{name}: top-1 "
+                      f"{res.line['test_accuracy']} at chance")
+                line = res.line
+            stats[name] = dict(line=line, seconds=seconds)
+            log(f"{name}: {json.dumps(line)}")
+
+        res, launches, seconds = benchmark_run("neuron_firing_diag", [],
+                                               "tools")
+        check_keys("neuron_firing_diag", res.report, DIAG_KEYS)
+        check_launches("neuron_firing_diag", launches, {})
+        stats["neuron_firing_diag"] = dict(report=res.report,
+                                           warnings=res.warnings,
+                                           seconds=seconds)
+
+        res, launches, seconds = benchmark_run(
+            "continuous_learning_runner", ["--duration", "2"], "tools")
+        check_keys("continuous_learning_runner", res, RUNNER_KEYS)
+        check_launches("continuous_learning_runner", launches, {})
+        stats["continuous_learning_runner"] = dict(line=res,
+                                                   seconds=seconds)
+
+        stats.update(checkpoint_tools(ckpt_dir, tmp))
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"drivers phase II: {stats['phase_s']:.1f} s")
+    return stats
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4694,9 +4920,15 @@ def main() -> int:
     log(f"training-path launches: {launches_train}")
     torch.cuda.empty_cache()
 
-    # ---- the operator's path: counts from zero again ----
+    # ---- the operator's path: counts from zero again; the CLI's
+    # `--preset full` checkpoint is kept for phase 14 ----
+    import atexit
+    import shutil
+    import tempfile
+    keep = tempfile.mkdtemp(prefix="aura_ckpt_")
+    atexit.register(shutil.rmtree, keep, True)
     _build.reset_launch_counts()
-    operator = operator_phase(dev)
+    operator = operator_phase(dev, keep_dir=os.path.join(keep, "cli"))
     launches_op = dict(_build.launch_counts)
     check(launches_op.get("ivf_retrieve_fused", 0) > 0
           and all(launches_op.get(name, 0) == 0 for name in SOURCES
@@ -4745,6 +4977,12 @@ def main() -> int:
     benchmarks = benchmarks_phase()
     torch.cuda.empty_cache()
 
+    # ---- the remaining drivers and the tools: counts zeroed inside,
+    # around each module's run ----
+    drivers = drivers_phase(os.path.join(keep, "cli"))
+    shutil.rmtree(keep, ignore_errors=True)
+    torch.cuda.empty_cache()
+
     main_shape = {"flat_blockmax": res_a[("int8", 1024)],
                   "ivf_retrieve_fused": res_bc[("ivf_retrieve_fused", 8)],
                   "ivf_scan_scores": res_bc[("ivf_scan_scores", 8)],
@@ -4771,6 +5009,12 @@ def main() -> int:
                         in spill.pop("kernel_A").items()})
             row["launches_benchmarks_spill"] = \
                 benchmarks["spill"]["launches"][name]
+            # phase 14: bench_flat_kernel (int8 and bf16) and the sweep
+            row["launches_drivers_flat_kernel"] = sum(
+                drivers[f"flat_kernel_{dt}"]["launches"][name]
+                for dt in ("int8", "bf16"))
+            row["launches_drivers_sweep"] = \
+                drivers["flat_batch_sweep"]["launches"][name]
         if name == "ivf_candidates":
             # bench.py's batch of 1024, on the cluster-major pass
             r = res_de[(name, 1024)]
@@ -4824,6 +5068,7 @@ def main() -> int:
     log(json.dumps({"model_parallel": mp}))
     log(json.dumps({"bench": bench}))
     log(json.dumps({"benchmarks": benchmarks}))
+    log(json.dumps({"drivers": drivers}))
     log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -286,19 +286,28 @@ def test_public_names_reach_the_port_s_namespaces():
 BENCHMARK_MODULES = (
     "bench_host_spill", "bench_sharded_scaling", "bench_retrieval_latency",
     "bench_retrieval_breakdown", "bench_decode", "bench_generation",
-    "bench_decode_breakdown", "bench_rag_overhead")
+    "bench_decode_breakdown", "bench_rag_overhead", "bench_flat_kernel",
+    "bench_flat_batch_sweep", "bench_rescue_ab", "bench_h2d_dtypes",
+    "bench_prosody", "bench_prosody_sweep", "bench_moe_routing",
+    "ablation_moe_routing", "bench_energy_tracking", "bench_emotion_e2e")
+# the tools: one module per JAX tool of `tools/` that drives the JAX
+# package
+TOOL_MODULES = ("verify_checkpoint", "inspect_checkpoint",
+                "neuron_firing_diag", "continuous_learning_runner")
 
 
-@pytest.mark.parametrize("name", BENCHMARK_MODULES)
-def test_benchmark_modules_are_in_the_probe(name):
+def _driver_probe(folder, name):
+    """The port's `<folder>.<name>` is in the package beside the JAX
+    script `<folder>/<name>.py`, and imports nothing of JAX; nothing of
+    it runs at import."""
     import ast
     import pkgutil
     import aura_snn_rag_tpu_torch as pkg
     names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                    pkg.__name__ + ".")}
-    assert f"aura_snn_rag_tpu_torch.benchmarks.{name}" in names
-    assert (ROOT / "benchmarks" / f"{name}.py").exists()
-    path = ROOT / "aura_snn_rag_tpu_torch" / "benchmarks" / f"{name}.py"
+    assert f"aura_snn_rag_tpu_torch.{folder}.{name}" in names
+    assert (ROOT / folder / f"{name}.py").exists()
+    path = ROOT / "aura_snn_rag_tpu_torch" / folder / f"{name}.py"
     tree = ast.parse(path.read_text())
     every = set()
     for node in ast.walk(tree):
@@ -315,3 +324,13 @@ def test_benchmark_modules_are_in_the_probe(name):
             continue
         src = ast.unparse(node)
         assert "sys.argv" not in src and "os.environ" not in src, src
+
+
+@pytest.mark.parametrize("name", BENCHMARK_MODULES)
+def test_benchmark_modules_are_in_the_probe(name):
+    _driver_probe("benchmarks", name)
+
+
+@pytest.mark.parametrize("name", TOOL_MODULES)
+def test_tool_modules_are_in_the_probe(name):
+    _driver_probe("tools", name)
