@@ -1,10 +1,15 @@
-"""Device resolution for the port's entry points."""
+"""Device resolution for the port's entry points, and the card's peak
+rate that their MFU figures divide by."""
 
 from __future__ import annotations
 
 from typing import Union
 
 import torch
+
+# the card's dense bf16 tensor-core peak (NVIDIA H100 SXM datasheet), the
+# denominator of every MFU the port reports
+H100_SXM_BF16_PEAK_FLOPS = 989e12
 
 
 def resolve_device(device: Union[str, torch.device, None] = "cuda"

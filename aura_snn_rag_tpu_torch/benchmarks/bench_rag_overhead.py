@@ -40,12 +40,12 @@ import numpy as np
 import torch
 
 from aura_snn_rag_tpu_torch import config as cfg_mod
-from aura_snn_rag_tpu_torch._device import resolve_device
+from aura_snn_rag_tpu_torch._device import (
+    H100_SXM_BF16_PEAK_FLOPS, resolve_device)
 from aura_snn_rag_tpu_torch.bench import _sync
 from aura_snn_rag_tpu_torch.memory import engine
 from aura_snn_rag_tpu_torch.training.trainer import Trainer
 
-H100_SXM_BF16_PEAK_FLOPS = 989e12     # dense, NVIDIA H100 SXM datasheet
 SEED_ROWS = 80_000                    # rows the bank holds
 ISOLATED_REPS = 10
 

@@ -254,6 +254,41 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
    `inspect_checkpoint` (the full preset's width, depth and vocabulary).
    Every JSON line must carry its JAX script's keys in order.
 
+15. examples phase: the ports of the repo's examples and scripts
+   (`aura_snn_rag_tpu_torch/examples/`, `aura_snn_rag_tpu_torch/scripts/`),
+   each through its `run(argv)` in this process (a clean return is its
+   exit 0), over a corpus folder in `tools/build_offline_corpus.py`'s
+   layout made of this checkout's Markdown as byte-tokenizer ids (a
+   fifth of the documents held out; `meta.json` declares the full
+   preset's vocabulary of 32,000): `train_flagship --preset full --steps
+   4 --chunk 2 --memory-warmup 0 --eval-every 2 --save-every 2` (every
+   record with the script's keys, finite losses, 0 < MFU < 1 against the
+   H100's bf16 peak, the final record, the JSONL log), then `--steps 6`
+   from its checkpoint (it must resume at step 4); that checkpoint
+   restored by `flagship_demo.restore`, given the LM phase's 100,000 x
+   768 bank with its index built, and `flagship_demo.demo` on the byte
+   ids of the script's passage and prompt, 48 new tokens: kernel B
+   exactly 12 x 48 times (one model call per new token, every RAG layer
+   retrieving) and no other kernel, none in the generation without
+   memory; `train_tiny` at its defaults, `train_wikitext2 --steps 50
+   --eval-every 25`, `pretrain_production --steps 50 --preset debug
+   --monitor-interval 5` (the lines the JAX scripts print, finite losses,
+   parsed diagnostics, the checkpoint restored at step 50),
+   `train_emotion_head` and `train_llm_hybrid` at their defaults (the
+   lines and the JSON keys; no kernel); `dryrun_pp_xl.rank_work((1, 1))`
+   on a one-rank NCCL group (the xl preset's 16 layers in one stage, 4
+   microbatches of 2 x 128, forward and backward twice: finite and equal
+   losses, a finite nonzero gradient norm, the loss within 1e-3 and the
+   gradients within 2^-4 of the plain forward's over the same layers);
+   `run_multihost_cpu.sh` (two gloo processes: exit 0, the sum 28.0 in
+   each, "multihost demo OK"); `prepare_dataset` over the Markdown files
+   as .txt (the packed shape), `tune_prosody_hyperparameters --trials 24`
+   (no kernel) and `visualize_prosody.traces` on the card against the CPU
+   port (within 1e-5 where the LIF spikes agree); and, where `tokenizers`
+   or matplotlib imports, `flagship_demo.main` (with a BPE tokenizer
+   trained on the documents) and `visualize_prosody.main`. Every kernel's
+   launches over the phase are added to its row of the kernels line.
+
 `--profile` adds a torch.profiler breakdown of one call of each
 retrieval path (device time by kernel, device busy share) to phase 2,
 of decode steps (wall, device, busy, `retrieve_auto`'s share) to
@@ -267,7 +302,7 @@ before phase 6, after which kernel B alone must have run, and again
 just before phase 7's retrievals, after which kernel A alone must have
 run, ceil(B / 256) times per funnel dispatch, and again at the start of
 phases 8 and 9, after each of which no kernel may have run; phases 10
-to 14 zero them around each call whose launches they check. Any failed
+to 15 zero them around each call whose launches they check. Any failed
 check exits non-zero. The last lines are the card's name and power
 limit, one JSON object with the per-kernel numbers, and
 {"ok": true, "device": {...}}. Without a CUDA card the script exits 1 and
@@ -4820,6 +4855,572 @@ def drivers_phase(ckpt_dir):
     return stats
 
 
+# --------------------------------------------------------------------------
+# examples phase (phase 15): the ports of the repo's examples and scripts
+# --------------------------------------------------------------------------
+
+# train_flagship at the full preset over the repo's Markdown as a byte
+# corpus, cut to 4 steps and resumed to 6
+FLAGSHIP_ARGS = ["--preset", "full", "--chunk", "2", "--memory-warmup",
+                 "0", "--eval-every", "2", "--save-every", "2"]
+FLAGSHIP_STEPS = (4, 6)
+FLAGSHIP_KEYS = ("step", "loss", "ce", "ppl", "tok_s", "mfu", "mem_count",
+                 "elapsed_s", "val_loss", "val_ppl")
+FLAGSHIP_FINAL_KEYS = ("final", "steps", "avg_tok_s", "avg_mfu", "n_params",
+                       "val_loss", "val_ppl")
+CORPUS_VOCAB = 32_000           # the full preset's vocabulary
+DEMO_NEW_TOKENS = 48            # flagship_demo.py's --max-new-tokens
+PRODUCTION_ARGS = ["--steps", "50", "--preset", "debug",
+                   "--monitor-interval", "5"]
+DIAGNOSTIC_KEYS = ("entropy", "max_prob", "top5_mass", "effective_vocab",
+                   "collapse_warning")
+HYBRID_KEYS = ("final_mean_error", "salience('the neuron fired')",
+               "predict(finance)", "predict(neuro)")
+PP_XL_KEYS = ("preset", "d_model", "layers", "stages", "microbatches",
+              "mesh", "trunk_params", "loss", "loss_repeat", "grad_norm",
+              "grad_sharding_spec", "init_s", "compile_s", "step_s",
+              "bubble_fraction")
+TUNE_KEYS = ("decay", "gain_up", "k_winners", "smoothing", "score",
+             "coverage", "dynamic_range", "mean_mu")
+# the prosody traces on the card against the CPU port: phase 9's bound
+# for the prosody gains, where the LIF chains' spikes agree
+PROSODY_TOL = 1e-5
+# the runs whose launches phase 15 records, beside the flagship's and the
+# demo's
+EXAMPLE_RUNS = ("train_tiny", "train_wikitext2", "pretrain_production",
+                "train_emotion_head", "train_llm_hybrid", "dryrun_pp_xl",
+                "prepare_dataset", "tune_prosody_hyperparameters")
+EXAMPLE_TIMEOUT = 120           # seconds for run_multihost_cpu.sh
+
+
+def md_corpus(path, vocab_size=CORPUS_VOCAB, val_every=5):
+    """A corpus folder in `tools/build_offline_corpus.py`'s layout
+    (`train.npy` and `val.npy` uint16 token streams, each document
+    followed by the end-of-text id, and `meta.json`): the byte-tokenizer
+    ids of this checkout's Markdown files, every `val_every`-th document
+    (in path order) held out. `meta.json` declares `vocab_size`, the
+    model's vocabulary. Returns (the documents' texts, meta)."""
+    import glob
+    import numpy as np
+    from aura_snn_rag_tpu_torch.training.tokenizer import ByteTokenizer
+    root = os.path.dirname(os.path.abspath(__file__))
+    paths = sorted(glob.glob(os.path.join(root, "*.md"))
+                   + glob.glob(os.path.join(root, "docs", "*.md")))
+    tok = ByteTokenizer()
+    texts = []
+    streams = {"val": [], "train": []}
+    for i, p in enumerate(paths):
+        with open(p, encoding="utf-8", errors="ignore") as f:
+            texts.append(f.read())
+        split = "val" if i % val_every == 0 else "train"
+        streams[split].extend(tok.encode(texts[-1]) + [tok.eos_token_id])
+    os.makedirs(path, exist_ok=True)
+    meta = {"vocab_size": vocab_size, "eos_id": tok.eos_token_id,
+            "n_docs": len(paths), "bytes": sum(len(t) for t in texts)}
+    for split, ids in streams.items():
+        arr = np.asarray(ids, np.uint16)
+        np.save(os.path.join(path, f"{split}.npy"), arr)
+        meta[f"{split}_tokens"] = int(arr.size)
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump(meta, f, indent=1)
+    return texts, meta
+
+
+def finite(x):
+    return isinstance(x, (int, float)) and math.isfinite(x)
+
+
+def flagship_check(corpus, tmp):
+    """train_flagship at the full preset, 4 steps in chunks of 2, then
+    resumed to 6: every record's keys, finite losses, 0 < MFU < 1, the
+    final record, the log file, the resumed step."""
+    ckpt, log_path = os.path.join(tmp, "flagship"), os.path.join(
+        tmp, "flagship.jsonl")
+    stats = {}
+    for steps in FLAGSHIP_STEPS:
+        argv = FLAGSHIP_ARGS + ["--steps", str(steps), "--corpus", corpus,
+                                "--log", log_path, "--checkpoint-dir", ckpt]
+        res, launches, seconds = benchmark_run("train_flagship", argv,
+                                               "examples")
+        *recs, final = res.records
+        check(recs and all(tuple(r) == FLAGSHIP_KEYS for r in recs),
+              f"train_flagship: record keys {[list(r) for r in recs]}")
+        check(tuple(final) == FLAGSHIP_FINAL_KEYS and final["final"]
+              and final["steps"] == steps,
+              f"train_flagship: final record {final}")
+        check(all(finite(r[k]) for r in res.records
+                  for k in ("loss", "val_loss") if k in r),
+              f"train_flagship: losses {res.records}")
+        check(all(0 < r["mfu"] < 1 for r in recs)
+              and 0 < final["avg_mfu"] < 1,
+              f"train_flagship: MFU {[r['mfu'] for r in recs]}")
+        check(res.start == (0 if steps == FLAGSHIP_STEPS[0]
+                            else FLAGSHIP_STEPS[0])
+              and recs[0]["step"] == res.start + 2,
+              f"train_flagship --steps {steps}: started at {res.start}")
+        # the trainer's own bank holds a few rows (16 after 4 steps), which
+        # retrieve_auto searches by brute force: no kernel
+        check_launches(f"train_flagship --steps {steps}", launches, {})
+        with open(log_path) as f:
+            logged = [json.loads(line) for line in f]
+        check(logged[-len(res.records):] == json.loads(
+            json.dumps(res.records)), "train_flagship: the log's records")
+        stats[f"steps_{steps}"] = dict(
+            start=res.start, records=res.records, launches=launches,
+            seconds=seconds)
+        log(f"train_flagship --steps {steps}: from step {res.start}, "
+            f"tok/s {[r['tok_s'] for r in recs]}, MFU "
+            f"{[r['mfu'] for r in recs]}, launches {launches}, "
+            f"{seconds:.1f} s")
+        del res
+    return stats, ckpt
+
+
+def demo_check(dev, ckpt, corpus):
+    """flagship_demo.demo on the flagship checkpoint with the LM's 100k
+    bank and its index: kernel B 12 x the memory-conditioned generation's
+    model calls and no other kernel; none in the plain generation."""
+    import torch
+    from aura_snn_rag_tpu_torch.examples import flagship_demo
+    from aura_snn_rag_tpu_torch.ops.cuda import _build
+    from aura_snn_rag_tpu_torch.training.tokenizer import ByteTokenizer
+
+    t0 = time.perf_counter()
+    trainer, step = flagship_demo.restore(ckpt, corpus, "full", dev)
+    check(step == FLAGSHIP_STEPS[-1], f"flagship_demo: restored step {step}")
+    trainer.hippocampus.state = lm_bank(dev, trainer.config.memory)
+    restore_s = time.perf_counter() - t0
+    tok = ByteTokenizer()
+    support = tok.encode(flagship_demo.SUPPORT)
+    prompt = tok.encode(flagship_demo.PROMPT)
+    plain, plain_s = {}, [0.0]
+    inner = flagship_demo.generate
+
+    def counted(*a, **kw):
+        before = dict(_build.launch_counts)
+        out, plain_s[0] = synced(lambda: inner(*a, **kw))
+        plain.update({k: n - before.get(k, 0)
+                      for k, n in _build.launch_counts.items()
+                      if n != before.get(k, 0)})
+        return out
+
+    # the model's calls with memory, observed
+    memory_calls = [0]
+
+    def count_call(module, args, kwargs):
+        memory_calls[0] += bool(kwargs.get("use_memory"))
+    hook = trainer.model.register_forward_pre_hook(count_call,
+                                                   with_kwargs=True)
+    flagship_demo.generate = counted
+    try:
+        _build.reset_launch_counts()
+        res, seconds = synced(lambda: flagship_demo.demo(
+            trainer, support, prompt, DEMO_NEW_TOKENS,
+            torch.Generator(device=dev).manual_seed(0)))
+        launches = {k: n for k, n in _build.launch_counts.items() if n}
+    finally:
+        flagship_demo.generate = inner
+        hook.remove()
+    n_layers = trainer.config.model.num_layers
+    vocab = trainer.config.model.vocab_size
+    calls = memory_calls[0]
+    # generation/sampler.generate: the prefill makes the first token, then
+    # one model call per further token, so max_new_tokens calls with
+    # memory; each RAG layer retrieves once per call
+    check(calls == DEMO_NEW_TOKENS, f"flagship_demo: {calls} model calls "
+          f"with memory, expected {DEMO_NEW_TOKENS}")
+    want = n_layers * DEMO_NEW_TOKENS
+    check(plain == {}, f"flagship_demo: the plain generation launched "
+          f"{plain}")
+    check_launches("flagship_demo", launches, {"ivf_retrieve_fused": want})
+    check(res.memory_id.startswith("oneshot-"),
+          f"flagship_demo: memory id {res.memory_id}")
+    for name, ids in (("with memory", res.with_memory),
+                      ("without memory", res.without_memory)):
+        check(ids.shape == (len(prompt) + DEMO_NEW_TOKENS,)
+              and list(ids[:len(prompt)]) == prompt
+              and bool(((ids >= 0) & (ids < vocab)).all()),
+              f"flagship_demo {name}: tokens {ids}")
+    log(f"flagship_demo: restored step {step} + the "
+        f"{trainer.config.memory.max_memories}-row bank in {restore_s:.1f} "
+        f"s; {res.memory_id}; kernel B {want} launches ({n_layers} x "
+        f"{calls} model calls), none without memory; "
+        f"{seconds:.2f} s in all, {plain_s[0]:.2f} s of it the generation "
+        f"without memory")
+    stats = dict(step=step, memory_id=res.memory_id, launches=launches,
+                 model_calls=calls, seconds=seconds,
+                 without_memory_s=plain_s[0],
+                 restore_s=restore_s, tokens_with_memory=res.with_memory
+                 .tolist(), tokens_without_memory=res.without_memory
+                 .tolist())
+    del trainer
+    torch.cuda.empty_cache()
+    return stats
+
+
+def lines_like(name, lines, patterns):
+    """Each pattern (a regular expression) matches its line, in order."""
+    import re
+    check(len(lines) == len(patterns)
+          and all(re.fullmatch(p, l, re.S) for p, l in zip(patterns, lines)),
+          f"{name}: lines {lines}, expected {patterns}")
+
+
+def no_hf(*args, **kwargs):
+    raise ImportError("the HuggingFace loader is not called here")
+
+
+@contextlib.contextmanager
+def hermetic_data():
+    """`training.data.load_hf_streaming` raising ImportError, as the CPU
+    tests patch it: the card's machine has `datasets` and `transformers`
+    but no network, so the scripts' HuggingFace branch would fail there
+    (with OSError, which the JAX scripts do not catch either); with it
+    patched they take their synthetic fallback and nothing reaches for
+    the network."""
+    from aura_snn_rag_tpu_torch.training import data
+    inner = data.load_hf_streaming
+    data.load_hf_streaming = no_hf
+    try:
+        yield
+    finally:
+        data.load_hf_streaming = inner
+
+
+def trainers_check(dev, tmp):
+    """train_tiny at its defaults, train_wikitext2 --steps 50 --eval-every
+    25 and pretrain_production at the JAX test's flags: the lines the JAX
+    scripts print, finite losses, the production checkpoint restored."""
+    import argparse
+    import torch
+    from aura_snn_rag_tpu_torch.examples import pretrain_production
+    from aura_snn_rag_tpu_torch.training.checkpoint import CheckpointManager
+    from aura_snn_rag_tpu_torch.training.trainer import Trainer
+    stats = {}
+    num = r"-?[0-9.]+"
+    res, launches, seconds = benchmark_run("train_tiny", [], "examples")
+    lines_like("train_tiny", res.lines, [
+        *(rf"step {s}: loss={num} ppl={num} mem=(on|off) bank=\d+"
+          for s in range(0, 100, 20)),
+        rf"trained 100 steps in {num}s \({num} tok/s\)",
+        r"generated: \[(\d+, ){15}\d+\]"])
+    check(all(finite(m["loss"]) for m in res.metrics), "train_tiny: loss")
+    stats["train_tiny"] = dict(lines=res.lines, launches=launches,
+                               seconds=seconds)
+
+    argv = ["--steps", "50", "--eval-every", "25", "--checkpoint-dir",
+            os.path.join(tmp, "wt2")]
+    res, launches, seconds = benchmark_run("train_wikitext2", argv,
+                                           "examples")
+    lines_like("train_wikitext2", res.lines, [
+        r"synthetic fallback: \(\d+, \d+\)",
+        *(rf"step {s}: train_loss={num} val_ppl={num}" for s in (0, 25)),
+        rf"best val ppl: {num}"])
+    check(all(finite(p) for p in res.val_ppl), "train_wikitext2: ppl")
+    stats["train_wikitext2"] = dict(lines=res.lines, launches=launches,
+                                    seconds=seconds)
+
+    ckpt = os.path.join(tmp, "prod")
+    argv = PRODUCTION_ARGS + ["--checkpoint-dir", ckpt]
+    res, launches, seconds = benchmark_run("pretrain_production", argv,
+                                           "examples")
+    body = [l for l in res.lines if not l.startswith("[monitor]")]
+    lines_like("pretrain_production", body, [
+        r"data: synthetic \(HF datasets unavailable\), \(\d+, \d+\)",
+        # at steps 12, 24, 36 and 48: every quarter of 50
+        *([r"\[diagnostics\] \{.*\}"] * 4), rf"final: loss={num} bank=\d+"])
+    for line in body[1:5]:
+        diag = json.loads(line.split(" ", 1)[1])
+        check(tuple(diag) == DIAGNOSTIC_KEYS
+              and math.isfinite(diag["entropy"]),
+              f"pretrain_production: diagnostics {diag}")
+    check(all(finite(l) for l in res.losses) and res.retries == 0,
+          "pretrain_production: losses")
+    args = argparse.Namespace(steps=50, preset="debug")
+    t2 = Trainer(pretrain_production.config(args), seed=0, device=dev)
+    restored = CheckpointManager(ckpt).restore(t2)
+    check(restored == 50 and bool(torch.isfinite(t2.optimizer.flat).all()),
+          f"pretrain_production: restored step {restored}")
+    stats["pretrain_production"] = dict(
+        lines=res.lines, launches=launches, seconds=seconds,
+        restored_step=restored)
+    for name in ("train_tiny", "train_wikitext2", "pretrain_production"):
+        # each trainer's fresh bank stays small enough for brute force
+        check_launches(name, stats[name]["launches"], {})
+        log(f"{name}: {stats[name]['lines'][-1]}")
+    del res, t2
+    torch.cuda.empty_cache()
+    return stats
+
+
+def online_examples_check():
+    """train_emotion_head and train_llm_hybrid at their defaults: the
+    lines and the JSON line's keys."""
+    stats = {}
+    num = r"-?[0-9.]+"
+    res, launches, seconds = benchmark_run("train_emotion_head", [],
+                                           "examples")
+    lines_like("train_emotion_head", res.lines, [
+        *(rf"epoch {e}: loss={num}" for e in range(0, 20, 5)),
+        rf"final emotion accuracy: {num}"])
+    check(all(finite(l) for l in res.losses)
+          and res.losses[-1] < res.losses[0] and 0 <= res.accuracy <= 1,
+          f"train_emotion_head: losses {res.losses}")
+    stats["train_emotion_head"] = dict(lines=res.lines, launches=launches,
+                                       seconds=seconds)
+    res, launches, seconds = benchmark_run("train_llm_hybrid", [],
+                                           "examples")
+    lines_like("train_llm_hybrid", res.lines, [
+        *(rf"pass {p}: mean\|err\|={num} K=\d+ consciousness=\w+"
+          for p in range(3)), r"\{.*\}"])
+    check_keys("train_llm_hybrid", json.loads(res.lines[-1]), HYBRID_KEYS)
+    check(all(finite(e) for e in res.errors), "train_llm_hybrid: errors")
+    stats["train_llm_hybrid"] = dict(lines=res.lines, launches=launches,
+                                     seconds=seconds)
+    for name in stats:
+        check_launches(name, stats[name]["launches"], {})
+        log(f"{name}: {stats[name]['lines'][-1]}")
+    return stats
+
+
+def pp_xl_check(dev):
+    """dryrun_pp_xl's rank work at (1, 1) on a one-rank group: the xl
+    preset's 16 layers in one stage, 4 microbatches of 2 x 128, forward
+    and backward, against the plain forward of the same layers."""
+    import torch
+    from aura_snn_rag_tpu_torch.examples import dryrun_pp_xl
+    from aura_snn_rag_tpu_torch.ops.cuda import _build
+    from aura_snn_rag_tpu_torch.parallel import distributed
+
+    distributed.initialize(f"localhost:{distributed.free_port()}", 1, 0,
+                           device=dev.type, timeout=300)
+    try:
+        _build.reset_launch_counts()
+        res = dryrun_pp_xl.rank_work((1, 1))
+        launches = {k: n for k, n in _build.launch_counts.items() if n}
+    finally:
+        distributed.shutdown()
+    rec, cfg = res.record, dryrun_pp_xl.model_config()
+    check_keys("dryrun_pp_xl", rec, PP_XL_KEYS)
+    check(rec["layers"] == cfg.num_layers
+          and rec["d_model"] == cfg.embedding_dim
+          and rec["mesh"] == {"stage": 1, "data": 1}, f"dryrun_pp_xl: {rec}")
+    check(math.isfinite(rec["loss"]) and rec["loss"] == rec["loss_repeat"],
+          f"dryrun_pp_xl: loss {rec['loss']} then {rec['loss_repeat']}")
+    check(math.isfinite(rec["grad_norm"]) and rec["grad_norm"] > 0,
+          f"dryrun_pp_xl: gradient norm {rec['grad_norm']}")
+    check_launches("dryrun_pp_xl", launches, {})
+    named = {f"layers.{i}.{n}": p for i, layer in enumerate(res.layers)
+             for n, p in layer.named_parameters() if p.grad is not None}
+    params = list(named.values())
+    piped = {n: p.grad.clone() for n, p in named.items()}
+
+    def plain():
+        for p in params:
+            p.grad = None
+        h = res.batch
+        for layer in res.layers:
+            h, _ = layer(h)
+        loss = h.float().pow(2).mean()
+        loss.backward()
+        return loss.item()
+    plain_loss, plain_s = synced(plain)
+    gnorm = torch.stack([p.grad.float().pow(2).sum() for p in params]
+                        ).sum().sqrt().item()
+
+    # phase 11's check of the pipelined path: each tensor's gradient
+    # against the plain run's, by RMS, with a floor of 1e-3 of the
+    # largest RMS
+    def rms(x):
+        return x.float().pow(2).mean().sqrt().item()
+    check(all(p.grad is not None for p in params),
+          "dryrun_pp_xl: the plain run left a gradient out")
+    floor = 1e-3 * max(rms(p.grad) for p in params)
+    rel = {n: rms(piped[n] - p.grad) / max(rms(p.grad), floor)
+           for n, p in named.items()}
+    worst = max(rel, key=rel.get)
+    check(abs(rec["loss"] - plain_loss) <= 1e-3 * abs(plain_loss),
+          f"dryrun_pp_xl: pipelined loss {rec['loss']} against the plain "
+          f"forward's {plain_loss}")
+    check(rel[worst] <= TRAIN_GRAD_RTOL, f"dryrun_pp_xl: {worst}'s "
+          f"gradient differs by {rel[worst]:.3g} of its RMS (tolerance "
+          f"{TRAIN_GRAD_RTOL})")
+    log(f"dryrun_pp_xl at (1, 1): {rec['trunk_params']} trunk parameters, "
+        f"loss {rec['loss']:.6g} (plain {plain_loss:.6g}), gradient norm "
+        f"{rec['grad_norm']:.6g} (plain {gnorm:.6g}), gradient RMS gap at "
+        f"most {rel[worst]:.3g} ({worst}) over {len(rel)} tensors, step "
+        f"{1e3 * rec['step_s']:.0f} ms (first {rec['compile_s']} s), plain "
+        f"forward and backward {1e3 * plain_s:.0f} ms")
+    del res, named, params, piped
+    torch.cuda.empty_cache()
+    return dict(record=rec, plain_loss=plain_loss, plain_grad_norm=gnorm,
+                max_rms_gap=rel[worst], worst=worst, plain_ms=1e3 * plain_s,
+                launches=launches)
+
+
+def multihost_check():
+    """examples/run_multihost_cpu.sh: two gloo processes, exit 0."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "aura_snn_rag_tpu_torch", "examples",
+                          "run_multihost_cpu.sh")
+    t0 = time.perf_counter()
+    out = subprocess.run(["sh", script], capture_output=True, text=True,
+                         timeout=EXAMPLE_TIMEOUT,
+                         env=dict(os.environ, PYTHON=sys.executable))
+    seconds = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    check(out.returncode == 0 and lines and lines[-1] == "multihost demo OK"
+          and sum("global_sum=28.0" in l for l in lines) == 2,
+          f"run_multihost_cpu.sh: exit {out.returncode}\n{out.stdout}\n"
+          f"{out.stderr[-2000:]}")
+    log(f"run_multihost_cpu.sh: exit 0 in {seconds:.1f} s: {lines}")
+    return dict(lines=lines, seconds=seconds)
+
+
+def scripts_check(dev, texts, tmp):
+    """prepare_dataset on the checkout's Markdown, the prosody tuner's 24
+    trials, and visualize_prosody's traces on the card against the CPU
+    port's."""
+    import numpy as np
+    import torch
+    from aura_snn_rag_tpu_torch.models.prosody import (
+        ProsodyAttentionConfig, _lif_chains, prosody_channels_from_tokens)
+    from aura_snn_rag_tpu_torch.scripts import visualize_prosody
+    from aura_snn_rag_tpu_torch.training.tokenizer import ByteTokenizer
+    stats = {}
+    src = os.path.join(tmp, "md")
+    os.makedirs(src, exist_ok=True)
+    for i, text in enumerate(texts):
+        with open(os.path.join(src, f"doc{i:03d}.txt"), "w") as f:
+            f.write(text)
+    out = os.path.join(tmp, "dataset.npz")
+    res, launches, seconds = benchmark_run(
+        "prepare_dataset", ["--out", out, "--corpus-dir", src], "scripts")
+    saved = np.load(out)
+    want = sum(len(ByteTokenizer().encode(t.strip())) for t in texts) // 256
+    check(saved["sequences"].shape == (want, 256)
+          and saved["sequences"].dtype == np.int32
+          and len(saved["sources"]) == want
+          and int(saved["sequences"].max()) < ByteTokenizer.vocab_size,
+          f"prepare_dataset: {saved['sequences'].shape}, expected "
+          f"({want}, 256)")
+    stats["prepare_dataset"] = dict(lines=res.lines, launches=launches,
+                                    seconds=seconds)
+
+    res, launches, seconds = benchmark_run(
+        "tune_prosody_hyperparameters", ["--trials", "24"], "scripts")
+    check(res.summary["trials"] == 24 and len(res.summary["best"]) == 3
+          and all(tuple(r) == TUNE_KEYS and all(finite(r[k]) for k in
+                                                TUNE_KEYS[4:])
+                  for r in res.results), f"tuner: {res.summary}")
+    check_launches("tune_prosody_hyperparameters", launches, {})
+    stats["tune_prosody_hyperparameters"] = dict(best=res.summary["best"],
+                                                 launches=launches,
+                                                 seconds=seconds)
+
+    ids = visualize_prosody.token_ids()
+    card, seconds = synced(lambda: visualize_prosody.traces(ids, dev))
+    cpu = visualize_prosody.traces(ids, "cpu")
+    # the LIF chains' spikes, each device's from its own channels
+    decay = torch.tensor(ProsodyAttentionConfig().decay)[:, None]
+    spikes = [_lif_chains(torch.stack(prosody_channels_from_tokens(x)),
+                          decay.to(x.device)).cpu()
+              for x in (torch.as_tensor(ids, device=dev),
+                        torch.as_tensor(ids))]
+    agree = bool((spikes[0] == spikes[1]).all())
+    err = {k: float(np.abs(card[k].astype(np.float64)
+                           - cpu[k].astype(np.float64)).max())
+           for k in visualize_prosody.TRACES}
+    check(all(err[k] <= PROSODY_TOL for k in ("amplitude", "pitch",
+                                              "boundary"))
+          and (not agree or max(err.values()) <= PROSODY_TOL),
+          f"visualize_prosody traces on the card against the CPU: {err}")
+    stats["visualize_prosody"] = dict(max_abs_err=err, lif_spikes_agree=agree,
+                                      seconds=seconds)
+    log(f"prepare_dataset: {stats['prepare_dataset']['lines'][-1]}; tuner "
+        f"best {json.dumps(res.summary['best'][0])}; prosody traces on the "
+        f"card within {max(err.values()):.3g} of the CPU (spikes agree: "
+        f"{agree})")
+    return stats
+
+
+def optional_mains(dev, corpus, ckpt, tmp):
+    """flagship_demo.main where `tokenizers` imports (a BPE tokenizer
+    trained on the corpus's documents) and visualize_prosody.main where
+    matplotlib does; returns which parts ran."""
+    import importlib.util
+    ran = {}
+    if importlib.util.find_spec("matplotlib") is not None:
+        from aura_snn_rag_tpu_torch.scripts import visualize_prosody
+        png = os.path.join(tmp, "prosody.png")
+        res = visualize_prosody.main(["--out", png, "--device", dev.type])
+        check(os.path.getsize(png) > 0, "visualize_prosody: no PNG")
+        ran["visualize_prosody.main"] = res.lines
+    if importlib.util.find_spec("tokenizers") is not None:
+        from tokenizers import (
+            Tokenizer, decoders, models, pre_tokenizers, trainers)
+        from aura_snn_rag_tpu_torch.examples import flagship_demo
+        from aura_snn_rag_tpu_torch.ops.cuda import _build
+        tok = Tokenizer(models.BPE(unk_token="<unk>"))
+        tok.pre_tokenizer = pre_tokenizers.ByteLevel()
+        tok.decoder = decoders.ByteLevel()
+        with open(os.path.join(corpus, "meta.json")) as f:
+            vocab = min(4096, json.load(f)["vocab_size"])
+        tok.train([os.path.join(tmp, "md", f) for f in sorted(os.listdir(
+            os.path.join(tmp, "md")))], trainers.BpeTrainer(
+                vocab_size=vocab, special_tokens=["<unk>", "<eos>"]))
+        tok.save(os.path.join(corpus, "tokenizer.json"))
+        _build.reset_launch_counts()
+        lines, line, res = flagship_demo.main([
+            "--checkpoint-dir", ckpt, "--corpus", corpus, "--device",
+            dev.type])
+        check(line["checkpoint_step"] == FLAGSHIP_STEPS[-1],
+              f"flagship_demo.main: {line}")
+        ran["flagship_demo.main"] = dict(line=line, launches={
+            k: n for k, n in _build.launch_counts.items() if n})
+    return ran
+
+
+def examples_phase(dev):
+    """Phase 15: the examples and scripts, each in this process (the
+    multihost demo in its own two), its launches counted around its run;
+    see the module doc."""
+    import importlib.util
+    import tempfile
+    import torch
+    t_phase = time.perf_counter()
+    stats = {}
+    with tempfile.TemporaryDirectory(prefix="aura_examples_") as tmp:
+        corpus = os.path.join(tmp, "corpus")
+        texts, meta = md_corpus(corpus)
+        log(f"examples corpus: {meta['n_docs']} Markdown files, "
+            f"{meta['train_tokens']} train / {meta['val_tokens']} val byte "
+            f"tokens, vocab {meta['vocab_size']}")
+        stats["flagship"], ckpt = flagship_check(corpus, tmp)
+        torch.cuda.empty_cache()
+        stats["demo"] = demo_check(dev, ckpt, corpus)
+        with hermetic_data():
+            stats.update(trainers_check(dev, tmp))
+        stats.update(online_examples_check())
+        stats["dryrun_pp_xl"] = pp_xl_check(dev)
+        stats["multihost"] = multihost_check()
+        stats.update(scripts_check(dev, texts, tmp))
+        found = {m: importlib.util.find_spec(m) is not None
+                 for m in ("tokenizers", "matplotlib")}
+        stats["optional"] = optional_mains(dev, corpus, ckpt, tmp)
+    # every kernel's launches over the phase's runs
+    total = {}
+    for entry in (*stats["flagship"].values(), stats["demo"],
+                  *(stats[name] for name in EXAMPLE_RUNS)):
+        for k, n in entry.get("launches", {}).items():
+            total[k] = total.get(k, 0) + n
+    stats["launches"] = total
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"examples phase: {stats['phase_s']:.1f} s; installed {found}; "
+        f"ran {sorted(stats['optional']) or 'no optional main'}")
+    return stats
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4983,6 +5584,11 @@ def main() -> int:
     shutil.rmtree(keep, ignore_errors=True)
     torch.cuda.empty_cache()
 
+    # ---- the examples and scripts: counts zeroed inside, around each
+    # module's run ----
+    examples = examples_phase(dev)
+    torch.cuda.empty_cache()
+
     main_shape = {"flat_blockmax": res_a[("int8", 1024)],
                   "ivf_retrieve_fused": res_bc[("ivf_retrieve_fused", 8)],
                   "ivf_scan_scores": res_bc[("ivf_scan_scores", 8)],
@@ -5049,6 +5655,12 @@ def main() -> int:
                 row.update({f"lm_{key}{suffix}": r[key] for key in (
                     "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
                     "bound_by", "host_us") if r[key] is not None})
+        # phase 15: the examples' and scripts' runs (the flagship demo's
+        # memory-conditioned generation for kernel B)
+        row["launches_examples"] = examples["launches"].get(name, 0)
+        if name == "ivf_retrieve_fused":
+            row["launches_examples_demo"] = \
+                examples["demo"]["launches"].get(name, 0)
         # phase 13: the retrieval benchmarks' launches
         if name != "flat_blockmax":
             row["launches_benchmarks_latency"] = \
@@ -5069,6 +5681,7 @@ def main() -> int:
     log(json.dumps({"bench": bench}))
     log(json.dumps({"benchmarks": benchmarks}))
     log(json.dumps({"drivers": drivers}))
+    log(json.dumps({"examples": examples}, default=str))
     log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all")
     log(card)
     log(json.dumps({"kernels": kernels}))

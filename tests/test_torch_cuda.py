@@ -1210,3 +1210,80 @@ def test_pipelined_rag_matches_the_sequential_run_on_the_card(nccl_mesh,
         want = model(ids, memory_state=bank)[0].logits
         assert dict(launch_counts) == {"ivf_retrieve_fused": 2}
     assert (got - want).abs().max() <= 1e-2
+
+
+def test_flagship_demo_launches_kernel_b_per_layer_and_model_call(dev):
+    """examples/flagship_demo.demo on a trainer whose bank has its index
+    built (a 2-layer RAG model over `_small_bank`'s 20,000 rows, where a
+    query takes IVF): kernel B once per RAG layer per model call of the
+    memory-conditioned generation (one call per new token), none in the
+    generation without memory, and no other kernel."""
+    import dataclasses
+    import aura_snn_rag_tpu_torch as port
+    from aura_snn_rag_tpu_torch.examples import flagship_demo
+    mcfg, bank, _ = _small_bank(dev)
+    base = port.get_debug_config()
+    cfg = port.AuraConfig(
+        model=port.ModelConfig(vocab_size=512, embedding_dim=128,
+                               num_layers=2, num_heads=4,
+                               intermediate_size=256, max_seq_len=512,
+                               n_place_cells=128, snn_layers=(0,),
+                               use_rag=True, dropout=0.0),
+        memory=mcfg, training=dataclasses.replace(base.training,
+                                                  enable_thalamus=False))
+    trainer = port.Trainer(cfg, seed=0, device=dev)
+    trainer.hippocampus.state = bank
+    inner, plain = flagship_demo.generate, {}
+
+    def counted(*args, **kwargs):
+        before = dict(launch_counts)
+        out = inner(*args, **kwargs)
+        plain.update({k: n - before.get(k, 0)
+                      for k, n in launch_counts.items()
+                      if n != before.get(k, 0)})
+        return out
+    memory_calls = []
+    hook = trainer.model.register_forward_pre_hook(
+        lambda mod, args, kwargs: memory_calls.append(
+            kwargs.get("use_memory")), with_kwargs=True)
+    flagship_demo.generate = counted
+    try:
+        launch_counts.clear()
+        rng = np.random.RandomState(1)
+        res = flagship_demo.demo(trainer, rng.randint(3, 500, 40),
+                                 rng.randint(3, 500, 5), 6,
+                                 torch.Generator(device=dev).manual_seed(0))
+    finally:
+        flagship_demo.generate = inner
+        hook.remove()
+    # the memorising pass, the prefill and 5 steps with memory, as many
+    # without
+    assert memory_calls == [False] + [True] * 6 + [False] * 6
+    assert {k: n for k, n in launch_counts.items() if n} == \
+        {"ivf_retrieve_fused": 2 * 6}
+    assert plain == {}
+    assert res.with_memory.shape == res.without_memory.shape == (11,)
+
+
+def test_prosody_traces_on_the_card_match_the_cpu(dev):
+    """scripts/visualize_prosody.traces on the card against the CPU on the
+    script's ids: the channels within 1e-6, and, where the LIF chains'
+    spikes agree (each device's from its own channels), the salience,
+    gains and mu within 1e-5 and the winners equal."""
+    from aura_snn_rag_tpu_torch.models.prosody import (
+        ProsodyAttentionConfig, _lif_chains, prosody_channels_from_tokens)
+    from aura_snn_rag_tpu_torch.scripts import visualize_prosody
+    ids = visualize_prosody.token_ids()
+    card = visualize_prosody.traces(ids, dev)
+    cpu = visualize_prosody.traces(ids, "cpu")
+    for key in ("amplitude", "pitch", "boundary"):
+        np.testing.assert_allclose(card[key], cpu[key], rtol=0, atol=1e-6)
+    decay = torch.tensor(ProsodyAttentionConfig().decay)[:, None]
+    spikes = [_lif_chains(torch.stack(prosody_channels_from_tokens(x)),
+                          decay.to(x.device)).cpu()
+              for x in (torch.as_tensor(ids, device=dev),
+                        torch.as_tensor(ids))]
+    assert torch.equal(spikes[0], spikes[1])
+    for key in ("salience", "gains", "mu_scalar"):
+        np.testing.assert_allclose(card[key], cpu[key], rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(card["winners"], cpu["winners"])

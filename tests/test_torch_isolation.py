@@ -1,5 +1,6 @@
 """The port imports neither JAX nor the JAX package."""
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -296,7 +297,7 @@ TOOL_MODULES = ("verify_checkpoint", "inspect_checkpoint",
                 "neuron_firing_diag", "continuous_learning_runner")
 
 
-def _driver_probe(folder, name):
+def _module_probe(folder, name):
     """The port's `<folder>.<name>` is in the package beside the JAX
     script `<folder>/<name>.py`, and imports nothing of JAX; nothing of
     it runs at import."""
@@ -328,9 +329,110 @@ def _driver_probe(folder, name):
 
 @pytest.mark.parametrize("name", BENCHMARK_MODULES)
 def test_benchmark_modules_are_in_the_probe(name):
-    _driver_probe("benchmarks", name)
+    _module_probe("benchmarks", name)
 
 
 @pytest.mark.parametrize("name", TOOL_MODULES)
 def test_tool_modules_are_in_the_probe(name):
-    _driver_probe("tools", name)
+    _module_probe("tools", name)
+
+
+# the examples and scripts: one module per JAX script of `examples/` and
+# `scripts/`
+EXAMPLE_MODULES = ("train_tiny", "train_wikitext2", "pretrain_production",
+                   "train_flagship", "flagship_demo", "train_emotion_head",
+                   "train_llm_hybrid", "dryrun_pp_xl")
+SCRIPT_MODULES = ("prepare_dataset", "tune_prosody_hyperparameters",
+                  "visualize_prosody")
+
+
+@pytest.mark.parametrize("name", EXAMPLE_MODULES)
+def test_example_modules_are_in_the_probe(name):
+    _module_probe("examples", name)
+
+
+@pytest.mark.parametrize("name", SCRIPT_MODULES)
+def test_script_modules_are_in_the_probe(name):
+    _module_probe("scripts", name)
+
+
+# the repo's scripts whose port sits elsewhere than under the same path
+SCRIPTS_PORTED_ELSEWHERE = {
+    "benchmarks/bench_mnist.py": "aura_snn_rag_tpu_torch/bench_mnist.py",
+    "bench.py": "aura_snn_rag_tpu_torch/bench.py",
+}
+# the repo's scripts that import JAX or the JAX package and need no port,
+# each with its reason
+SCRIPTS_WITHOUT_A_PORT = {
+    "tools/warm_cache.py": "warms XLA's compilation cache; "
+                           "ops/cuda/_build.py is its counterpart",
+    "tools/chip_queue_*.sh": "TPU job queues, whose place chip_smoke.py "
+                             "takes",
+}
+
+
+def _imports_jax(path):
+    """Whether a script imports JAX or the JAX package: by `ast` for
+    Python, by its text for a shell script (its inline Python)."""
+    import ast
+    src = path.read_text()
+    if path.suffix == ".sh":
+        return bool(re.search(r"\b(import|from)\s+(jax|aura_snn_rag_tpu)"
+                              r"\b(?!_torch)", src))
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            mods = [node.module]
+        else:
+            continue
+        if any(m.split(".")[0] in ("jax", "aura_snn_rag_tpu") for m in mods):
+            return True
+    return False
+
+
+def test_every_script_of_the_jax_package_has_a_port():
+    """Every *.py and *.sh under examples/, scripts/, benchmarks/ and
+    tools/ (and the root bench.py) that imports JAX or the JAX package
+    has a port file of the same name under aura_snn_rag_tpu_torch/, but
+    for the listed exceptions; the files that import neither need none."""
+    import fnmatch
+    scripts = [p for folder in ("examples", "scripts", "benchmarks",
+                                "tools")
+               for p in sorted((ROOT / folder).iterdir())
+               if p.suffix in (".py", ".sh")] + [ROOT / "bench.py"]
+    missing, ported, exempt = [], [], []
+    for path in scripts:
+        rel = path.relative_to(ROOT).as_posix()
+        if not _imports_jax(path):
+            continue
+        if any(fnmatch.fnmatch(rel, pat) for pat in SCRIPTS_WITHOUT_A_PORT):
+            exempt.append(rel)
+            continue
+        port = SCRIPTS_PORTED_ELSEWHERE.get(
+            rel, f"aura_snn_rag_tpu_torch/{rel}")
+        (ported if (ROOT / port).exists() else missing).append(rel)
+    assert missing == []
+    # the exceptions are real: each one matches a script that imports JAX
+    for pat in SCRIPTS_WITHOUT_A_PORT:
+        assert any(fnmatch.fnmatch(rel, pat) for rel in exempt), pat
+    assert "examples/run_multihost_cpu.sh" in ported
+    assert len(ported) == 8 + 1 + 3 + 19 + 4 + 1
+
+
+def test_the_subpackages_of_the_scripts_are_counted_by_the_probe():
+    """examples/ and scripts/ are packages, so `walk_packages` (the
+    first test's probe) imports every module of them."""
+    import pkgutil
+    import aura_snn_rag_tpu_torch as pkg
+    names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                   pkg.__name__ + ".")}
+    for folder in ("examples", "scripts"):
+        files = sorted((ROOT / "aura_snn_rag_tpu_torch" / folder)
+                       .glob("*.py"))
+        assert (ROOT / "aura_snn_rag_tpu_torch" / folder
+                / "__init__.py").exists()
+        for f in files:
+            mod = f"aura_snn_rag_tpu_torch.{folder}" + (
+                "" if f.stem == "__init__" else f".{f.stem}")
+            assert mod in names or f.stem == "__init__", mod

@@ -327,3 +327,40 @@ def pipelined(inputs, tmp, cases):
                     np.zeros(tuple(p.shape), np.float32) if p.grad is None
                     else p.grad.numpy())
     return out
+
+
+def pp_xl(inputs, tmp, model):
+    """`examples/dryrun_pp_xl.rank_work` on a ('stage', 'data') = (4, 2)
+    mesh, this rank's stage's layers loaded from the JAX script's stacked
+    per-stage trees (`s<stage>/l<layer>/<flax path>`): the record's loss,
+    its repeat, the gradient norm and the trunk's parameters."""
+    import torch.distributed as dist
+    from aura_snn_rag_tpu_torch.config import ModelConfig
+    from aura_snn_rag_tpu_torch.examples import dryrun_pp_xl
+    from aura_snn_rag_tpu_torch.models.convert import tree_to_state_dict
+    from aura_snn_rag_tpu_torch.models.layers import TransformerLayer
+    cfg = ModelConfig(**model)
+    stage = dist.get_rank() // dryrun_pp_xl.DATA
+    per = cfg.num_layers // dryrun_pp_xl.STAGES
+    layers = []
+    for i in range(per):
+        prefix = f"s{stage}/l{i}/"
+        tree = {}
+        for key, value in inputs.items():
+            if key.startswith(prefix):
+                node = tree
+                *path, leaf = key[len(prefix):].split(".")
+                for part in path:
+                    node = node.setdefault(part, {})
+                node[leaf] = value
+        layer = TransformerLayer(cfg, device="cpu")
+        missing, unexpected = layer.load_state_dict(
+            tree_to_state_dict(tree), strict=False)
+        # flax makes no prosody gate for a forward without prosody
+        assert not unexpected and all(k.startswith("attention.prosody_gate")
+                                      for k in missing), missing
+        layers.append(layer)
+    rec = dryrun_pp_xl.rank_work((dryrun_pp_xl.STAGES, dryrun_pp_xl.DATA),
+                                 layers=layers, cfg=cfg).record
+    return {k: np.asarray(rec[k]) for k in ("loss", "loss_repeat",
+                                            "grad_norm", "trunk_params")}
