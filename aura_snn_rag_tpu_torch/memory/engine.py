@@ -30,6 +30,7 @@ from aura_snn_rag_tpu_torch.ops.cuda.flat_scan import (
 from aura_snn_rag_tpu_torch.ops.cuda.ivf_scan import (
     KPAD, ivf_candidates, ivf_retrieve_fused, ivf_retrieve_fused_grad,
     ivf_scan_scores, ivf_topk_scores)
+from aura_snn_rag_tpu_torch.utils.trace import count, host_sync, span
 
 NEG_INF = -1e30
 
@@ -111,37 +112,43 @@ def write_memories(config: MemoryConfig, state: MemoryState,
     Sequential within the batch when the index is live: each row's nearest
     centroid sees the centroids (eta = 1/n update) and bucket ring cursors
     left by the rows before it. The loop is a candidate for a kernel."""
-    dev = state.device
-    features = torch.as_tensor(features).to(device=dev,
-                                            dtype=state.features.dtype)
-    locations = torch.as_tensor(locations).to(device=dev,
-                                              dtype=state.locations.dtype)
-    B = features.shape[0]
-    M = state.max_memories
-    # one host sync: the FIFO cursor and whether the index is live
-    count0, ready = torch.stack(
-        [state.count.long(), state.index_ready.long()]).tolist()
-    gens = count0 + torch.arange(B, device=dev)
-    idx = gens % M
-    if ready:
-        cids = _assign_and_append(state, features, locations, idx, gens)
-    else:
-        cids = torch.full((B,), -1, dtype=torch.long, device=dev)
+    with span("engine.write_memories"):
+        dev = state.device
+        features = torch.as_tensor(features).to(
+            device=dev, dtype=state.features.dtype)
+        locations = torch.as_tensor(locations).to(
+            device=dev, dtype=state.locations.dtype)
+        B = features.shape[0]
+        M = state.max_memories
+        # one host sync: the FIFO cursor and whether the index is live
+        with host_sync("write_memories.cursor"):
+            count0, ready = torch.stack(
+                [state.count.long(), state.index_ready.long()]).tolist()
+        gens = count0 + torch.arange(B, device=dev)
+        idx = gens % M
+        if ready:
+            cids = _assign_and_append(state, features, locations, idx, gens)
+        else:
+            cids = torch.full((B,), -1, dtype=torch.long, device=dev)
 
-    # bank rows: with B > M a later row overwrites an earlier one's slot
-    keep = slice(max(0, B - M), B)
-    i = idx[keep]
-    f = features[keep]
-    qrows, qscales = _to_coarse_rows(_l2norm(f), state.features_nb16.dtype)
-    state.features[i] = f
-    state.features_nb16[i] = qrows
-    state.coarse_scale[i] = qscales
-    state.locations[i] = locations[keep]
-    state.strength[i] = 1.0
-    state.timestamp[i] = state.step
-    state.centroid_id[i] = cids[keep].to(torch.int32)
-    state.slot_gen[i] = gens[keep].to(torch.int32)
-    return state._replace(count=state.count + B)
+        # bank rows: with B > M a later row overwrites an earlier one's slot
+        keep = slice(max(0, B - M), B)
+        i = idx[keep]
+        f = features[keep]
+        qrows, qscales = _to_coarse_rows(_l2norm(f),
+                                         state.features_nb16.dtype)
+        state.features[i] = f
+        state.features_nb16[i] = qrows
+        state.coarse_scale[i] = qscales
+        state.locations[i] = locations[keep]
+        # the written 1.0 is copied from the host, and the copy waits for
+        # the work queued before it
+        with host_sync("write_memories.strength"):
+            state.strength[i] = 1.0
+        state.timestamp[i] = state.step
+        state.centroid_id[i] = cids[keep].to(torch.int32)
+        state.slot_gen[i] = gens[keep].to(torch.int32)
+        return state._replace(count=state.count + B)
 
 
 def _assign_and_append(state: MemoryState, features: torch.Tensor,
@@ -305,20 +312,24 @@ def build_ivf_aux(config: MemoryConfig, state: MemoryState) -> torch.Tensor:
     strength, row 1 = w_t * temporal * strength (-1e30 when invalid),
     row 2 = bank slot, rows 3..7 = zeros. A pure function of the bank
     state; `HippocampalFormation` caches it per state."""
-    strength_all = torch.exp(state.decay_accum - state.cluster_decay)
-    ages_all = (state.step - state.cluster_ts) * config.seconds_per_step
-    temporal_all = torch.exp(
-        -torch.clamp(ages_all, min=0.0) / config.temporal_tau)
-    valid_all = ((state.cluster_gen >= 0)
-                 & (state.cluster_gen >= state.count - state.max_memories))
-    aux_add = (config.w_temporal * temporal_all * strength_all
-               + torch.where(valid_all, 0.0, NEG_INF))
-    Kc, Cc = aux_add.shape
-    return torch.cat([
-        (config.w_cosine * strength_all)[:, None],
-        aux_add[:, None],
-        state.cluster_slot.float()[:, None],
-        torch.zeros((Kc, 5, Cc), device=state.device)], dim=1).contiguous()
+    count("aux_build")
+    with span("engine.build_ivf_aux"):
+        strength_all = torch.exp(state.decay_accum - state.cluster_decay)
+        ages_all = (state.step - state.cluster_ts) * config.seconds_per_step
+        temporal_all = torch.exp(
+            -torch.clamp(ages_all, min=0.0) / config.temporal_tau)
+        valid_all = ((state.cluster_gen >= 0)
+                     & (state.cluster_gen
+                        >= state.count - state.max_memories))
+        aux_add = (config.w_temporal * temporal_all * strength_all
+                   + torch.where(valid_all, 0.0, NEG_INF))
+        Kc, Cc = aux_add.shape
+        return torch.cat([
+            (config.w_cosine * strength_all)[:, None],
+            aux_add[:, None],
+            state.cluster_slot.float()[:, None],
+            torch.zeros((Kc, 5, Cc), device=state.device)],
+            dim=1).contiguous()
 
 
 def retrieve(config: MemoryConfig, state: MemoryState, queries: torch.Tensor,
@@ -345,52 +356,65 @@ def retrieve(config: MemoryConfig, state: MemoryState, queries: torch.Tensor,
     (v2 with more than 128 per probe, v3 with kk rounded past
     probe*capacity) raise ValueError.
     """
-    G = min(config.overflow_buckets, state.k_centroids // 4)
-    P = min(config.probe_centroids, state.k_centroids - G)
-    C = state.bucket_capacity
-    M = state.max_memories
-    qn = _l2norm(queries)                                        # [B, D]
+    with span("engine.retrieve"):
+        G = min(config.overflow_buckets, state.k_centroids // 4)
+        P = min(config.probe_centroids, state.k_centroids - G)
+        C = state.bucket_capacity
+        M = state.max_memories
+        qn = _l2norm(queries)                                    # [B, D]
 
-    # nearest centroids by L2: argmin ||c||^2 - 2 q.c
-    c2 = (state.centroids ** 2).sum(-1)
-    cdist = c2[None, :] - 2.0 * (queries @ state.centroids.T)
-    _, top_c = torch.topk(-cdist, P, dim=1)                      # [B, P]
+        with span("engine.probe"):
+            # nearest centroids by L2: argmin ||c||^2 - 2 q.c
+            c2 = (state.centroids ** 2).sum(-1)
+            cdist = c2[None, :] - 2.0 * (queries @ state.centroids.T)
+            _, top_c = torch.topk(-cdist, P, dim=1)              # [B, P]
 
-    B = queries.shape[0]
-    kk = min(max(config.rerank_candidates, 4 * k), P * C)
-    if config.use_pallas_ivf and query_locations is None:
-        if aux is None:
-            aux = build_ivf_aux(config, state)
-        if (config.ivf_kernel == "v3r" and P * C >= KPAD and M % 8 == 0
-                and k <= KPAD):
-            return _retrieve_v3r(config, state, qn, top_c, aux, kk, k)
-        if config.ivf_kernel == "v3" and P * C >= KPAD:
-            kk = -(-kk // KPAD) * KPAD                           # lane-aligned
-            combined, sl = ivf_candidates(state.clustered, aux, qn, top_c,
-                                          kk)
+        B = queries.shape[0]
+        kk = min(max(config.rerank_candidates, 4 * k), P * C)
+        if config.use_pallas_ivf and query_locations is None:
+            if aux is None:
+                aux = build_ivf_aux(config, state)
+            if (config.ivf_kernel == "v3r" and P * C >= KPAD
+                    and M % 8 == 0 and k <= KPAD):
+                count("path.ivf_v3r")
+                return _retrieve_v3r(config, state, qn, top_c, aux, kk, k)
+            with span("engine.scan"):
+                if config.ivf_kernel == "v3" and P * C >= KPAD:
+                    count("path.ivf_v3")
+                    kk = -(-kk // KPAD) * KPAD                   # lane-aligned
+                    combined, sl = ivf_candidates(state.clustered, aux, qn,
+                                                  top_c, kk)
+                else:
+                    count("path.ivf_v2")
+                    per_k = min(max(k, -(-kk // P)), C)
+                    sc, sl = ivf_topk_scores(state.clustered, aux, qn,
+                                             top_c, per_k)
+                    combined = sc[:, :, :per_k].reshape(B, -1)
+                    sl = sl[:, :, :per_k].reshape(B, -1)
+                slots = sl.clamp(min=0).long()
+                valid = combined > NEG_INF / 2
         else:
-            per_k = min(max(k, -(-kk // P)), C)
-            sc, sl = ivf_topk_scores(state.clustered, aux, qn, top_c, per_k)
-            combined = sc[:, :, :per_k].reshape(B, -1)
-            sl = sl[:, :, :per_k].reshape(B, -1)
-        slots = sl.clamp(min=0).long()
-        valid = combined > NEG_INF / 2
-    else:
-        combined, slots, valid = _probe_scores(config, state, qn, top_c,
-                                               query_locations)
+            count("path.ivf_v1" if config.use_pallas_ivf
+                  else "path.ivf_plain")
+            with span("engine.scan"):
+                combined, slots, valid = _probe_scores(
+                    config, state, qn, top_c, query_locations)
 
-    annex = _annex_coarse(config, state, qn, query_locations, kk)
-    if annex is not None:
-        a_s, a_sl, a_valid = annex
-        combined = torch.cat([combined, a_s], dim=1)
-        slots = torch.cat([slots, a_sl], dim=1)
-        valid = torch.cat([valid, a_valid], dim=1)
+        with span("engine.annex"):
+            annex = _annex_coarse(config, state, qn, query_locations, kk)
+            if annex is not None:
+                a_s, a_sl, a_valid = annex
+                combined = torch.cat([combined, a_s], dim=1)
+                slots = torch.cat([slots, a_sl], dim=1)
+                valid = torch.cat([valid, a_valid], dim=1)
 
-    # coarse top-kk (exact), then the exact f32 rerank from the bank
-    if combined.shape[-1] > kk:
-        _, pick = torch.topk(combined, kk, dim=1)
-        slots, valid = slots.gather(1, pick), valid.gather(1, pick)
-    return _rerank(config, state, qn, slots, valid, query_locations, k)
+        with span("engine.rerank"):
+            # coarse top-kk (exact), then the exact f32 rerank from the bank
+            if combined.shape[-1] > kk:
+                _, pick = torch.topk(combined, kk, dim=1)
+                slots, valid = slots.gather(1, pick), valid.gather(1, pick)
+            return _rerank(config, state, qn, slots, valid,
+                           query_locations, k)
 
 
 def _retrieve_v3r(config: MemoryConfig, state: MemoryState, qn: torch.Tensor,
@@ -401,24 +425,27 @@ def _retrieve_v3r(config: MemoryConfig, state: MemoryState, qn: torch.Tensor,
     scores carry a gradient into `qn` (`ivf_retrieve_fused_grad`, the
     gradient of the JAX package's XLA path), as the annex's do."""
     kk3 = -(-kk // KPAD) * KPAD
-    s, sl = ivf_retrieve_fused_grad(state.clustered, aux, state.features,
-                                    state.strength, config.w_cosine, qn,
-                                    top_c, kk3, k, fused=ivf_retrieve_fused)
-    scores, out_slots = s[:, :k], sl[:, :k].long()
-    annex = _annex_coarse(config, state, qn, None, kk3)
-    if annex is not None:
-        a_s, a_sl, a_valid = annex
-        a_cos = torch.einsum("bkd,bd->bk",
-                             _l2norm(state.features[a_sl]), qn)
-        a_exact = _combined_score(config, state, a_cos, a_sl, None)
-        a_exact = torch.where(a_valid, a_exact, NEG_INF)
-        all_s = torch.cat([scores, a_exact], dim=1)
-        all_sl = torch.cat([out_slots, a_sl], dim=1)
-        scores, pick2 = torch.topk(all_s, k, dim=1)
-        out_slots = all_sl.gather(1, pick2)
-    hit = scores > NEG_INF / 2
-    feats = state.features[torch.where(hit, out_slots, 0)]
-    return _finish(out_slots, scores, feats)
+    with span("engine.scan"):
+        s, sl = ivf_retrieve_fused_grad(
+            state.clustered, aux, state.features, state.strength,
+            config.w_cosine, qn, top_c, kk3, k, fused=ivf_retrieve_fused)
+        scores, out_slots = s[:, :k], sl[:, :k].long()
+    with span("engine.annex"):
+        annex = _annex_coarse(config, state, qn, None, kk3)
+        if annex is not None:
+            a_s, a_sl, a_valid = annex
+            a_cos = torch.einsum("bkd,bd->bk",
+                                 _l2norm(state.features[a_sl]), qn)
+            a_exact = _combined_score(config, state, a_cos, a_sl, None)
+            a_exact = torch.where(a_valid, a_exact, NEG_INF)
+            all_s = torch.cat([scores, a_exact], dim=1)
+            all_sl = torch.cat([out_slots, a_sl], dim=1)
+            scores, pick2 = torch.topk(all_s, k, dim=1)
+            out_slots = all_sl.gather(1, pick2)
+    with span("engine.rerank"):
+        hit = scores > NEG_INF / 2
+        feats = state.features[torch.where(hit, out_slots, 0)]
+        return _finish(out_slots, scores, feats)
 
 
 def _probe_scores(config: MemoryConfig, state: MemoryState, qn: torch.Tensor,
@@ -460,6 +487,7 @@ def retrieve_bruteforce(config: MemoryConfig, state: MemoryState,
                         query_locations: Optional[torch.Tensor] = None,
                         k: int = 5) -> RetrievalResult:
     """Exact retrieval: one [B, M] f32 product over the whole bank."""
+    count("path.bruteforce")
     M = state.max_memories
     qn = _l2norm(queries)
     inv_norm = torch.rsqrt((state.features ** 2).sum(-1) + 1e-12)   # [M]
@@ -489,10 +517,14 @@ def retrieve_flat(config: MemoryConfig, state: MemoryState,
       top-j rows by coarse score lie in the top-j blocks by block max, so
       the funnel has no recall slack before the rerank.
     """
-    if config.flat_strategy == "blockmax":
-        return _retrieve_flat_blockmax(config, state, queries,
-                                       query_locations, k)
-    return _retrieve_flat_scan(config, state, queries, query_locations, k)
+    with span("engine.retrieve_flat"):
+        if config.flat_strategy == "blockmax":
+            count("path.flat_blockmax")
+            return _retrieve_flat_blockmax(config, state, queries,
+                                           query_locations, k)
+        count("path.flat_scan")
+        return _retrieve_flat_scan(config, state, queries, query_locations,
+                                   k)
 
 
 def _retrieve_flat_scan(config: MemoryConfig, state: MemoryState,
@@ -513,32 +545,40 @@ def _retrieve_flat_scan(config: MemoryConfig, state: MemoryState,
     qn = _l2norm(queries)
     sdt = torch.bfloat16 if config.flat_score_dtype == "bf16" \
         else torch.float32
-    cos = _coarse_cos(state.features_nb16, qn, state.coarse_scale).to(sdt)
-    ages = (state.step - state.timestamp) * config.seconds_per_step
-    temporal = torch.exp(-torch.clamp(ages, min=0.0) / config.temporal_tau)
-    if query_locations is not None:
-        d = torch.sqrt(((state.locations[None] - query_locations[:, None])
-                        ** 2).sum(-1) + 1e-12)
-        spatial = (1.0 / (1.0 + d)).to(sdt)
-    else:
-        spatial = torch.zeros((), dtype=sdt, device=dev)
-    combined = (config.w_cosine * cos + config.w_spatial * spatial
-                + (config.w_temporal * temporal).to(sdt)[None, :]) \
-        * state.strength.to(sdt)[None, :]
-    active = torch.arange(M, device=dev) < state.active_count()
-    combined = torch.where(active[None, :], combined,
-                           torch.tensor(NEG_INF, dtype=sdt, device=dev))
-    kk = min(max(config.rerank_candidates, 4 * k), M)
-    cand_coarse, pick = torch.topk(combined, kk, dim=1)
-    out_slots, scores, feats = _rerank_raw(config, state, qn, pick,
-                                           active[pick], query_locations, k)
-    R = min(config.flat_rescue_queries, qn.shape[0])
-    kk2 = min(config.flat_rescue_width, M)
-    if R > 0 and kk2 > kk:
-        out_slots, scores, feats = _flat_rescue(
-            config, state, qn, combined, pick, cand_coarse, out_slots,
-            scores, feats, query_locations, k, R, kk2)
-    return _finish(out_slots, scores, feats)
+    with span("engine.flat_scores"):
+        cos = _coarse_cos(state.features_nb16, qn,
+                          state.coarse_scale).to(sdt)
+        ages = (state.step - state.timestamp) * config.seconds_per_step
+        temporal = torch.exp(-torch.clamp(ages, min=0.0)
+                             / config.temporal_tau)
+        if query_locations is not None:
+            d = torch.sqrt(((state.locations[None]
+                             - query_locations[:, None]) ** 2).sum(-1)
+                           + 1e-12)
+            spatial = (1.0 / (1.0 + d)).to(sdt)
+        else:
+            spatial = torch.zeros((), dtype=sdt, device=dev)
+        combined = (config.w_cosine * cos + config.w_spatial * spatial
+                    + (config.w_temporal * temporal).to(sdt)[None, :]) \
+            * state.strength.to(sdt)[None, :]
+        active = torch.arange(M, device=dev) < state.active_count()
+        # the mask's constant is copied from the host, and the copy waits
+        # for the work queued before it
+        with host_sync("flat_scan.mask_constant"):
+            neg_inf = torch.tensor(NEG_INF, dtype=sdt, device=dev)
+        combined = torch.where(active[None, :], combined, neg_inf)
+        kk = min(max(config.rerank_candidates, 4 * k), M)
+        cand_coarse, pick = torch.topk(combined, kk, dim=1)
+    with span("engine.rerank"):
+        out_slots, scores, feats = _rerank_raw(
+            config, state, qn, pick, active[pick], query_locations, k)
+        R = min(config.flat_rescue_queries, qn.shape[0])
+        kk2 = min(config.flat_rescue_width, M)
+        if R > 0 and kk2 > kk:
+            out_slots, scores, feats = _flat_rescue(
+                config, state, qn, combined, pick, cand_coarse, out_slots,
+                scores, feats, query_locations, k, R, kk2)
+        return _finish(out_slots, scores, feats)
 
 
 def _flat_rescue(config: MemoryConfig, state: MemoryState, qn: torch.Tensor,
@@ -625,39 +665,46 @@ def _retrieve_flat_blockmax(config: MemoryConfig, state: MemoryState,
     qn = _l2norm(queries)
     B = qn.shape[0]
     R = BLOCK_R
-    ages = (state.step - state.timestamp) * config.seconds_per_step
-    temporal = torch.exp(-torch.clamp(ages, min=0.0) / config.temporal_tau)
-    active = torch.arange(M, device=dev) < state.active_count()
-    mul = torch.where(active, config.w_cosine * state.strength, 0.0)
-    add = torch.where(active,
-                      config.w_temporal * temporal * state.strength, NEG_INF)
+    with span("engine.flat_scores"):
+        ages = (state.step - state.timestamp) * config.seconds_per_step
+        temporal = torch.exp(-torch.clamp(ages, min=0.0)
+                             / config.temporal_tau)
+        active = torch.arange(M, device=dev) < state.active_count()
+        mul = torch.where(active, config.w_cosine * state.strength, 0.0)
+        add = torch.where(active,
+                          config.w_temporal * temporal * state.strength,
+                          NEG_INF)
 
-    if _flat_kernel_ok(state, query_locations):
-        # per-row dequant scale folds into the row term, the per-query
-        # max-abs scale into the kernel's epilogue
-        bank = state.features_nb16
-        qc, qscale = _to_coarse_rows(qn, bank.dtype)
-        mul_p, add_p = pack_row_terms(mul * state.coarse_scale, add, M)
-        bm = flat_blockmax(bank, qc.contiguous(), mul_p, add_p,
-                           q_scale=qscale if bank.dtype == torch.int8
-                           else None)                            # [B, Nblk]
-    else:
-        cos = _coarse_cos(state.features_nb16, qn, state.coarse_scale)
-        combined = cos * mul[None, :] + add[None, :]
-        if query_locations is not None:
-            d = torch.sqrt(((state.locations[None] - query_locations[:, None])
-                            ** 2).sum(-1) + 1e-12)
-            spatial = (config.w_spatial / (1.0 + d)) * state.strength[None, :]
-            combined = combined + torch.where(active[None, :], spatial, 0.0)
-        pad = (-M) % R
-        if pad:
-            combined = F.pad(combined, (0, pad), value=NEG_INF)
-        bm = combined.reshape(B, -1, R).amax(-1)
+        if _flat_kernel_ok(state, query_locations):
+            # per-row dequant scale folds into the row term, the per-query
+            # max-abs scale into the kernel's epilogue
+            bank = state.features_nb16
+            qc, qscale = _to_coarse_rows(qn, bank.dtype)
+            mul_p, add_p = pack_row_terms(mul * state.coarse_scale, add, M)
+            bm = flat_blockmax(bank, qc.contiguous(), mul_p, add_p,
+                               q_scale=qscale if bank.dtype == torch.int8
+                               else None)                        # [B, Nblk]
+        else:
+            cos = _coarse_cos(state.features_nb16, qn, state.coarse_scale)
+            combined = cos * mul[None, :] + add[None, :]
+            if query_locations is not None:
+                d = torch.sqrt(((state.locations[None]
+                                 - query_locations[:, None]) ** 2).sum(-1)
+                               + 1e-12)
+                spatial = ((config.w_spatial / (1.0 + d))
+                           * state.strength[None, :])
+                combined = combined + torch.where(active[None, :], spatial,
+                                                  0.0)
+            pad = (-M) % R
+            if pad:
+                combined = F.pad(combined, (0, pad), value=NEG_INF)
+            bm = combined.reshape(B, -1, R).amax(-1)
 
-    cand_slots, cand_valid = select_block_candidates(
-        bm, config.flat_block_funnel, k, state.active_count(), M, R)
-    return _rerank(config, state, qn, cand_slots, cand_valid,
-                   query_locations, k)
+        cand_slots, cand_valid = select_block_candidates(
+            bm, config.flat_block_funnel, k, state.active_count(), M, R)
+    with span("engine.rerank"):
+        return _rerank(config, state, qn, cand_slots, cand_valid,
+                       query_locations, k)
 
 
 def retrieve_auto(config: MemoryConfig, state: MemoryState,
@@ -671,16 +718,19 @@ def retrieve_auto(config: MemoryConfig, state: MemoryState,
     - Otherwise IVF when the index is live and holds more rows than
       centroids, else brute force.
     """
-    B = queries.shape[0]
-    ivf_traffic = B * config.probe_centroids * config.bucket_capacity
-    if ivf_traffic >= state.max_memories:
-        return retrieve_flat(config, state, queries, query_locations, k)
-    # one host sync: the branch reads the index flag and the live count
-    use_index = bool(state.index_ready
-                     & (state.active_count() > state.k_centroids))
-    if use_index:
-        return retrieve(config, state, queries, query_locations, k)
-    return retrieve_bruteforce(config, state, queries, query_locations, k)
+    with span("engine.retrieve_auto"):
+        B = queries.shape[0]
+        ivf_traffic = B * config.probe_centroids * config.bucket_capacity
+        if ivf_traffic >= state.max_memories:
+            return retrieve_flat(config, state, queries, query_locations, k)
+        # one host sync: the branch reads the index flag and the live count
+        with host_sync("retrieve_auto.dispatch"):
+            use_index = bool(state.index_ready
+                             & (state.active_count() > state.k_centroids))
+        if use_index:
+            return retrieve(config, state, queries, query_locations, k)
+        return retrieve_bruteforce(config, state, queries, query_locations,
+                                   k)
 
 
 # --------------------------------------------------------------------------

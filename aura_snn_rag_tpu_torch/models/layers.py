@@ -77,6 +77,7 @@ from aura_snn_rag_tpu_torch.parallel.collectives import (
     all_reduce_sum, copy_in, gather_dim, reduce_out, reduce_scatter_dim)
 from aura_snn_rag_tpu_torch.parallel.ring_attention import (
     mesh_seq_axis, sequence_sharded_attention)
+from aura_snn_rag_tpu_torch.utils.trace import span
 
 LN_EPS = 1e-6            # flax nn.LayerNorm's epsilon
 PROSODY_DIM = 4          # prosody features: arousal, valence, ...
@@ -717,42 +718,49 @@ class MemoryAugmentedLayer(nn.Module):
                                self.mesh.get_group(self.seq_axis_name))
         return (total / (hidden.shape[1] * n)).to(hidden.dtype)
 
+    def _inject_memory(self, hidden, memory_state):
+        """The query (the projected sequence mean), one retrieval over the
+        batch and the retrieved memories injected into `hidden`."""
+        cfg = self.config
+        dt = self.dtype
+        query = self.query_proj(self._sequence_mean(hidden))   # [B, D]
+        if self.retrieve_fn is not None:
+            result = self.retrieve_fn(self.memory_config, memory_state,
+                                      query.float(), cfg.num_retrieved)
+        else:
+            result = memory_engine.retrieve_auto(
+                self.memory_config, memory_state, query.float(), None,
+                cfg.num_retrieved)
+        mem_feats = result.features.to(dt)                     # [B, K, D]
+        mem_scores = result.scores.to(dt)                      # [B, K]
+
+        if cfg.memory_injection == "cross_attention":
+            hidden = hidden + self.memory_attention(
+                self.memory_norm(hidden), mem_feats)
+        else:
+            weights = torch.softmax(mem_scores, dim=-1)[..., None]
+            ctx = (mem_feats * weights).sum(dim=1, keepdim=True)  # [B,1,D]
+            if cfg.memory_injection == "concat":
+                hidden = hidden + _scalar(0.1, ctx) * ctx
+            else:
+                # every position gets the same context: project it once
+                ctx = self.memory_proj(ctx).expand(hidden.shape)
+                gate = torch.sigmoid(self.memory_gate_proj(
+                    torch.cat([hidden, ctx], dim=-1)))
+                hidden = hidden + gate * ctx
+        return hidden
+
     def forward(self, hidden, memory_state=None, prosody=None,
                 use_memory: bool = True, kv_cache=None, cache_index=None,
                 dropout_seed=None):
-        cfg = self.config
-        dt = self.dtype
         attn_out, new_cache = self.attention(
             self.attention_norm(hidden), prosody, use_memory, kv_cache,
             cache_index, dropout_seed)
         hidden = hidden + attn_out
 
         if use_memory and memory_state is not None:
-            query = self.query_proj(self._sequence_mean(hidden))   # [B, D]
-            if self.retrieve_fn is not None:
-                result = self.retrieve_fn(self.memory_config, memory_state,
-                                          query.float(), cfg.num_retrieved)
-            else:
-                result = memory_engine.retrieve_auto(
-                    self.memory_config, memory_state, query.float(), None,
-                    cfg.num_retrieved)
-            mem_feats = result.features.to(dt)                     # [B, K, D]
-            mem_scores = result.scores.to(dt)                      # [B, K]
-
-            if cfg.memory_injection == "cross_attention":
-                hidden = hidden + self.memory_attention(
-                    self.memory_norm(hidden), mem_feats)
-            else:
-                weights = torch.softmax(mem_scores, dim=-1)[..., None]
-                ctx = (mem_feats * weights).sum(dim=1, keepdim=True)  # [B,1,D]
-                if cfg.memory_injection == "concat":
-                    hidden = hidden + _scalar(0.1, ctx) * ctx
-                else:
-                    # every position gets the same context: project it once
-                    ctx = self.memory_proj(ctx).expand(hidden.shape)
-                    gate = torch.sigmoid(self.memory_gate_proj(
-                        torch.cat([hidden, ctx], dim=-1)))
-                    hidden = hidden + gate * ctx
+            with span("layer.memory"):
+                hidden = self._inject_memory(hidden, memory_state)
 
         return (hidden + self.ffn(self.ffn_norm(hidden), dropout_seed),
                 new_cache)

@@ -74,6 +74,7 @@ from aura_snn_rag_tpu_torch.parallel.mesh import (
 from aura_snn_rag_tpu_torch.training.losses import hippocampal_loss
 from aura_snn_rag_tpu_torch.training.optim import AdamWState, ClippedAdamW
 from aura_snn_rag_tpu_torch.training.schedule import warmup_cosine_schedule
+from aura_snn_rag_tpu_torch.utils.trace import host_sync, span
 from aura_snn_rag_tpu_torch.zones.events import EventBus
 from aura_snn_rag_tpu_torch.zones.stats import StatsCollector
 
@@ -185,9 +186,10 @@ class _Metrics:
             self.buf, self.event = metrics.detach().clone(), None
 
     def read(self) -> np.ndarray:
-        if self.event is not None:
-            self.event.synchronize()
-        return self.buf.numpy().copy()
+        with host_sync("trainer.metrics"):
+            if self.event is not None:
+                self.event.synchronize()
+            return self.buf.numpy().copy()
 
 
 class Trainer:
@@ -506,11 +508,11 @@ class Trainer:
                   lr_scale: float = 1.0) -> torch.Tensor:
         """One optimizer step; returns its [loss, ce, thalamus gate] on
         the device without reading it."""
-        cfg, mcfg = self.config.model, self.config.memory
-        tcfg = self.config.training
+        cfg, tcfg = self.config.model, self.config.training
         ids, labels = self._batch(input_ids), self._batch(labels)
         memory_state = self.hippocampus.state if cfg.use_rag else None
-        prosody, thalamus_scale = self._modulate(ids)
+        with span("trainer.modulate"):
+            prosody, thalamus_scale = self._modulate(ids)
 
         accum = max(1, tcfg.gradient_accumulation_steps)
         B = ids.shape[0]
@@ -522,11 +524,13 @@ class Trainer:
         for i in range(accum):
             rows = slice(i * mb, (i + 1) * mb)
             seed = int(self._seed_rng.integers(2 ** 62))
-            loss_i, ce_i, summary_i = self._batch_loss(
-                ids[rows], labels[rows],
-                None if prosody is None else prosody[rows], use_memory,
-                memory_state, reverse_replay, seed)
-            loss_i.backward()
+            with span("model.forward"):
+                loss_i, ce_i, summary_i = self._batch_loss(
+                    ids[rows], labels[rows],
+                    None if prosody is None else prosody[rows], use_memory,
+                    memory_state, reverse_replay, seed)
+            with span("trainer.backward"):
+                loss_i.backward()
             loss = loss_i.detach() if loss is None else loss + loss_i.detach()
             ce = ce_i if ce is None else ce + ce_i
             summaries.append(summary_i)
@@ -541,26 +545,32 @@ class Trainer:
         if self.ewc.fisher is not None:
             loss = loss + self.ewc.penalty(opt.flat, opt.global_sum)
             opt.grad.add_(self.ewc.penalty_grad(opt.flat))
-        opt.step(loss, lr_scale)
+        with span("optim.step"):
+            opt.step(loss, lr_scale)
 
         if store_memory:
-            summary = torch.cat(summaries)
-            if self.mesh is not None:            # the whole batch's rows
-                summary = gather_rows(summary, self.mesh, self._batch_axes)
-            locs = torch.zeros(summary.shape[0], mcfg.spatial_dims,
-                               device=self.device)
-            if self._memory_mesh is not None:
-                state = write_memories_sharded(
-                    mcfg, self._memory_mesh, self.hippocampus.state,
-                    summary, locs, self._batch_axes)
-            else:
-                state = memory_engine.write_memories(
-                    mcfg, self.hippocampus.state, summary, locs)
-            self.hippocampus._set_state(state)
+            with span("trainer.store"):
+                self._store(torch.cat(summaries))
         self.hippocampus.tick(1.0)
         self._step += 1
         return torch.stack([loss.float(), ce.float(),
                             thalamus_scale.float()])
+
+    def _store(self, summary: torch.Tensor) -> None:
+        """The step's `memory_summary` rows written to the bank."""
+        mcfg = self.config.memory
+        if self.mesh is not None:                # the whole batch's rows
+            summary = gather_rows(summary, self.mesh, self._batch_axes)
+        locs = torch.zeros(summary.shape[0], mcfg.spatial_dims,
+                           device=self.device)
+        if self._memory_mesh is not None:
+            state = write_memories_sharded(
+                mcfg, self._memory_mesh, self.hippocampus.state,
+                summary, locs, self._batch_axes)
+        else:
+            state = memory_engine.write_memories(
+                mcfg, self.hippocampus.state, summary, locs)
+        self.hippocampus._set_state(state)
 
     # ------------------------------------------------------------------
     # public stepping API
@@ -585,14 +595,23 @@ class Trainer:
 
     def train_step(self, input_ids, labels) -> Dict[str, float]:
         """One wake step with full modulator coupling."""
-        tcfg = self.config.training
-        step = self._step
-        use_memory = self._memory_on(step)
-        store_memory = bool(use_memory
-                            and step % tcfg.memory_store_interval == 0)
-        metrics = self._run_step(input_ids, labels, use_memory,
-                                 store_memory, False, self._lr_scale())
+        with span("trainer.step"):
+            tcfg = self.config.training
+            step = self._step
+            use_memory = self._memory_on(step)
+            store_memory = bool(use_memory
+                                and step % tcfg.memory_store_interval == 0)
+            metrics = self._run_step(input_ids, labels, use_memory,
+                                     store_memory, False, self._lr_scale())
+            with span("trainer.host"):
+                return self._after_step(step, use_memory, metrics,
+                                        input_ids, labels)
 
+    def _after_step(self, step: int, use_memory: bool,
+                    metrics: torch.Tensor, input_ids,
+                    labels) -> Dict[str, float]:
+        """A wake step's host bookkeeping once its work is queued."""
+        tcfg = self.config.training
         # read the PREVIOUS step's metrics, which finished while this
         # step was queued; the modulators run on them
         pending, self._pending = self._pending, _Metrics(metrics)
@@ -604,7 +623,11 @@ class Trainer:
                                           for x in self._last_fetched)
         self._endocrine_step(loss)
 
-        self.replay.add(_host(input_ids), _host(labels), loss)
+        with host_sync("trainer.replay"):
+            input_ids = _host(input_ids)
+        with host_sync("trainer.replay"):
+            labels = _host(labels)
+        self.replay.add(input_ids, labels, loss)
         self.history["loss"].append(loss)
         self.history["step"].append(step)
 

@@ -6,19 +6,73 @@
   trace that Perfetto and chrome://tracing read;
 - `annotate(name)`: a named range in that trace (`record_function`) and,
   with a card, an NVTX range;
+- `span(name)`: the program's own stages (`aura:<name>` in the trace),
+  recorded only while spans are on (`enable_spans`, or inside `trace`);
+  off, a span is one flag test and a shared no-op context;
+- `counters`, `count(name)`, `host_sync(site)`: always-on event counts
+  (which retrieval path ran, aux builds, each place where the host waits
+  for the device), one dict increment each and no device work;
 - `StepTimer`: host-clock step times, fenced on the card.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import tempfile
 import time
-from typing import Iterator, Optional
+from typing import ContextManager, Iterator, Optional
 
 import numpy as np
 import torch
+
+try:        # a profiler event at a fraction of `record_function`'s cost
+    from torch._C._profiler import _RecordFunctionFast as _record
+except ImportError:                                       # pragma: no cover
+    _record = torch.profiler.record_function
+
+SPAN_PREFIX = "aura:"
+
+# event name -> count in this process: `path.<retrieval path>`,
+# `aux_build`, `sync.<site>`; read as differences around a window
+counters: collections.Counter = collections.Counter()
+
+_spans_on = False
+_NO_SPAN = contextlib.nullcontext()
+
+
+def enable_spans(on: bool) -> bool:
+    """Turn the program's spans on or off for the whole process; returns
+    the previous setting. A span is recorded by a running profiler
+    (`torch.profiler`, or `trace`) on its host timeline, which shares the
+    clock of the device activity it records."""
+    global _spans_on
+    was, _spans_on = _spans_on, bool(on)
+    return was
+
+
+def span(name: str) -> ContextManager:
+    """The program's stage `name`, as `aura:<name>` on the profiler's host
+    timeline while spans are on; one shared no-op context while off."""
+    if not _spans_on:
+        return _NO_SPAN
+    return _record(SPAN_PREFIX + name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to `counters[name]`."""
+    counters[name] += n
+
+
+def host_sync(site: str) -> ContextManager:
+    """Around a call that makes the host wait for the work queued on the
+    device (a read of a device value, a copy from pageable host memory):
+    counts `sync.<site>` and, while spans are on, records the wait as span
+    `sync.<site>`."""
+    name = "sync." + site
+    count(name)
+    return span(name)
 
 
 @contextlib.contextmanager
@@ -31,14 +85,19 @@ def trace(log_dir: Optional[str] = None) -> Iterator[str]:
     Writes `trace_<pid>_<n>.json` (n counts this process's traces) under
     `log_dir` (default: `aura_trace` in the temporary directory) when the
     block exits; yields `log_dir`. With a card the trace holds the device
-    kernels by their CUDA function names."""
+    kernels by their CUDA function names, and the program's spans, which
+    are on for the block."""
     log_dir = log_dir or os.path.join(tempfile.gettempdir(), "aura_trace")
     os.makedirs(log_dir, exist_ok=True)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield log_dir
+    was = enable_spans(True)
+    try:
+        with torch.profiler.profile(activities=activities) as prof:
+            yield log_dir
+    finally:
+        enable_spans(was)
     n = sum(name.startswith(f"trace_{os.getpid()}_")
             for name in os.listdir(log_dir))
     prof.export_chrome_trace(
