@@ -40,10 +40,10 @@ from aura_snn_rag_tpu_torch._device import resolve_device
 from aura_snn_rag_tpu_torch.bench import _sync, memory_config
 from aura_snn_rag_tpu_torch.benchmarks import bench_retrieval_latency as lat
 from aura_snn_rag_tpu_torch.memory import retrieve
-from aura_snn_rag_tpu_torch.memory.engine import (
-    NEG_INF, _combined_score, _l2norm, build_ivf_aux)
+from aura_snn_rag_tpu_torch.memory.engine import NEG_INF, build_ivf_aux
 from aura_snn_rag_tpu_torch.ops.cuda.ivf_scan import (
     ivf_candidates, ivf_scan_scores, ivf_topk_scores)
+from aura_snn_rag_tpu_torch.ops.scoring import combined_score, l2norm
 
 TOPK = 10
 STAGES = ("aux_build", "centroid_topP", "kernel_v2", "kernel_v1",
@@ -53,7 +53,7 @@ STAGES = ("aux_build", "centroid_topP", "kernel_v2", "kernel_v1",
 
 def stage_centroid(state, q: torch.Tensor, probe: int):
     """(qn [B, D], top_c [B, P]): the nearest `probe` centroids by L2."""
-    qn = _l2norm(q)
+    qn = l2norm(q)
     c2 = (state.centroids ** 2).sum(-1)
     cdist = c2[None, :] - 2.0 * (q @ state.centroids.T)
     return qn, torch.topk(-cdist, probe, dim=1).indices
@@ -71,8 +71,8 @@ def stage_funnel(cfg, state, qn: torch.Tensor, sc: torch.Tensor,
         _, pick = torch.topk(combined, kk, dim=1)
         slots, valid = slots.gather(1, pick), valid.gather(1, pick)
     exact_cos = torch.einsum("bkd,bd->bk",
-                             _l2norm(state.features[slots].float()), qn)
-    exact = _combined_score(cfg, state, exact_cos, slots, None)
+                             l2norm(state.features[slots].float()), qn)
+    exact = combined_score(cfg, state, exact_cos, slots, None)
     exact = torch.where(valid, exact, NEG_INF)
     scores, pick2 = torch.topk(exact, k, dim=1)
     return slots.gather(1, pick2), scores

@@ -25,11 +25,14 @@ import torch.nn.functional as F
 
 from aura_snn_rag_tpu_torch.config import MemoryConfig
 from aura_snn_rag_tpu_torch.memory.state import MemoryState
+from aura_snn_rag_tpu_torch.ops.cuda.annex import (
+    annex_coarse, annex_merge_grad)
 from aura_snn_rag_tpu_torch.ops.cuda.flat_scan import (
     BLOCK_R, block_member_slots, flat_blockmax, pack_row_terms)
 from aura_snn_rag_tpu_torch.ops.cuda.ivf_scan import (
-    KPAD, ivf_candidates, ivf_retrieve_fused, ivf_retrieve_fused_grad,
-    ivf_scan_scores, ivf_topk_scores)
+    KPAD, ivf_candidates, ivf_retrieve_fused, ivf_scan_scores,
+    ivf_topk_scores)
+from aura_snn_rag_tpu_torch.ops.scoring import combined_score, l2norm
 from aura_snn_rag_tpu_torch.utils.trace import count, host_sync, span
 
 NEG_INF = -1e30
@@ -44,10 +47,6 @@ class RetrievalResult(NamedTuple):
     indices: torch.Tensor    # [B, k] int64 bank slots (-1 = no hit)
     scores: torch.Tensor     # [B, k] f32 combined scores (0 = no hit)
     features: torch.Tensor   # [B, k, D] raw stored features
-
-
-def _l2norm(x: torch.Tensor, dim: int = -1, eps: float = 1e-12):
-    return x * torch.rsqrt((x * x).sum(dim, keepdim=True) + eps)
 
 
 def _to_coarse_rows(x_norm: torch.Tensor, dtype: torch.dtype):
@@ -135,7 +134,7 @@ def write_memories(config: MemoryConfig, state: MemoryState,
         keep = slice(max(0, B - M), B)
         i = idx[keep]
         f = features[keep]
-        qrows, qscales = _to_coarse_rows(_l2norm(f),
+        qrows, qscales = _to_coarse_rows(l2norm(f),
                                          state.features_nb16.dtype)
         state.features[i] = f
         state.features_nb16[i] = qrows
@@ -158,7 +157,7 @@ def _assign_and_append(state: MemoryState, features: torch.Tensor,
     centroid's bucket ring. Updates the index tensors in place; returns
     the centroid of every row [B] int64."""
     C = state.bucket_capacity
-    fn = _l2norm(features).to(state.clustered.dtype)
+    fn = l2norm(features).to(state.clustered.dtype)
     idx32, gens32 = idx.to(torch.int32), gens.to(torch.int32)
     cids = torch.empty(features.shape[0], dtype=torch.long,
                        device=state.device)
@@ -192,7 +191,7 @@ def bulk_load(config: MemoryConfig, state: MemoryState,
     loc = torch.as_tensor(locations).to(device=dev,
                                         dtype=state.locations.dtype)
     N = f.shape[0]
-    qrows, qscales = _to_coarse_rows(_l2norm(f), state.features_nb16.dtype)
+    qrows, qscales = _to_coarse_rows(l2norm(f), state.features_nb16.dtype)
     state.features[:N] = f
     state.features_nb16[:N] = qrows
     state.coarse_scale[:N] = qscales
@@ -207,32 +206,6 @@ def bulk_load(config: MemoryConfig, state: MemoryState,
 # --------------------------------------------------------------------------
 # SCORING
 # --------------------------------------------------------------------------
-
-def _combined_score(config: MemoryConfig, state: MemoryState,
-                    cos: torch.Tensor, slots: Optional[torch.Tensor],
-                    query_loc: Optional[torch.Tensor]) -> torch.Tensor:
-    """(w_c*cos + w_s*spatial + w_t*temporal) * strength.
-
-    slots: [B, N] bank indices, or None for every row in bank order (cos
-    is then [B, M] and the per-row terms broadcast instead of gathering).
-    """
-    if slots is None:
-        strength, ts = state.strength[None, :], state.timestamp[None, :]
-        mem_loc = state.locations[None]                          # [1, M, S]
-    else:
-        strength, ts = state.strength[slots], state.timestamp[slots]
-        mem_loc = state.locations[slots] if query_loc is not None else None
-    ages = (state.step - ts) * config.seconds_per_step
-    temporal = torch.exp(-torch.clamp(ages, min=0.0) / config.temporal_tau)
-    if query_loc is not None:
-        d = torch.sqrt(((mem_loc - query_loc[:, None, :]) ** 2).sum(-1)
-                       + 1e-12)
-        spatial = 1.0 / (1.0 + d)
-    else:
-        spatial = torch.zeros_like(cos)
-    return (config.w_cosine * cos + config.w_spatial * spatial
-            + config.w_temporal * temporal) * strength
-
 
 def _rerank(config: MemoryConfig, state: MemoryState, qn: torch.Tensor,
             cand_slots: torch.Tensor, cand_valid: torch.Tensor,
@@ -249,9 +222,9 @@ def _rerank_raw(config: MemoryConfig, state: MemoryState, qn: torch.Tensor,
     """`_rerank` before its misses are masked: (slots, scores, features),
     a miss scoring -1e30."""
     cand_feats = state.features[cand_slots]                     # [B, N, D]
-    exact_cos = torch.einsum("bkd,bd->bk", _l2norm(cand_feats), qn)
-    exact = _combined_score(config, state, exact_cos, cand_slots,
-                            query_locations)
+    exact_cos = torch.einsum("bkd,bd->bk", l2norm(cand_feats), qn)
+    exact = combined_score(config, state, exact_cos, cand_slots,
+                           query_locations)
     exact = torch.where(cand_valid, exact, NEG_INF)
     scores, pick = torch.topk(exact, k, dim=1)
     out_slots = cand_slots.gather(1, pick).long()
@@ -270,42 +243,6 @@ def _finish(out_slots, scores, feats) -> RetrievalResult:
 # --------------------------------------------------------------------------
 # RETRIEVE — IVF (centroid-probed) path
 # --------------------------------------------------------------------------
-
-def _annex_coarse(config: MemoryConfig, state: MemoryState, qn: torch.Tensor,
-                  query_locations: Optional[torch.Tensor], kcap: int):
-    """Coarse-score the overflow annex (last G clusters) with one
-    [G*C, D] bf16 product; its top-kcap (scores, slots, valid), or None
-    when no annex is configured."""
-    K, C = state.k_centroids, state.bucket_capacity
-    G = min(config.overflow_buckets, K // 4)
-    if G == 0:
-        return None
-    Ku = K - G
-    D = state.clustered.shape[-1]
-    a_feats = state.clustered[Ku:].reshape(G * C, D)
-    cos = (qn.to(a_feats.dtype) @ a_feats.T).float()          # [B, G*C]
-    strength = torch.exp(state.decay_accum
-                         - state.cluster_decay[Ku:]).reshape(-1)
-    ages = (state.step - state.cluster_ts[Ku:]).reshape(-1) \
-        * config.seconds_per_step
-    temporal = torch.exp(-torch.clamp(ages, min=0.0) / config.temporal_tau)
-    gens = state.cluster_gen[Ku:].reshape(-1)
-    valid = (gens >= 0) & (gens >= state.count - state.max_memories)
-    if query_locations is not None:
-        locs = state.cluster_loc[Ku:].reshape(G * C, -1)
-        d = torch.sqrt(((locs[None] - query_locations[:, None]) ** 2).sum(-1)
-                       + 1e-12)
-        spatial = 1.0 / (1.0 + d)
-    else:
-        spatial = 0.0
-    comb = ((config.w_cosine * cos + config.w_spatial * spatial
-             + config.w_temporal * temporal[None, :]) * strength[None, :])
-    comb = torch.where(valid[None, :], comb, NEG_INF)
-    kcap = min(kcap, comb.shape[-1])
-    sc, pick = torch.topk(comb, kcap, dim=1)
-    slots_row = state.cluster_slot[Ku:].reshape(-1).clamp(min=0).long()
-    return sc, slots_row[pick], sc > NEG_INF / 2
-
 
 def build_ivf_aux(config: MemoryConfig, state: MemoryState) -> torch.Tensor:
     """The IVF kernel's metadata sidecar [K, 8, C] f32: row 0 = w_cos *
@@ -361,7 +298,7 @@ def retrieve(config: MemoryConfig, state: MemoryState, queries: torch.Tensor,
         P = min(config.probe_centroids, state.k_centroids - G)
         C = state.bucket_capacity
         M = state.max_memories
-        qn = _l2norm(queries)                                    # [B, D]
+        qn = l2norm(queries)                                    # [B, D]
 
         with span("engine.probe"):
             # nearest centroids by L2: argmin ||c||^2 - 2 q.c
@@ -401,7 +338,7 @@ def retrieve(config: MemoryConfig, state: MemoryState, queries: torch.Tensor,
                     config, state, qn, top_c, query_locations)
 
         with span("engine.annex"):
-            annex = _annex_coarse(config, state, qn, query_locations, kk)
+            annex = annex_coarse(config, state, qn, query_locations, kk)
             if annex is not None:
                 a_s, a_sl, a_valid = annex
                 combined = torch.cat([combined, a_s], dim=1)
@@ -421,27 +358,18 @@ def _retrieve_v3r(config: MemoryConfig, state: MemoryState, qn: torch.Tensor,
                   top_c: torch.Tensor, aux: torch.Tensor, kk: int,
                   k: int) -> RetrievalResult:
     """Kernel B does the coarse scan, funnel, exact rerank and top-k; the
-    annex's coarse top-kk is reranked here and merged by score. The
-    scores carry a gradient into `qn` (`ivf_retrieve_fused_grad`, the
-    gradient of the JAX package's XLA path), as the annex's do."""
+    annex pass (`ops/cuda/annex.py`) scores the overflow annex, reranks
+    its coarse top-kk and merges it with B's lanes by score (without an
+    annex, B's lanes are the result). The scores carry a gradient into
+    `qn` (the gradient of the JAX package's XLA path) from the annex
+    pass's Function, which takes B's lanes detached."""
     kk3 = -(-kk // KPAD) * KPAD
-    with span("engine.scan"):
-        s, sl = ivf_retrieve_fused_grad(
-            state.clustered, aux, state.features, state.strength,
-            config.w_cosine, qn, top_c, kk3, k, fused=ivf_retrieve_fused)
-        scores, out_slots = s[:, :k], sl[:, :k].long()
+    with span("engine.scan"), torch.no_grad():
+        s, sl = ivf_retrieve_fused(state.clustered, aux, state.features,
+                                   qn, top_c, kk3, k)
     with span("engine.annex"):
-        annex = _annex_coarse(config, state, qn, None, kk3)
-        if annex is not None:
-            a_s, a_sl, a_valid = annex
-            a_cos = torch.einsum("bkd,bd->bk",
-                                 _l2norm(state.features[a_sl]), qn)
-            a_exact = _combined_score(config, state, a_cos, a_sl, None)
-            a_exact = torch.where(a_valid, a_exact, NEG_INF)
-            all_s = torch.cat([scores, a_exact], dim=1)
-            all_sl = torch.cat([out_slots, a_sl], dim=1)
-            scores, pick2 = torch.topk(all_s, k, dim=1)
-            out_slots = all_sl.gather(1, pick2)
+        scores, out_slots = annex_merge_grad(config, state, qn, s, sl,
+                                             kk3, k)
     with span("engine.rerank"):
         hit = scores > NEG_INF / 2
         feats = state.features[torch.where(hit, out_slots, 0)]
@@ -489,10 +417,10 @@ def retrieve_bruteforce(config: MemoryConfig, state: MemoryState,
     """Exact retrieval: one [B, M] f32 product over the whole bank."""
     count("path.bruteforce")
     M = state.max_memories
-    qn = _l2norm(queries)
+    qn = l2norm(queries)
     inv_norm = torch.rsqrt((state.features ** 2).sum(-1) + 1e-12)   # [M]
     cos = (qn @ state.features.T) * inv_norm[None, :]
-    combined = _combined_score(config, state, cos, None, query_locations)
+    combined = combined_score(config, state, cos, None, query_locations)
     active = torch.arange(M, device=state.device) < state.active_count()
     combined = torch.where(active[None, :], combined, NEG_INF)
     scores, out_slots = torch.topk(combined, k, dim=1)
@@ -542,7 +470,7 @@ def _retrieve_flat_scan(config: MemoryConfig, state: MemoryState,
     """
     M = state.max_memories
     dev = state.device
-    qn = _l2norm(queries)
+    qn = l2norm(queries)
     sdt = torch.bfloat16 if config.flat_score_dtype == "bf16" \
         else torch.float32
     with span("engine.flat_scores"):
@@ -662,7 +590,7 @@ def _retrieve_flat_blockmax(config: MemoryConfig, state: MemoryState,
                             k: int) -> RetrievalResult:
     M = state.max_memories
     dev = state.device
-    qn = _l2norm(queries)
+    qn = l2norm(queries)
     B = qn.shape[0]
     R = BLOCK_R
     with span("engine.flat_scores"):
@@ -879,7 +807,7 @@ def _rebuild_from_init(config: MemoryConfig, state: MemoryState,
         centroids=centroids,
         centroid_counts=counts,
         clustered=scatter(0.0, state.clustered.dtype,
-                          _l2norm(feats[src]), (D,)),
+                          l2norm(feats[src]), (D,)),
         cluster_slot=scatter(-1, torch.int32, src),
         cluster_gen=scatter(-1, torch.int32, state.slot_gen[src]),
         cluster_ts=scatter(0.0, torch.float32, state.timestamp[src]),

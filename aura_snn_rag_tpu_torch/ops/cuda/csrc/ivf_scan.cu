@@ -90,6 +90,9 @@
 // to the lane of its rank.
 // A cluster launch that the card refuses (cudaErrorClusterOutOfResources)
 // returns its error; nothing falls back to another launch.
+//
+// The overflow annex's pass on kernel B's path (`annex_merge_launch`, two
+// launches after B) follows the four kernels; its note is there.
 
 #include <algorithm>
 
@@ -1140,6 +1143,854 @@ cudaError_t launch_select(Kernel in_smem, Kernel in_l2, size_t fixed, int N,
                         s, args...);
 }
 
+// ---- the overflow annex on kernel B's path -------------------------------
+//
+// Replaces the JAX package's XLA annex after its v3r kernel
+// (aura_snn_rag_tpu/memory/engine.py:385-404; no Pallas kernel). The annex
+// is the last G clusters of C slots, N = G*C rows (32,768 at the engine's
+// shape), which every query scores: a [B, D] x [N, D] product where XLA
+// and PyTorch write the [B, N] f32 scores, mask them elementwise, take a
+// top-kk, gather, rerank and merge (~55 launches). Two launches here:
+//
+// 1. `annex_select_kernel`: CTA (tile of 64 queries, row chunk) holds its
+//    queries in shared memory as bf16 (zero past B) and streams its
+//    chunk's row tiles (128 rows) through a `cp.async` ring, 64 deep a
+//    stage, into `wgmma` (two warpgroups of 64 queries x 64 rows, f32
+//    accumulation, both operands K-major in 128-byte-swizzled shared
+//    memory). A chunk's tiles are strided over the annex, so the CTAs that
+//    run together read the same tiles, from L2 for all but the first
+//    query tile. The epilogue rounds each cosine to bf16 (the plain
+//    version's bf16 product) and gives `annex_coarse`'s score, ((w_cos *
+//    cos + 0) + w_t * temporal) * strength, from the rows' decay, time
+//    and generation and the state's scalars (read on the device), one
+//    rounding per operation as PyTorch's elementwise kernels round. A
+//    row is kept when its score reaches the query's threshold: kept rows
+//    go to the (query, chunk) list as 64-bit keys (`sort_key`: score,
+//    then the lower row first), staged per warp so that each query's run
+//    is written with coalesced stores. The threshold is a lower bound of
+//    the chunk's kk-th best key, from a histogram of the kept keys' bins
+//    (a key's top 14 bits, 32 bins an octave; 64 bins from two octaves
+//    below the query's first best score, one count above), raised after
+//    every tile: no row it drops can be in the query's top-kk, so the
+//    lists hold every row of the exact top-kk (~4-5k keys a query at
+//    B = 1024, 8 chunks; every row at B = 1-8, 2 tiles a chunk).
+// 2. `annex_rerank_kernel`: G2 CTAs per query, a cluster of 8 below one
+//    query per SM (at B = 1-8, as kernel B's select) and one CTA a query
+//    above: the CTAs take the query's lists (in shared memory when they
+//    fit), find the kk largest keys by an 8-bit radix select (histograms
+//    pushed through DSMEM in a cluster), rerank them in f32 from
+//    `features` (half a warp a candidate, |row|^-1/2 from the row, as
+//    `_combined_score` with the slot's strength and time), and rank 0
+//    merges them with kernel B's k lanes into the final top-k: on equal
+//    scores B's lanes first, then the annex in coarse order, which is
+//    what concatenating the two and a stable top-k give.
+//
+// Bound on the H100: the annex's bf16 rows read once (N*D*2 bytes, 50 MB
+// at the engine's shape) and the f32 rows of each query's kk candidates,
+// or the products, 2*B*N*D operations (51.5 GFLOP at B = 1024: 52 us at
+// 989 TFLOP/s). At B = 1-8 the rows bound it, so they are split over
+// about one CTA per SM (`annex_plan`); at B = 1024 the 16 query tiles
+// take the SMs and each row tile is read from L2 once per query tile
+// (805 MB), which with the epilogue bounds launch 1 on this design. The
+// shape follows from B and N alone. The scores never reach device memory
+// as a [B, N] matrix: only the kept keys are written. The workspace that
+// holds them (`annex_workspace_bytes`) is reserved for the worst case,
+// every row kept: about B*N*8 bytes, 268 MB at B = 1024 and N = 32,768,
+// twice the f32 matrix of the plain version, though a batch of 1024
+// writes ~4-5k keys a query. Sizing the lists by a bound the threshold
+// guarantees would take an overflow check; PyTorch's caching allocator
+// keeps the reservation between calls.
+
+constexpr int AX_ROWS = 128;           // annex rows per tile (wgmma N: 2 x 64)
+constexpr int AX_NQ = 64;              // queries per launch-1 CTA (wgmma M)
+constexpr int AX_THREADS = 256;        // two warpgroups
+constexpr int AX_SUB_BYTES = AX_ROWS * 64 * 2;  // a stage: [128 rows][64]
+constexpr int AX_STAGES = 4;           // ring slots
+constexpr int AX_AHEAD = 2;            // stages loaded ahead of the product
+constexpr int AX_BINS = 64;            // threshold histogram bins a query
+constexpr int AX_HSTRIDE = AX_BINS + 1;
+constexpr int AX_BPL = AX_BINS / 4;    // bins a lane of 4 in the update
+constexpr int AX_SHIFT = 18;           // a key's bin: its top 14 bits (32
+                                       // bins an octave)
+constexpr int AX_SHARE = 6144;         // keys a launch-2 CTA keeps in
+                                       // shared memory (more: read from L2)
+static_assert(AX_ROWS * 8 % AX_THREADS == 0, "whole 16-byte copies");
+
+struct AnnexArgs {
+  const __nv_bfloat16* rows;           // [N, D] the annex's clustered rows
+  const float* cdecay;                 // [N] cluster_decay of the annex
+  const float* cts;                    // [N] cluster_ts
+  const int* cgen;                     // [N] cluster_gen
+  const int* cslot;                    // [N] cluster_slot
+  const float* features;               // [M, D]
+  const float* strength;               // [M]
+  const float* timestamp;              // [M]
+  const float* step;                   // state scalars, on the device
+  const float* decay_accum;
+  const int* count;
+  const float* qn;                     // [B, D] f32, L2-normalised
+  const float* b_s;                    // [B, kpad] kernel B's scores
+  const int* b_slot;                   // [B, kpad] and slots
+  unsigned long long* keys;            // [B, nc, R] kept keys
+  int* n_keys;                         // [B, nc]
+  float* out_s;                        // [B, k]
+  long long* out_slot;                 // [B, k]
+  long M;
+  int N, D, B, kk, kkp, k, kpad, nc, tiles, max_memories;
+  float w_cos, w_t, sps, inv_tau;
+};
+
+// PyTorch's exp(-clamp((step - ts) * sps, min=0) / tau): a CPU scalar
+// divisor reaches a CUDA kernel as a multiply by its f32 reciprocal.
+__device__ __forceinline__ float temporal_term(float step, float ts, float sps,
+                                               float inv_tau) {
+  const float age = __fmul_rn(__fsub_rn(step, ts), sps);
+  return expf(__fmul_rn(-fmaxf(age, 0.f), inv_tau));
+}
+
+// ((w_cos * cos + 0) + tt) * strength, one rounding per operation, as the
+// plain version's elementwise ops (the 0 is its spatial term).
+__device__ __forceinline__ float combined_score(float w_cos, float cos,
+                                                float tt, float st) {
+  return __fmul_rn(__fadd_rn(__fadd_rn(__fmul_rn(w_cos, cos), 0.f), tt), st);
+}
+
+// The high word of sort_key(s, .): the score's order as an unsigned.
+__device__ __forceinline__ unsigned ord32(float s) {
+  const unsigned u = __float_as_uint(s + 0.0f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// The least score whose top bits (AX_SHIFT on) are `bin`: a score s is at
+// or above it exactly when ord32(s) >> AX_SHIFT >= bin.
+__device__ __forceinline__ float bin_floor(unsigned bin) {
+  const unsigned k = bin << AX_SHIFT;
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
+}
+
+// wgmma: D[64 queries x 64 rows] (+)= A[64 x 16] . B[64 x 16]^T, both
+// K-major in 128-byte-swizzled shared memory (`swz`'s layout on 1024-byte
+// boundaries). acc[4j + 2h + e] is query 16 * warp + g + 8h and row
+// 8j + 2t + e of the warpgroup's 64 (g = lane / 4, t = lane % 4).
+__device__ __forceinline__ uint64_t desc_sw128(unsigned addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+#define AX_ACC8(d, i)                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),               \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+__device__ __forceinline__ void wgmma_64x64(float (&d)[32], uint64_t a,
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : AX_ACC8(d, 0), AX_ACC8(d, 8), AX_ACC8(d, 16), AX_ACC8(d, 24)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// keeps the compiler from moving accumulator reads above a wgmma wait
+__device__ __forceinline__ void fence_acc32(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Launch 1. Grid (query tiles of 64, row chunks); chunk c holds the row
+// tiles c, c + nc, c + 2 nc, ... (at most `tiles` of them, so a list
+// holds R = tiles * AX_ROWS keys): the CTAs that run together read the
+// same few tiles, which stay in L2 for every query tile. Two warpgroups:
+// warpgroup wr multiplies the 64 queries by rows 64 wr .. 64 wr + 63 of
+// a tile, 64 deep a stage, on `wgmma` (issued on every query tile, also
+// past B: a wgmma under a branch is serialised).
+__global__ void __launch_bounds__(AX_THREADS)
+annex_select_kernel(const AnnexArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned raw = (unsigned)__cvta_generic_to_shared(smem_raw);
+  unsigned char* smem = smem_raw + ((1024 - (raw & 1023)) & 1023);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wq = warp % 4, wr = warp / 4, g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * AX_NQ, nq = min(AX_NQ, a.B - q0);
+  const int chunk = blockIdx.y, D = a.D, dch = D / 8;
+  const int nkb = (D + 63) / 64;
+  const int R = a.tiles * AX_ROWS;
+  const int ntile = ((a.N + AX_ROWS - 1) / AX_ROWS - chunk + a.nc - 1) / a.nc;
+  unsigned char* qsm = smem + AX_STAGES * AX_SUB_BYTES;    // [nkb][64][64]
+  unsigned long long* stage_all =       // [warps][8 queries][64] kept keys
+      reinterpret_cast<unsigned long long*>(qsm + nkb * AX_NQ * 128);
+  float* rt_tt =
+      reinterpret_cast<float*>(stage_all + AX_THREADS / 32 * 8 * 64);
+  float* rt_st = rt_tt + AX_ROWS;
+  int* rt_ok = reinterpret_cast<int*>(rt_st + AX_ROWS);
+  unsigned* thr = reinterpret_cast<unsigned*>(rt_ok + AX_ROWS);  // [NQ]
+  unsigned* base = thr + AX_NQ;        // [NQ] the histogram's first bin
+  unsigned* high = base + AX_NQ;       // [NQ] counted keys above the bins
+  int* cnt = reinterpret_cast<int*>(high + AX_NQ);    // [NQ] kept so far
+  int* state = cnt + AX_NQ;            // [NQ] 0 no bins yet, 1 bins, 2 dirty
+  float* thr_lo = reinterpret_cast<float*>(state + AX_NQ);   // [NQ]
+  // [NQ][BINS + 1]: the odd stride puts a bin of the queries a warp
+  // handles at once in different banks
+  unsigned* hist = reinterpret_cast<unsigned*>(thr_lo + AX_NQ);
+  __shared__ int unbased;              // queries without bins yet
+
+  const float step = *a.step, dacc = *a.decay_accum;
+  const int live_from = (int)((unsigned)*a.count - (unsigned)a.max_memories);
+  for (int i = tid; i < AX_NQ; i += AX_THREADS) {
+    thr[i] = 0u; base[i] = 0u; high[i] = 0u; cnt[i] = 0; state[i] = 0;
+    thr_lo[i] = -INFINITY;
+  }
+  for (int i = tid; i < AX_NQ * AX_HSTRIDE; i += AX_THREADS) hist[i] = 0u;
+  if (tid == 0) unbased = nq;
+  // the tile's queries, rounded to bf16 (to nearest even), zero past B
+  for (int i = tid; i < nkb * AX_NQ * 8; i += AX_THREADS) {
+    const int kb = i / (AX_NQ * 8), q = (i / 8) % AX_NQ, ch = i % 8;
+    const int c8 = kb * 8 + ch;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (q < nq && c8 < dch) {
+      const float4* src =
+          reinterpret_cast<const float4*>(a.qn + (long)(q0 + q) * D) + 2 * c8;
+      const float4 u = src[0], w = src[1];
+      v = make_uint4(bf16x2(u.x, u.y), bf16x2(u.z, u.w), bf16x2(w.x, w.y),
+                     bf16x2(w.z, w.w));
+    }
+    *reinterpret_cast<uint4*>(qsm + kb * AX_NQ * 128 + swz(q, ch)) = v;
+  }
+
+  const unsigned ring0 = (unsigned)__cvta_generic_to_shared(smem);
+  const unsigned q_s = (unsigned)__cvta_generic_to_shared(qsm);
+  const int nst = ntile * nkb;
+  // stage s <- depth chunk s % nkb of the chunk's tile s / nkb
+  auto load = [&](int s) {
+    const int tile = s / nkb, kb = s - tile * nkb;
+    const unsigned xs = ring0 + (s % AX_STAGES) * AX_SUB_BYTES;
+    const int r0 = (tile * a.nc + chunk) * AX_ROWS;
+#pragma unroll
+    for (int j = 0; j < AX_ROWS * 8 / AX_THREADS; ++j) {
+      const int i = tid + j * AX_THREADS, row = i >> 3, ch = i & 7;
+      const int c8 = kb * 8 + ch;
+      const bool ok = r0 + row < a.N && c8 < dch;
+      cp_async16(xs + swz(row, ch),
+                 ok ? a.rows + (long)(r0 + row) * D + c8 * 8 : a.rows, ok);
+    }
+  };
+  // stages s + 1 and s + 2 load while stage s multiplies; slot s - 1 may
+  // still be read by the wgmma group left in flight
+#pragma unroll
+  for (int s = 0; s < AX_AHEAD; ++s) {
+    if (s < nst) load(s);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+
+  float acc[32];   // left unset: the first wgmma of a tile overwrites it
+  const uint64_t da0 = desc_sw128(q_s);
+  for (int tile = 0; tile < ntile; ++tile) {
+    const int r0 = (tile * a.nc + chunk) * AX_ROWS;
+    for (int kb = 0; kb < nkb; ++kb) {
+      const int s = tile * nkb + kb;
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(AX_AHEAD - 1)
+                   : "memory");
+      // the copies (and the queries' stores) before the tensor cores'
+      // reads of shared memory
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncthreads();        // stage s landed; stage s - 2 was consumed
+      if (s + AX_AHEAD < nst) load(s + AX_AHEAD);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      if (kb == 0 && tid < AX_ROWS) {
+        // the tile's per-row terms, as `annex_coarse` computes them
+        const int r = r0 + tid;
+        int ok = 0;
+        float tt = 0.f, st = 0.f;
+        if (r < a.N) {
+          const int gen = a.cgen[r];
+          ok = gen >= 0 && gen >= live_from;
+          st = expf(__fsub_rn(dacc, a.cdecay[r]));
+          tt = __fmul_rn(a.w_t, temporal_term(step, a.cts[r], a.sps,
+                                              a.inv_tau));
+        }
+        rt_ok[tid] = ok; rt_tt[tid] = tt; rt_st[tid] = st;
+      }
+      const uint64_t da = da0 + ((kb * AX_NQ * 128) >> 4);
+      const uint64_t db = desc_sw128(ring0 + (s % AX_STAGES) * AX_SUB_BYTES +
+                                     wr * 64 * 128);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int k16 = 0; k16 < 4; ++k16)
+        wgmma_64x64(acc, da + 2 * k16, db + 2 * k16, (kb | k16) != 0);
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      // the group before this one has read its slot
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    fence_acc32(acc);
+
+    // ---- the tile's epilogue ----------------------------------------------
+    __syncthreads();                    // the per-row terms are written
+    // sc[4j + 2h + e], from acc[4j + 2h + e]: query 16 wq + g + 8h, row
+    // 64 wr + 8j + 2t + e; a dropped entry (dead row, row past N, query
+    // past B) is NaN, which no threshold passes. Warps whose 16 queries
+    // all lie past B skip the epilogue's work.
+    const bool live = 16 * wq < nq;     // the same in the warp
+    const bool q_lo = g < nq - 16 * wq, q_hi = g + 8 < nq - 16 * wq;
+    float sc[32];
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int ri = 64 * wr + 8 * j + 2 * t + e;
+          const bool ok = rt_ok[ri] != 0;
+          const float tt = rt_tt[ri], st = rt_st[ri];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float cos = __bfloat162float(
+                __float2bfloat16_rn(acc[4 * j + 2 * h + e]));
+            sc[4 * j + 2 * h + e] = (ok && (h ? q_hi : q_lo))
+                                        ? combined_score(a.w_cos, cos, tt, st)
+                                        : __int_as_float(0x7fffffff);
+          }
+        }
+    }
+    if (unbased > 0) {                  // the same in the CTA
+      // bins for a query without them: the top one at its largest score
+      if (live) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int q = 16 * wq + g + 8 * h;
+          float m = __int_as_float(0x7fffffff);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            m = fmaxf(m, fmaxf(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]));
+          if (q < nq && state[q] == 0 && m == m)
+            atomicMax(&base[q], ord32(m) >> AX_SHIFT);
+        }
+      }
+      __syncthreads();
+      if (tid < nq && state[tid] == 0 && base[tid] > 0u) {
+        base[tid] = base[tid] >= AX_BINS - 1 ? base[tid] - (AX_BINS - 1) : 0u;
+        state[tid] = 1;
+        atomicSub(&unbased, 1);
+      }
+      __syncthreads();
+    }
+    // keep what reaches the threshold (thr_lo: the least score in the
+    // threshold's bin, -inf before it has one). A quad stages its query's
+    // kept keys in the warp's buffer; then the warp writes each query's
+    // run to its list with coalesced stores and counts the run's keys in
+    // the query's histogram, a lane a key.
+    unsigned long long* stage = stage_all + warp * 8 * 64;   // [8][64]
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (!live) continue;              // the same in the warp
+      const int q = 16 * wq + g + 8 * h;
+      const bool qok = q < nq;
+      const float lo = qok ? thr_lo[q] : 0.f;
+      int n = 0;
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        n += qok && sc[4 * (i >> 1) + 2 * h + (i & 1)] >= lo;
+      if (!__any_sync(0xffffffffu, n > 0)) continue;
+      int incl = n;                     // inclusive scan over the quad
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, o, 4);
+        if (t >= o) incl += v;
+      }
+      const int total = __shfl_sync(0xffffffffu, incl, 3, 4);
+      int at = g * 64 + incl - n;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float v = sc[4 * j + 2 * h + e];
+          if (qok && v >= lo) {
+            const unsigned col =
+                (unsigned)(r0 + 64 * wr + 8 * j + 2 * t + e);
+            stage[at++] = ((unsigned long long)ord32(v) << 32) |
+                          (0xFFFFFFFFu - col);
+          }
+        }
+      int pos = 0;                      // the run's place in the list
+      if (t == 3 && total > 0) pos = atomicAdd(&cnt[q], total);
+      __syncwarp();
+      // the warp's runs laid end to end, a lane a key: run i (quad i's
+      // query) starts at from[i] and goes to list place pos_i
+      int from[8], to[8], n_all = 0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        from[i] = n_all;
+        n_all += __shfl_sync(0xffffffffu, total, 4 * i);
+        to[i] = __shfl_sync(0xffffffffu, pos, 4 * i + 3);
+      }
+      for (int f = lane; f < n_all; f += 32) {
+        int i = 0;
+#pragma unroll
+        for (int ii = 1; ii < 8; ++ii) i = f >= from[ii] ? ii : i;
+        int k = f, p_i = 0;
+#pragma unroll
+        for (int ii = 0; ii < 8; ++ii)
+          if (ii == i) { k = f - from[ii]; p_i = to[ii]; }
+        const int qi = 16 * wq + i + 8 * h;
+        const unsigned long long key = stage[i * 64 + k];
+        a.keys[((long)(q0 + qi) * a.nc + chunk) * R + p_i + k] = key;
+        if (state[qi] != 0) {
+          const unsigned bin = (unsigned)(key >> 32) >> AX_SHIFT;
+          const unsigned b0 = base[qi];
+          if (bin >= b0) {
+            if (bin - b0 < AX_BINS)
+              atomicAdd(&hist[qi * AX_HSTRIDE + (bin - b0)], 1u);
+            else
+              atomicAdd(&high[qi], 1u);
+          }
+          if (k == 0) state[qi] = 2;
+        }
+      }
+      __syncwarp();                     // the buffer is free for h = 1
+    }
+    __syncthreads();
+    // raise each dirty query's threshold to the largest bin b with
+    // (counted keys in bins >= b) + above >= kk, and move the bins up to
+    // start there: 4 lanes a query, part p holding bins [16p, 16p + 16)
+    for (int qb = warp * 8; qb < nq; qb += AX_THREADS / 4) {
+      const int part = lane & 3, q = qb + (lane >> 2);
+      const bool dirty = q < nq && state[q] == 2;
+      if (!__any_sync(0xffffffffu, dirty)) continue;
+      unsigned* hq = hist + q * AX_HSTRIDE + AX_BPL * part;
+      const unsigned b0 = base[q], hi = high[q], need = (unsigned)a.kk;
+      unsigned hv[AX_BPL], tot = 0u;
+#pragma unroll
+      for (int i = 0; i < AX_BPL; ++i) tot += (hv[i] = hq[i]);
+      unsigned suf = tot;               // bins of parts >= p
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        const unsigned v = __shfl_down_sync(0xffffffffu, suf, o, 4);
+        if (part + o < 4) suf += v;
+      }
+      int best = -1;                    // this part's largest such bin
+      unsigned ge = hi + suf - tot;
+#pragma unroll
+      for (int i = AX_BPL - 1; i >= 0; --i) {
+        ge += hv[i];
+        if (best < 0 && ge >= need) best = i;
+      }
+      const unsigned parts =
+          (__ballot_sync(0xffffffffu, best >= 0) >> (lane & ~3)) & 15u;
+      const int top = parts ? 31 - __clz(parts) : 0;
+      const int top_best = __shfl_sync(0xffffffffu, best, (lane & ~3) + top);
+      int nb = parts ? AX_BPL * top + top_best : -1;
+      if (hi >= need) nb = AX_BINS;
+      if (dirty && nb > 0) {
+        unsigned nv[AX_BPL];
+#pragma unroll
+        for (int i = 0; i < AX_BPL; ++i) {
+          const int b = AX_BPL * part + i;
+          nv[i] = b + nb < AX_BINS ? hq[i + nb] : 0u;
+          // the keys above the bins lie at or above the old top
+          if (b == AX_BINS - nb) nv[i] += hi;
+        }
+        __syncwarp(0xffffffffu & (0xFu << (lane & ~3)));
+#pragma unroll
+        for (int i = 0; i < AX_BPL; ++i) hq[i] = nv[i];
+        if (part == 0) {
+          base[q] = b0 + (unsigned)nb;
+          thr[q] = max(thr[q], b0 + (unsigned)nb);
+          thr_lo[q] = bin_floor(thr[q]);
+          high[q] = 0u;
+        }
+      } else if (dirty && nb == 0 && part == 0) {
+        thr[q] = max(thr[q], b0);
+        thr_lo[q] = bin_floor(thr[q]);
+      }
+      if (dirty && part == 0) state[q] = 1;
+    }
+    __syncthreads();
+  }
+  if (tid < nq) a.n_keys[(long)(q0 + tid) * a.nc + chunk] = cnt[tid];
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+// Launch 2's shared state: the radix select's histograms (WHIST per CTA,
+// then every CTA's sum, two buffers as passes alternate) and its digits.
+template <int G2>
+struct AnnexShared {
+  unsigned whist[WHIST][256];
+  unsigned hist[2][G2][256];
+  unsigned wsum[8];
+  unsigned long long prefix, mask;
+  int need, done, count;
+};
+
+// Launch 2: G2 CTAs per query (grid B * G2; a thread-block cluster when
+// G2 > 1). CTA r takes the lists of chunks [r*nc/G2, (r+1)*nc/G2), read
+// from device memory (L2, where launch 1 just wrote them) on each pass.
+template <int G2>
+__global__ void __launch_bounds__(SEL_THREADS)
+annex_rerank_kernel(const AnnexArgs a) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  const int kk = a.kk, kkp = a.kkp, k = a.k, m = k + kk;
+  const int c0 = (int)(blockIdx.x % G2) * a.nc / G2;
+  const int c1 = ((int)(blockIdx.x % G2) + 1) * a.nc / G2;
+  unsigned long long* ckey =                    // [kkp] rank 0's keys
+      reinterpret_cast<unsigned long long*>(dyn);
+  unsigned long long* mkey = ckey + kkp;        // [m] merge tie keys
+  unsigned long long* share = mkey + m;         // [AX_SHARE] this CTA's keys
+  float* sq = reinterpret_cast<float*>(share + AX_SHARE);     // [D]
+  float* cex = sq + a.D;                        // [kk] exact scores
+  int* cslot = reinterpret_cast<int*>(cex + kk);             // [kk]
+  float* mex = reinterpret_cast<float*>(cslot + kk);         // [m]
+  int* mslot = reinterpret_cast<int*>(mex + m);              // [m]
+  int* ccount = mslot + m;                      // [c1 - c0] list lengths
+  __shared__ AnnexShared<G2> st;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int b = blockIdx.x / G2, D = a.D;
+  unsigned rank = 0;
+  if constexpr (G2 > 1) {
+    rank = cg::this_cluster().block_rank();
+    // every CTA of the cluster must have started before distributed
+    // shared memory is touched: arrive now, wait before the first store
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  }
+  if (tid == 0) {
+    st.prefix = 0ull; st.mask = 0ull; st.need = kk; st.done = 0;
+    st.count = 0;
+  }
+  if (rank == 0)
+    for (int i = tid; i < kkp; i += SEL_THREADS) ckey[i] = 0ull;
+  for (int d = tid; d < D; d += SEL_THREADS) sq[d] = a.qn[(long)b * D + d];
+  for (int i = tid; i < WHIST * 256; i += SEL_THREADS)
+    (&st.whist[0][0])[i] = 0u;
+  // the select pass must have finished before its lists are read
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  for (int c = c0 + tid; c < c1; c += SEL_THREADS)
+    ccount[c - c0] = a.n_keys[(long)b * a.nc + c];
+  __syncthreads();
+  const long R = (long)a.tiles * AX_ROWS;
+  const unsigned long long* lists = a.keys + (long)b * a.nc * R;
+  int n_share = 0;
+  for (int c = c0; c < c1; ++c) n_share += ccount[c - c0];
+  // a share that fits is copied into shared memory once; a larger one is
+  // read from the lists on every pass
+  const bool in_smem = n_share <= AX_SHARE;
+  if (in_smem) {
+    // many short lists (small B): a warp a list; few long ones: the CTA
+    const bool by_warp = c1 - c0 >= SEL_WARPS / 2;
+    const int step = by_warp ? 32 : SEL_THREADS, me = by_warp ? lane : tid;
+    for (int c = c0, at = 0; c < c1; at += ccount[c - c0], ++c) {
+      if (by_warp && (c - c0) % SEL_WARPS != warp) continue;
+      const int n = ccount[c - c0];
+      const unsigned long long* src = lists + c * R;
+      for (int i = me; i < n; i += 4 * step) {
+        unsigned long long v[4];        // the loads before the stores
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (i + u * step < n) v[u] = src[i + u * step];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (i + u * step < n) share[at + i + u * step] = v[u];
+      }
+    }
+    __syncthreads();
+  }
+  // f(key, in) over this CTA's keys, a warp at a time: every lane of the
+  // warp calls f, `in` says whether its key is one
+  auto each_key = [&](auto&& f) {
+    if (in_smem) {
+      for (int i0 = warp * 32; i0 < n_share; i0 += SEL_THREADS) {
+        const int i = i0 + lane;
+        f(i < n_share ? share[i] : 0ull, i < n_share);
+      }
+      return;
+    }
+    for (int c = c0; c < c1; ++c) {
+      const unsigned long long* lst = lists + c * R;
+      const int n = ccount[c - c0];
+      for (int i0 = warp * 32; i0 < n; i0 += SEL_THREADS) {
+        const int i = i0 + lane;
+        f(i < n ? lst[i] : 0ull, i < n);
+      }
+    }
+  };
+
+  // ---- radix select of the kk-th largest key, 8 bits per pass ----------
+  unsigned* wh = st.whist[warp % WHIST];
+  int buf = 0;
+  for (int shift = 56; shift >= 0; shift -= 8, buf ^= 1) {
+    const unsigned long long prefix = st.prefix, mask = st.mask;
+    const unsigned need = (unsigned)st.need;
+    // one atomic per distinct digit in the warp: most keys share the top
+    // digits
+    each_key([&](unsigned long long key, bool in) {
+      in = in && (key & mask) == prefix;
+      const unsigned digit = in ? (unsigned)(key >> shift) & 255u : 256u;
+      const unsigned peers = __match_any_sync(0xffffffffu, digit);
+      if (in && lane == __ffs(peers) - 1) atomicAdd(&wh[digit], __popc(peers));
+    });
+    __syncthreads();
+    if constexpr (G2 > 1) {
+      if (shift == 56)                  // every CTA arrived at the top
+        asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+    }
+    if (tid < 256) {
+      unsigned s = 0u;
+#pragma unroll
+      for (int w = 0; w < WHIST; ++w) {
+        s += st.whist[w][tid];
+        st.whist[w][tid] = 0u;
+      }
+      if constexpr (G2 > 1) {
+        cg::cluster_group cluster = cg::this_cluster();
+#pragma unroll
+        for (int r = 0; r < G2; ++r)
+          *cluster.map_shared_rank(&st.hist[buf][rank][tid], r) = s;
+      } else {
+        st.hist[buf][0][tid] = s;
+      }
+    }
+    if constexpr (G2 > 1) cg::this_cluster().sync();
+    else __syncthreads();
+    unsigned h = 0u, suf = 0u;
+    if (tid < 256) {
+#pragma unroll
+      for (int r = 0; r < G2; ++r) h += st.hist[buf][r][tid];
+      suf = h;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned v = __shfl_down_sync(0xffffffffu, suf, o);
+        if (lane + o < 32) suf += v;
+      }
+      if (lane == 0) st.wsum[warp] = suf;
+    }
+    __syncthreads();
+    if (tid < 256) {
+      for (int w = warp + 1; w < 8; ++w) suf += st.wsum[w];
+      if (suf >= need && suf - h < need) {
+        const unsigned rest = need - (suf - h);
+        st.prefix = prefix | ((unsigned long long)tid << shift);
+        st.mask = mask | (255ull << shift);
+        st.need = (int)rest;
+        st.done = (h == rest);
+      }
+      // fewer keys than kk in all: every key is selected
+      if (tid == 0 && shift == 56 && suf < need) st.done = 1;
+    }
+    __syncthreads();
+    if (st.done) break;                 // the same in every CTA
+  }
+
+  // ---- collect the selected keys into rank 0 -----------------------------
+  {
+    const unsigned long long prefix = st.prefix, mask = st.mask;
+    int* count0 = &st.count;
+    unsigned long long* key0 = ckey;
+    if constexpr (G2 > 1) {
+      cg::cluster_group cluster = cg::this_cluster();
+      count0 = cluster.map_shared_rank(&st.count, 0);
+      key0 = cluster.map_shared_rank(ckey, 0);
+    }
+    const unsigned below = (1u << lane) - 1u;
+    each_key([&](unsigned long long key, bool in) {
+      const bool take = in && (key & mask) >= prefix;
+      const unsigned ball = __ballot_sync(0xffffffffu, take);
+      if (ball) {
+        int pos = 0;
+        if (lane == 0) pos = atomicAdd(count0, __popc(ball));
+        pos = __shfl_sync(0xffffffffu, pos, 0) + __popc(ball & below);
+        if (take && pos < kkp) key0[pos] = key;
+      }
+    });
+  }
+  if constexpr (G2 > 1) cg::this_cluster().sync();
+  else __syncthreads();
+
+  // ---- exact f32 rerank of this CTA's share of the kk, half a warp each --
+  {
+    const unsigned long long* key0 = ckey;
+    float* cex0 = cex;
+    int* cslot0 = cslot;
+    if constexpr (G2 > 1) {
+      cg::cluster_group cluster = cg::this_cluster();
+      key0 = cluster.map_shared_rank(ckey, 0);
+      cex0 = cluster.map_shared_rank(cex, 0);
+      cslot0 = cluster.map_shared_rank(cslot, 0);
+    }
+    const int per = (kk + G2 - 1) / G2;
+    const int j0 = (int)rank * per, j1 = min(kk, j0 + per);
+    const int half = lane >> 4, hl = lane & 15;
+    const int nch = D / 4;
+    for (int jb = j0 + 2 * warp; jb < j1; jb += 2 * SEL_WARPS) {
+      const int j = jb + half;
+      const unsigned long long key = j < j1 ? key0[j] : 0ull;
+      float dot = 0.f, n2 = 0.f;
+      long r = 0;
+      int slot = -1;
+      if (key != 0ull) {
+        slot = max(a.cslot[key_index(key)], 0);
+        r = slot < a.M ? slot : a.M - 1;
+        const float4* row =
+            reinterpret_cast<const float4*>(a.features + r * D);
+        for (int ch0 = hl; ch0 < nch; ch0 += 16 * ROW_UNROLL) {
+          float4 v[ROW_UNROLL];
+#pragma unroll
+          for (int u = 0; u < ROW_UNROLL; ++u) {
+            const int ch = ch0 + 16 * u;
+            if (ch < nch) v[u] = __ldg(row + ch);
+          }
+#pragma unroll
+          for (int u = 0; u < ROW_UNROLL; ++u) {
+            const int ch = ch0 + 16 * u;
+            if (ch < nch) {
+              dot = fmaf(v[u].x, sq[4 * ch], dot);
+              dot = fmaf(v[u].y, sq[4 * ch + 1], dot);
+              dot = fmaf(v[u].z, sq[4 * ch + 2], dot);
+              dot = fmaf(v[u].w, sq[4 * ch + 3], dot);
+              n2 = fmaf(v[u].x, v[u].x, n2);
+              n2 = fmaf(v[u].y, v[u].y, n2);
+              n2 = fmaf(v[u].z, v[u].z, n2);
+              n2 = fmaf(v[u].w, v[u].w, n2);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1) {   // within each half of the warp
+        dot += __shfl_xor_sync(0xffffffffu, dot, o);
+        n2 += __shfl_xor_sync(0xffffffffu, n2, o);
+      }
+      if (hl == 0 && j < j1) {
+        float ex = NEG_INF_F;
+        if (key != 0ull) {
+          const float cos = __fmul_rn(dot, rsqrtf(__fadd_rn(n2, 1e-12f)));
+          const float tt = __fmul_rn(
+              a.w_t, temporal_term(*a.step, a.timestamp[r], a.sps,
+                                   a.inv_tau));
+          ex = combined_score(a.w_cos, cos, tt, a.strength[r]);
+        }
+        cex0[j] = ex;
+        cslot0[j] = slot;
+      }
+    }
+  }
+  if constexpr (G2 > 1) cg::this_cluster().sync();
+  else __syncthreads();
+  if (rank != 0) return;
+
+  // ---- rank 0: merge B's k lanes and the annex's kk by counting ----------
+  // entry i < k is B's lane i, entry k + j the annex's lane j; on equal
+  // scores the larger tie key first: B's lanes (in lane order) above the
+  // annex's coarse keys, a dead annex lane last (each tie key distinct)
+  for (int i = tid; i < m; i += SEL_THREADS) {
+    if (i < k) {
+      mex[i] = a.b_s[(long)b * a.kpad + i];
+      mslot[i] = a.b_slot[(long)b * a.kpad + i];
+      mkey[i] = ~0ull - (unsigned long long)i;
+    } else {
+      const int j = i - k;
+      mex[i] = cex[j];
+      mslot[i] = cslot[j];
+      mkey[i] = ckey[j] != 0ull ? ckey[j] : (unsigned long long)(kk - j);
+    }
+  }
+  __syncthreads();
+  int T = 32;
+  while (T > 1 && T * m > SEL_THREADS) T >>= 1;
+  for (int j0 = 0; j0 < m; j0 += SEL_THREADS / T) {
+    const int j = j0 + tid / T;
+    const bool valid = j < m;
+    const float ej = valid ? mex[j] : 0.f;
+    const unsigned long long kj = valid ? mkey[j] : 0ull;
+    const int r = rank_desc(m, T, [&](int i) {
+      const float ei = mex[i];
+      return (ei > ej) | ((ei == ej) & (mkey[i] > kj));
+    });
+    if (valid && tid % T == 0 && r < k) {
+      const bool hit = ej > DEAD;
+      a.out_s[(long)b * k + r] = hit ? ej : NEG_INF_F;
+      a.out_slot[(long)b * k + r] = hit ? mslot[j] : -1;
+    }
+  }
+}
+
+// Launch 1's dynamic shared memory: 1 KB to align it for the swizzle,
+// the ring, the queries, the warps' staged keys, the tile's row terms,
+// each query's threshold state and histogram.
+size_t annex_select_smem(int D) {
+  return 1024 + (size_t)AX_STAGES * AX_SUB_BYTES +
+         (size_t)((D + 63) / 64) * AX_NQ * 128 + AX_THREADS / 32 * 8 * 64 * 8 +
+         3 * AX_ROWS * 4 +
+         (size_t)AX_NQ * (6 * 4 + AX_HSTRIDE * 4);
+}
+
+// The launch shape from B and N: tiles of 64 queries, then tiles per row
+// chunk so that the grid holds about one CTA per SM: at B = 1-8 the rows
+// are split over the SMs and bound the pass; at B = 1024 the 16 query
+// tiles take the SMs, each chunk is long, so its threshold prunes most
+// rows, and the products bound it.
+struct AnnexPlan {
+  int qtiles, tiles, nc;
+};
+
+AnnexPlan annex_plan(int B, int N, int n_sm) {
+  AnnexPlan p;
+  p.qtiles = (B + AX_NQ - 1) / AX_NQ;
+  const long total = (N + AX_ROWS - 1) / AX_ROWS;
+  p.tiles = (int)std::max(1L, (total * p.qtiles + n_sm - 1) / n_sm);
+  p.nc = (int)((total + p.tiles - 1) / p.tiles);
+  return p;
+}
+
+// The card's SM count and per-block shared memory limit (opt-in), read
+// once.
+int device_attr(cudaDeviceAttr attr, int fallback) {
+  int dev = 0, v = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&v, attr, dev) != cudaSuccess) {
+    cudaGetLastError();
+    return fallback;
+  }
+  return v;
+}
+
+AnnexPlan plan_for(int B, int N) {
+  static const int n_sm = device_attr(cudaDevAttrMultiProcessorCount, 132);
+  return annex_plan(B, N, n_sm);
+}
+
+
+// Launches `kernel` after the previous one with programmatic stream
+// serialisation (no cluster). Returns the launch's error, cleared.
+template <typename Kernel, typename... Args>
+cudaError_t launch_after(Kernel kernel, dim3 grid, int threads, size_t smem,
+                         cudaStream_t s, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
+cudaError_t launch_annex_select(const AnnexArgs& a, dim3 grid,
+                                cudaStream_t s) {
+  static size_t done = 0;
+  const size_t smem = annex_select_smem(a.D);
+  const cudaError_t err = opt_in(annex_select_kernel, smem, &done);
+  if (err != cudaSuccess) return err;
+  annex_select_kernel<<<grid, AX_THREADS, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int ivf_scan_scores_launch(const void* clustered, const float* qn,
@@ -1208,4 +2059,63 @@ extern "C" int ivf_topk_scores_launch(const void* clustered, const float* aux,
       reinterpret_cast<cudaStream_t>(stream),
       static_cast<const __nv_bfloat16*>(clustered), aux, qn, top_c, out_s,
       out_slot, C, D, P, k);
+}
+
+// Bytes of workspace `annex_merge_launch` needs at (B, N): the kept keys of
+// every (query, row chunk), R = tiles * 128 a list, then their counts.
+extern "C" long annex_workspace_bytes(int B, int N) {
+  const AnnexPlan p = plan_for(B, N);
+  const long lists = (long)B * p.nc;
+  return lists * p.tiles * AX_ROWS * 8 + lists * 4;
+}
+
+extern "C" int annex_merge_launch(
+    const void* rows, const float* cdecay, const float* cts, const int* cgen,
+    const int* cslot, const float* features, const float* strength,
+    const float* timestamp, const float* step, const float* decay_accum,
+    const int* count, const float* qn, const float* b_s, const int* b_slot,
+    void* workspace, float* out_s, long long* out_slot, long M, int N,
+    int D, int B,
+    int kk, int k, int kpad, int max_memories, float w_cos, float w_t,
+    float sps, float inv_tau, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const AnnexPlan p = plan_for(B, N);
+  const long R = (long)p.tiles * AX_ROWS;
+  AnnexArgs a;
+  a.rows = static_cast<const __nv_bfloat16*>(rows);
+  a.cdecay = cdecay; a.cts = cts; a.cgen = cgen; a.cslot = cslot;
+  a.features = features; a.strength = strength; a.timestamp = timestamp;
+  a.step = step; a.decay_accum = decay_accum; a.count = count;
+  a.qn = qn; a.b_s = b_s; a.b_slot = b_slot;
+  a.keys = static_cast<unsigned long long*>(workspace);
+  a.n_keys = reinterpret_cast<int*>(a.keys + (long)B * p.nc * R);
+  a.out_s = out_s; a.out_slot = out_slot;
+  a.M = M; a.N = N; a.D = D; a.B = B; a.kk = kk; a.kkp = pow2_at_least(kk);
+  a.k = k; a.kpad = kpad; a.nc = p.nc; a.tiles = p.tiles;
+  a.max_memories = max_memories;
+  a.w_cos = w_cos; a.w_t = w_t; a.sps = sps; a.inv_tau = inv_tau;
+  const dim3 grid(p.qtiles, p.nc);
+  cudaError_t err = launch_annex_select(a, grid, s);
+  if (err != cudaSuccess) return (int)err;
+  // rank 0's keys, the merge's tie keys, the CTA's keys, then the query,
+  // the exact scores and slots, the merge's scores and slots, the CTA's
+  // list lengths
+  const int m = k + kk;
+  static const int n_sm = device_attr(cudaDevAttrMultiProcessorCount, 132);
+  const int g2 = B >= n_sm ? 1 : CLUSTER;
+  const size_t smem2 = (size_t)(a.kkp + m + AX_SHARE) * 8 +
+                       (size_t)(D + 2 * kk + 2 * m + (p.nc + g2 - 1) / g2) * 4;
+  if (g2 == 1) {
+    static size_t done = 0;
+    err = opt_in(annex_rerank_kernel<1>, smem2, &done);
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_after(annex_rerank_kernel<1>, dim3(B), SEL_THREADS,
+                             smem2, s, a);
+  }
+  static size_t done = 0;
+  err = opt_in(annex_rerank_kernel<CLUSTER>, smem2, &done);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_cluster(annex_rerank_kernel<CLUSTER>,
+                             dim3(B * CLUSTER), SEL_THREADS, smem2, true, s,
+                             a);
 }

@@ -23,8 +23,11 @@ pass is chosen in the library from (B, P, K): per pair at small batches,
 cluster-major once the batch's pairs crowd the clusters (each probed
 cluster read once for all the queries that probe it; its workspace rides
 after the scratch, `_workspace_words`).
-`ivf_retrieve_fused_grad` is kernel B with a gradient into the queries
-(plain PyTorch backward, on either device), which training needs.
+`ivf_retrieve_fused_grad` is kernel B alone with a gradient into the
+queries (plain PyTorch backward, on either device); `exact_score_grad` is
+that backward. The engine's v3r path takes its gradient from the overflow
+annex's Function (`annex.py`), which merges B's lanes detached and shares
+`exact_score_grad`.
 
 Output conventions:
 - `ivf_retrieve_fused`: lanes < k hold the final top-k sorted by exact
@@ -279,17 +282,28 @@ class _RetrieveFused(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_s, g_sl):
         features, strength, sl = ctx.saved_tensors
-        slots = sl[:, :ctx.k].long()                             # [B, k]
-        hit = slots >= 0
-        safe = slots.clamp(min=0)
-        rows = features[safe]                                    # [B, k, D]
-        # the plain version's order: the lane's multiplier and 1/|row|
-        # scale g, then one batched product with the raw rows
-        coef = g_s[:, :ctx.k] * (ctx.w_cosine * strength[safe])
-        coef = coef * torch.rsqrt((rows * rows).sum(-1) + 1e-12)
-        coef = torch.where(hit, coef, 0.0)
-        g_qn = torch.einsum("bk,bkd->bd", coef, rows)
+        g_qn = exact_score_grad(g_s[:, :ctx.k], features, strength,
+                                sl[:, :ctx.k], ctx.w_cosine)
         return g_qn, None, None, None, None, None, None, None, None, None
+
+
+def exact_score_grad(g_s: torch.Tensor, features: torch.Tensor,
+                     strength: torch.Tensor, slots: torch.Tensor,
+                     w_cosine: float) -> torch.Tensor:
+    """The gradient into qn [B, D] of exact scores [B, n] whose lanes hold
+    bank `slots` [B, n] (-1 for a miss, which passes none): for each hit,
+    g[b, j] * w_cosine * strength[slot] * f_hat[slot]. Kernel B's
+    Function and the annex's (`ops/cuda/annex.py`) both take it."""
+    slots = slots.long()
+    hit = slots >= 0
+    safe = slots.clamp(min=0)
+    rows = features[safe]                                        # [B, n, D]
+    # the plain version's order: the lane's multiplier and 1/|row| scale
+    # g, then one batched product with the raw rows
+    coef = g_s * (w_cosine * strength[safe])
+    coef = coef * torch.rsqrt((rows * rows).sum(-1) + 1e-12)
+    coef = torch.where(hit, coef, 0.0)
+    return torch.einsum("bk,bkd->bd", coef, rows)
 
 
 def ivf_retrieve_fused_grad(clustered: torch.Tensor, aux: torch.Tensor,

@@ -30,7 +30,11 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
    at B = 1) they are timed by CUDA-graph replay (`graph_ms`, device
    time), and at B = 1 by the host's median time per call up to its
    enqueue (`host_us`, the wrapper's own cost). Then `torch.topk` of 128
-   over [B, 32768] as context for the select;
+   over [B, 32768] as context for the select, and the overflow annex's
+   pass (`annex_select` + `annex_rerank`, after kernel B on the engine's
+   paths) at the engine's annex (B = 1, 8, 1024) and the LM's (B = 1, 8)
+   against its plain version, the PyTorch chain it replaced (also its
+   `library_ms`);
 2. engine phase: the episodic-memory engine in bench.py's configuration
    (1,000,000 x 768, K = 4096, probe 64, int8 coarse bank): bulk_load,
    write_memories, rebuild_centroids, a write on the live index, then
@@ -495,6 +499,9 @@ SOURCES = {
     "ivf_topk_scores": ("aura_snn_rag_tpu_torch/ops/cuda/csrc/ivf_scan.cu",
                         "aura_snn_rag_tpu/ops/pallas/ivf_scan.py:62"),
 }
+# the overflow annex's pass after kernel B on the engine's path (two
+# launches, `ops/cuda/annex.py`); it replaces no Pallas kernel
+ANNEX = ("annex_select", "annex_rerank")
 IVF_KERNELS = ("v3r", "v2", "v3")     # ivf_kernel settings the engine runs
 # the flat scan's options the engine runs beside its default funnel
 FLAT_OPTIONS = {
@@ -986,6 +993,131 @@ def topk_context(dev, gen, N, kk, cases_B):
     return out
 
 
+# The overflow annex's pass (`ops/cuda/annex.annex_merge`) at the engine's
+# annex (G = 64 clusters of C = 512: 32,768 rows, kk 128, k 10) and the
+# LM's (G = 16, C = 896: 14,336 rows, k 5), D = 768
+ANNEX_SHAPES = {"engine": dict(G=64, C=512, D=768, kk=128, k=10),
+                "lm": dict(G=16, C=896, D=768, kk=128, k=5)}
+
+
+def annex_inputs(dev, gen, G, C, D, k, B, n_sets):
+    """A bank (K = 4G clusters, M = K*C/2 rows) whose annex is full, 10%
+    of its entries stale, with random strengths, ages and decay; `n_sets`
+    sets of B queries (half near annex rows) and made-up kernel B lanes
+    (k scores in the annex's range, random slots)."""
+    import torch
+    import aura_snn_rag_tpu_torch as port
+    K = 4 * G
+    M = K * C // 2
+    cfg = port.MemoryConfig(max_memories=M, feature_dim=D, k_centroids=K,
+                            overflow_buckets=G)
+    st = port.init_memory_state(cfg, dev)
+    N, Ku = G * C, K - G
+    count = M + M // 10
+    st.features.normal_(generator=gen)
+    st.strength.uniform_(0.5, 1.5, generator=gen)
+    st.timestamp.uniform_(0.0, 400.0, generator=gen)
+    slots = torch.randperm(M, device=dev, generator=gen)[:N]
+    rows = st.features[slots]
+    rows = rows * torch.rsqrt((rows * rows).sum(-1, keepdim=True))
+    st.clustered[Ku:] = rows.view(G, C, D).to(torch.bfloat16)
+    st.cluster_slot[Ku:] = slots.view(G, C).int()
+    gens = count - M + torch.randint(0, M, (N,), device=dev, generator=gen)
+    gens[torch.rand(N, device=dev, generator=gen) < 0.1] = count - M - 1
+    st.cluster_gen[Ku:] = gens.view(G, C).int()
+    st.cluster_decay[Ku:].uniform_(-0.2, 0.1, generator=gen)
+    st.cluster_ts[Ku:].uniform_(0.0, 400.0, generator=gen)
+    st = st._replace(count=torch.tensor(count, dtype=torch.int32, device=dev),
+                     step=torch.tensor(500.0, device=dev),
+                     decay_accum=torch.tensor(-0.2, device=dev))
+    sets = []
+    for _ in range(n_sets):
+        q = torch.randn(B, D, device=dev, generator=gen)
+        near = torch.rand(B, device=dev, generator=gen) < 0.5
+        q = torch.where(near[:, None], st.features[slots[torch.randint(
+            0, N, (B,), device=dev, generator=gen)]] + 0.3 * q, q)
+        qn = q * torch.rsqrt((q * q).sum(-1, keepdim=True))
+        b_s = torch.full((B, 128), NEG_INF, device=dev)
+        b_slot = torch.full((B, 128), -1, dtype=torch.int32, device=dev)
+        b_s[:, :k] = torch.sort(torch.rand(B, k, device=dev, generator=gen)
+                                * 0.6 + 0.1, dim=1, descending=True)[0]
+        b_slot[:, :k] = torch.randint(0, M, (B, k), device=dev,
+                                      generator=gen).int()
+        sets.append((qn, b_s, b_slot))
+    return cfg, st, sets
+
+
+def kernel_annex(dev, gen, name, cases_B, profile_cases=()):
+    """The annex pass against its plain version (the PyTorch chain the
+    engine ran before it, also the `library_ms` yardstick) at the shape
+    `ANNEX_SHAPES[name]`; at `profile_cases` the device ms of each of its
+    two launches (`launch_ms`)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from aura_snn_rag_tpu_torch.ops.cuda import annex
+
+    sh = ANNEX_SHAPES[name]
+    G, C, D, kk, k = sh["G"], sh["C"], sh["D"], sh["kk"], sh["k"]
+    N = G * C
+    res = {}
+    for B in cases_B:
+        cfg, st, sets = annex_inputs(dev, gen, G, C, D, k, B, 2)
+        qn, b_s, b_slot = sets[0]
+        s, sl = annex.annex_merge(cfg, st, qn, b_s, b_slot, kk, k)
+        ps, psl = annex.annex_merge_plain(cfg, st, qn, b_s[:, :k],
+                                          b_slot[:, :k].long(), kk, k)
+        torch.cuda.synchronize()
+        s, sl, ps, psl = (t.cpu().numpy() for t in (s, sl, ps, psl))
+        hit = ps > -5e29
+        check(((s > -5e29) == hit).all(), f"annex {name} B={B} hits")
+        err = float(np.abs(np.where(hit, s - ps, 0)).max())
+        # exact f32 dot products summed in another order
+        check(err <= 1e-6, f"annex {name} B={B}: err {err}")
+        check_slots(f"annex {name}", np.where(hit, s, 0),
+                    np.where(hit, sl, -1), np.where(hit, ps, 0),
+                    np.where(hit, psl, -1))
+        calls = [lambda q=q, bs=bs, bsl=bsl: annex.annex_merge(
+            cfg, st, q, bs, bsl, kk, k) for q, bs, bsl in sets]
+        ms, g_ms = time_ms(calls, iters=20), graph_ms(calls)
+        plain_ms = time_ms([
+            lambda q=q, bs=bs, bsl=bsl: annex.annex_merge_plain(
+                cfg, st, q, bs[:, :k], bsl[:, :k].long(), kk, k)
+            for q, bs, bsl in sets], iters=6, warmup=2)
+        # the annex's bf16 rows and four words a row (decay, time,
+        # generation, slot) once, the queries and B's lanes, the f32 row,
+        # strength and time of each distinct candidate of the batch, the k
+        # lanes written; operations: the [B, D] x [D, N] bf16 product (the
+        # f32 rerank's 2*B*kk*D is under 1% at every case)
+        cand = annex.annex_coarse(cfg, st, qn, None, kk)[1]
+        uniq = int(torch.unique(cand).numel())
+        nbytes = (N * (D * 2 + 16) + B * (D * 4 + 128 * 8)
+                  + uniq * (D * 4 + 8) + B * k * 12)
+        b_ms, b_by = bound_ms(nbytes, 2 * B * N * D, "bf16")
+        row = dict(max_abs_err=err, ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
+                   library_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   distinct_candidates=uniq)
+        if B in profile_cases:
+            calls[0]()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    calls[0]()
+                torch.cuda.synchronize()
+            row["launch_ms"] = {
+                group: sum(e.self_device_time_total for e in
+                           prof.key_averages() if group in e.key) / 5e3
+                for group in ("annex_select", "annex_rerank")}
+        res[B] = row
+        log(f"kernel annex {name} B={B} G={G} C={C} D={D} kk={kk} k={k}: "
+            f"max_abs_err={err:.3g} ms={ms:.4f} graph_ms={g_ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+            f"distinct candidates={uniq} {row.get('launch_ms', '')}")
+        del st, sets, calls
+        torch.cuda.empty_cache()
+    return res
+
+
 # --------------------------------------------------------------------------
 # engine phase
 # --------------------------------------------------------------------------
@@ -1455,15 +1587,17 @@ def greedy_cached_vs_recompute(model, ids, n=8):
 
 
 def kernel_vs_plain_prefill(model, ids, state):
-    """One prefill at ids' batch through the engine (kernel B), then the
-    same prefill with a retrieve_fn that runs the same retrieval with
-    kernel B's plain version. Returns (max |logit difference|, how many
-    of the retrieved slots differ, layers x rows x k)."""
+    """One prefill at ids' batch through the engine (kernel B and the
+    overflow annex's pass), then the same prefill with a retrieve_fn that
+    runs the same retrieval with kernel B's plain version and the annex's
+    plain chain. Returns (max |logit difference|, how many of the
+    retrieved slots differ, layers x rows x k)."""
     import torch
     from aura_snn_rag_tpu_torch.memory import engine
-    from aura_snn_rag_tpu_torch.ops.cuda import ivf_scan
+    from aura_snn_rag_tpu_torch.ops.cuda import annex, ivf_scan
 
     real_auto, real_kernel = engine.retrieve_auto, engine.ivf_retrieve_fused
+    real_merge = engine.annex_merge_grad
     got = {"kernel": [], "plain": []}
 
     def recording(*a, **kw):
@@ -1471,12 +1605,18 @@ def kernel_vs_plain_prefill(model, ids, state):
         got["kernel"].append(res.indices)
         return res
 
+    def plain_merge(cfg, st, qn, s, sl, kk, k):
+        return annex.annex_merge_plain(cfg, st, qn, s[:, :k],
+                                       sl[:, :k].long(), kk, k)
+
     def plain(cfg, st, q, k):
         engine.ivf_retrieve_fused = ivf_scan.ivf_retrieve_fused_plain
+        engine.annex_merge_grad = plain_merge
         try:
             res = real_auto(cfg, st, q, None, k)
         finally:
             engine.ivf_retrieve_fused = real_kernel
+            engine.annex_merge_grad = real_merge
         got["plain"].append(res.indices)
         return res
 
@@ -1681,14 +1821,16 @@ def train_config():
 
 def grads_kernel_vs_plain(model, tcfg, ids, state):
     """One micro-batch's loss and gradients (no prosody, no dropout)
-    through kernel B and its Function's backward, then through kernel B's
-    plain version with autograd through its einsum (the retrieve_fn hook
-    swaps the engine's Function for it). Returns (loss kernel, loss
-    plain, {name: (RMS of the gap, RMS of the plain gradient, max |gap|,
-    max |plain gradient|)}, [max |query_proj grad| per layer], kernel B
-    launches in the kernel run and in the plain run)."""
+    through kernel B, the overflow annex's pass and its Function's
+    backward, then through kernel B's plain version and the annex's plain
+    chain with autograd through their einsums (the retrieve_fn hook swaps
+    the engine's calls for them). Returns (loss kernel, loss plain, {name:
+    (RMS of the gap, RMS of the plain gradient, max |gap|, max |plain
+    gradient|)}, [max |query_proj grad| per layer], kernel B launches in
+    the kernel run and in the plain run)."""
+    import torch
     from aura_snn_rag_tpu_torch.memory import engine
-    from aura_snn_rag_tpu_torch.ops.cuda import _build, ivf_scan
+    from aura_snn_rag_tpu_torch.ops.cuda import _build, annex, ivf_scan
     from aura_snn_rag_tpu_torch.training.losses import hippocampal_loss
 
     def zero_grads():
@@ -1709,18 +1851,25 @@ def grads_kernel_vs_plain(model, tcfg, ids, state):
         return loss.item(), {n: p.grad.clone() for n, p in
                              model.named_parameters() if p.grad is not None}
 
-    real_fn = engine.ivf_retrieve_fused_grad
+    real_fn = engine.ivf_retrieve_fused, engine.annex_merge_grad
 
-    def plain_autograd(cl, aux, f, strength, w, qn, top_c, kk, k, fused):
-        return ivf_scan.ivf_retrieve_fused_plain(cl, aux, f, qn, top_c, kk,
-                                                 k)
+    def plain_autograd(cl, aux, f, qn, top_c, kk, k):
+        with torch.enable_grad():       # the engine calls B under no_grad
+            return ivf_scan.ivf_retrieve_fused_plain(cl, aux, f, qn, top_c,
+                                                     kk, k)
+
+    def plain_merge(cfg, st, qn, s, sl, kk, k):
+        return annex.annex_merge_plain(cfg, st, qn, s[:, :k],
+                                       sl[:, :k].long(), kk, k)
 
     def plain(cfg, st, q, k):
-        engine.ivf_retrieve_fused_grad = plain_autograd
+        # the engine takes B's lanes detached and the annex pass's Function
+        engine.ivf_retrieve_fused, engine.annex_merge_grad = (plain_autograd,
+                                                              plain_merge)
         try:
             return engine.retrieve_auto(cfg, st, q, None, k)
         finally:
-            engine.ivf_retrieve_fused_grad = real_fn
+            engine.ivf_retrieve_fused, engine.annex_merge_grad = real_fn
 
     n0 = _build.launch_counts["ivf_retrieve_fused"]
     la, ga = run()
@@ -1910,9 +2059,9 @@ def train_phase(dev, profile=False):
     want_b = n_layers * accum * n_mem
     check(steps[0]["use_memory"], "training: step 0 took no memory")
     check(launches.get("ivf_retrieve_fused", 0) == want_b
-          and all(launches.get(name, 0) == 0 for name in SOURCES
-                  if name != "ivf_retrieve_fused"),
-          f"training: launches {launches}, expected kernel B only, "
+          and kernel_b_only(launches),
+          f"training: launches {launches}, expected kernel B (and the "
+          f"annex pass) only, "
           f"{n_layers} x {accum} x {n_mem} = {want_b}")
     for s in steps:
         want = B if (s["use_memory"] and s["step"]
@@ -3721,7 +3870,7 @@ def sharded_bank_check(dev, mesh):
         check(n_sharded == n_plain, f"sharded: launches at B={B} "
               f"{n_sharded}, retrieve_auto {n_plain}")
         if B in (1, 8):
-            check(n_sharded == {"ivf_retrieve_fused": 1},
+            check(n_sharded == annexed({"ivf_retrieve_fused": 1}),
                   f"sharded: B={B} launched {n_sharded}, expected kernel B "
                   f"once")
         merge_ms = wall_ms(lambda: sharded._merge_topk(
@@ -3820,7 +3969,7 @@ def dp_train_check(dev, mesh, tmp):
                 check(m["use_memory"], f"{name} trainer: memory off")
             launches = nonzero_counts(_build.launch_counts)
             want = n_layers * accum * SHARDED_STEPS
-            check(launches == {"ivf_retrieve_fused": want},
+            check(launches == annexed({"ivf_retrieve_fused": want}),
                   f"{name} trainer: launches {launches}, expected kernel B "
                   f"{n_layers} x {accum} x {SHARDED_STEPS} = {want}")
             trainers[name] = tr
@@ -4055,7 +4204,7 @@ def mp_serve_check(dev, mesh, model, state, n_layers):
             want = n_layers * server._bucket(max(r.max_new_tokens
                                                  for r in rs))
             check(n == want and nonzero_counts(_build.launch_counts)
-                  == {"ivf_retrieve_fused": n},
+                  == annexed({"ivf_retrieve_fused": n}),
                   f"{name} server: kernel B launched {n} times, expected "
                   f"12 x (1 + steps) = {want}")
             toks += got
@@ -4161,7 +4310,7 @@ def mp_pipeline_check(dev, model, state):
             logits = fn()
             torch.cuda.synchronize()
             launches = nonzero_counts(_build.launch_counts)
-            check(launches == {"ivf_retrieve_fused": want},
+            check(launches == annexed({"ivf_retrieve_fused": want}),
                   f"{name} forward: launches {launches}, expected kernel B "
                   f"{want}")
             out[name] = dict(kernel_B_launches=want, logits=logits)
@@ -4273,7 +4422,7 @@ def mp_train_check(dev, bank):
                 times.append(sec * 1e3)
             launches = nonzero_counts(_build.launch_counts)
             want = n_layers * accum * MP_TRAIN_STEPS
-            check(launches == {"ivf_retrieve_fused": want},
+            check(launches == annexed({"ivf_retrieve_fused": want}),
                   f"{name} trainer: launches {launches}, expected {want}")
             out[name] = dict(ms_per_step=times, losses=tr.history["loss"][1:]
                              + [tr.latest_metrics()["loss"]])
@@ -4379,7 +4528,7 @@ def bench_phase():
     t_phase = time.perf_counter()
     stats = {}
     # bench.py's defaults: 1 warm-up + 16 timed IVF batches through B
-    stats["full"] = bench_run([], {"ivf_retrieve_fused": 17})
+    stats["full"] = bench_run([], annexed({"ivf_retrieve_fused": 17}))
     check(stats["full"]["ivf_recall_at_10"] >= BENCH_IVF_RECALL,
           f"bench: IVF recall@10 {stats['full']['ivf_recall_at_10']} < "
           f"{BENCH_IVF_RECALL}")
@@ -4390,7 +4539,7 @@ def bench_phase():
     # the blockmax flat strategy at --small: A and B 1 + 8 times each
     stats["blockmax"] = bench_run(
         ["--small", "--flat-strategy=blockmax"],
-        {"flat_blockmax": 9, "ivf_retrieve_fused": 9})
+        annexed({"flat_blockmax": 9, "ivf_retrieve_fused": 9}))
     torch.cuda.empty_cache()
     # the CLI's bench in a subprocess
     out, seconds = cli_run(["bench", "--small"], BENCH_CLI_TIMEOUT)
@@ -4423,6 +4572,25 @@ def benchmark_run(name, argv, package="benchmarks"):
     log(f"{name} {' '.join(argv) or '(defaults)'}: {seconds:.1f} s, "
         f"launches {launches}")
     return res, launches, seconds
+
+
+def annexed(expect):
+    """`expect` with the annex pass's two launches beside each of kernel
+    B's: every kernel B launch of the engine's paths here is a retrieval
+    on a bank with an overflow annex."""
+    n = expect.get("ivf_retrieve_fused", 0)
+    return {**expect, **{name: n for name in ANNEX}}
+
+
+def kernel_b_only(launches):
+    """Kernel B, the annex pass once beside each of its launches, and no
+    other kernel."""
+    return (annexed({"ivf_retrieve_fused":
+                     launches.get("ivf_retrieve_fused", 0)})
+            == {k: launches.get(k, 0) for k in ("ivf_retrieve_fused",)
+                + ANNEX}
+            and all(launches.get(name, 0) == 0 for name in SOURCES
+                    if name != "ivf_retrieve_fused"))
 
 
 def check_launches(name, launches, expect):
@@ -4512,9 +4680,9 @@ def benchmarks_phase():
             check(value["recall_at_10"] >= bar,
                   f"bench_retrieval_latency: {key} recall@10 "
                   f"{value['recall_at_10']} < {bar}")
-    check_launches("bench_retrieval_latency", launches, {
+    check_launches("bench_retrieval_latency", launches, annexed({
         "ivf_retrieve_fused": sum(n for key, n in res.calls.items()
-                                  if key.startswith("ivf_"))})
+                                  if key.startswith("ivf_"))}))
     stats["latency"] = dict(line=res.line, launches=launches,
                             seconds=seconds)
     del res
@@ -4537,7 +4705,7 @@ def benchmarks_phase():
                     check(bool(torch.isfinite(t[t > NEG_INF / 2]).all()),
                           f"bench_retrieval_breakdown: {stage} at B={B} "
                           f"not finite")
-    check_launches("bench_retrieval_breakdown", launches, expect)
+    check_launches("bench_retrieval_breakdown", launches, annexed(expect))
     stats["breakdown"] = dict(line=res.line, launches=launches,
                               seconds=seconds)
     del res
@@ -5032,7 +5200,8 @@ def demo_check(dev, ckpt, corpus):
     want = n_layers * DEMO_NEW_TOKENS
     check(plain == {}, f"flagship_demo: the plain generation launched "
           f"{plain}")
-    check_launches("flagship_demo", launches, {"ivf_retrieve_fused": want})
+    check_launches("flagship_demo", launches,
+                   annexed({"ivf_retrieve_fused": want}))
     check(res.memory_id.startswith("oneshot-"),
           f"flagship_demo: memory id {res.memory_id}")
     for name, ids in (("with memory", res.with_memory),
@@ -5488,6 +5657,10 @@ def main() -> int:
                           ls["kk"], ls["k"], cases_B=(1, 8), cases_C=())
     del ivf
     torch.cuda.empty_cache()
+    # the overflow annex's pass at the engine's annex and the LM's
+    res_annex = {"engine": kernel_annex(dev, gen, "engine", (1, 8, 1024),
+                                        profile_cases=(1024,)),
+                 "lm": kernel_annex(dev, gen, "lm", (1, 8))}
 
     # ---- the main path: counts from zero, read after the last phase ----
     _build.reset_launch_counts()
@@ -5496,7 +5669,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     stats["host_api_rebuilds"] = host_api_phase(dev)
     launches = dict(_build.launch_counts)
-    for name in SOURCES:
+    for name in tuple(SOURCES) + ANNEX:
         check(launches.get(name, 0) > 0, f"{name} never launched on the "
               f"main path ({launches})")
     log(f"main-path launches: {launches}")
@@ -5507,9 +5680,9 @@ def main() -> int:
     lm = lm_phase(dev, profile="--profile" in sys.argv[1:])
     launches_lm = dict(_build.launch_counts)
     check(launches_lm.get("ivf_retrieve_fused", 0) > 0
-          and all(launches_lm.get(name, 0) == 0 for name in SOURCES
-                  if name != "ivf_retrieve_fused"),
-          f"LM path launches {launches_lm}: kernel B only, at least once")
+          and kernel_b_only(launches_lm),
+          f"LM path launches {launches_lm}: kernel B (and the annex pass) "
+          f"only, at least once")
     lm["launches"] = launches_lm
     log(f"LM-path launches: {launches_lm}")
     torch.cuda.empty_cache()
@@ -5532,10 +5705,9 @@ def main() -> int:
     operator = operator_phase(dev, keep_dir=os.path.join(keep, "cli"))
     launches_op = dict(_build.launch_counts)
     check(launches_op.get("ivf_retrieve_fused", 0) > 0
-          and all(launches_op.get(name, 0) == 0 for name in SOURCES
-                  if name != "ivf_retrieve_fused"),
-          f"operator path launches {launches_op}: kernel B only, at least "
-          f"once")
+          and kernel_b_only(launches_op),
+          f"operator path launches {launches_op}: kernel B (and the annex "
+          f"pass) only, at least once")
     operator["launches"] = launches_op
     log(f"operator-path launches: {launches_op}")
     torch.cuda.empty_cache()
@@ -5668,6 +5840,20 @@ def main() -> int:
             row["launches_benchmarks_breakdown"] = \
                 benchmarks["breakdown"]["launches"][name]
         kernels.append(row)
+    # the annex pass (two launches after kernel B on the engine's paths)
+    row = dict(name="+".join(ANNEX), route="cuda",
+               source=SOURCES["ivf_retrieve_fused"][0],
+               replaces="aura_snn_rag_tpu/memory/engine.py:385-404 (XLA; no "
+                        "Pallas kernel)",
+               launches=launches[ANNEX[0]], launches_lm=launches_lm[ANNEX[0]],
+               launches_train=launches_train[ANNEX[0]],
+               launches_operator=launches_op[ANNEX[0]],
+               launches_bench=bench["full"]["launches"][ANNEX[0]])
+    for shape, cases in res_annex.items():
+        for B, r in cases.items():
+            row.update({f"{shape}_b{B}_{key}": value
+                        for key, value in r.items()})
+    kernels.append(row)
     log(json.dumps({"torch_topk_ms": topk_ms}))
     log(json.dumps({"engine": stats}))
     log(json.dumps({"lm": lm}))

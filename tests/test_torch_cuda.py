@@ -1,11 +1,11 @@
-"""Kernels A, B, C, D and E against their plain PyTorch versions on the
-card, the neuromorphic brain system and the NaturalBrain path
-(NaturalBrain, the MoE language zone's forward and gradients, the
-prosody gains, the SRFFN; no kernel) on the card against the same port
-objects on the CPU, the sharded bank and the data-parallel trainer on a
-one-rank NCCL group against the unsharded paths, and on the same group
-ring attention against SDPA and the pipelined RAG stack (one stage)
-against the model's forward, with kernel B's launches counted.
+"""Kernels A, B, C, D and E and the overflow annex's pass against their
+plain PyTorch versions on the card, the neuromorphic brain system and the
+NaturalBrain path (NaturalBrain, the MoE language zone's forward and
+gradients, the prosody gains, the SRFFN; no kernel) on the card against
+the same port objects on the CPU, the sharded bank and the data-parallel
+trainer on a one-rank NCCL group against the unsharded paths, and on the
+same group ring attention against SDPA and the pipelined RAG stack (one
+stage) against the model's forward, with kernel B's launches counted.
 
 Marked `cuda`: they skip without a card (decided in a fixture, so every
 xdist worker collects the same tests). On a machine with an H100:
@@ -15,6 +15,7 @@ xdist worker collects the same tests). On a machine with an H100:
 Inputs are made with numpy from a seed and copied to the card.
 """
 
+import functools
 import os
 
 import numpy as np
@@ -26,6 +27,7 @@ from aura_snn_rag_tpu_torch.ops.cuda import launch_counts
 # the cuBLAS workspace that deterministic algorithms need; read when the
 # first cuBLAS handle is made, so set before any test runs
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+from aura_snn_rag_tpu_torch.ops.cuda.annex import annex_merge_plain
 from aura_snn_rag_tpu_torch.ops.cuda.flat_scan import (
     flat_blockmax, flat_blockmax_plain, pack_row_terms)
 from aura_snn_rag_tpu_torch.ops.cuda.ivf_scan import (
@@ -36,6 +38,12 @@ from tests.test_torch_probes import crowded_probes
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
+
+
+def _with_annex(n):
+    """The launches of n retrievals through kernel B on a bank with an
+    overflow annex: B and the annex pass's two kernels, n each."""
+    return {"ivf_retrieve_fused": n, "annex_select": n, "annex_rerank": n}
 
 
 @pytest.fixture
@@ -484,13 +492,14 @@ def test_coarse_pass_by_batch(dev, case):
 
 def test_port_bench_runs_kernel_b_on_the_card(dev, capsys):
     """The port's bench at `--small` over 20,000 rows: one JSON line with
-    bench.py's keys, exact recall, kernel B once per IVF batch (1 + 8)
-    and no other kernel; with `--flat-strategy=blockmax` kernel A too."""
+    bench.py's keys, exact recall, kernel B and the annex pass once per
+    IVF batch (1 + 8) and no other kernel; with `--flat-strategy=blockmax`
+    kernel A too."""
     import json
     from aura_snn_rag_tpu_torch import bench
-    for argv, want in (([], {"ivf_retrieve_fused": 9}),
+    for argv, want in (([], _with_annex(9)),
                        (["--flat-strategy=blockmax"],
-                        {"ivf_retrieve_fused": 9, "flat_blockmax": 9})):
+                        {**_with_annex(9), "flat_blockmax": 9})):
         n0 = dict(launch_counts)
         line = bench.main(["--small", "--n=20000"] + argv)
         got = {k: v - n0.get(k, 0) for k, v in launch_counts.items()
@@ -607,12 +616,13 @@ def test_ivf_retrieve_fused_grad_matches_plain_autograd(dev, K, C, D, B, P,
 def test_lm_gradient_through_kernel_b_matches_its_plain_version(dev):
     """A small LM (f32 compute, RAG in 3 layers, no SNN FFN: kernel B's
     scores differ from its plain version's by ~3e-8, which at f32 could
-    flip a GIF spike level) over a bank whose batches of 2 take IVF v3r:
-    the loss and gradients of one backward through kernel B (Function
-    backward) equal, within 1e-5 of each tensor's largest entry (at least
-    1e-3 of the model's largest), those through kernel B's plain version
-    with autograd through its einsum, and every RAG layer's query_proj
-    gets a nonzero gradient."""
+    flip a GIF spike level) over a bank whose batches of 2 take IVF v3r
+    and its overflow annex: the loss and gradients of one backward through
+    kernel B and the annex pass (the pass's Function backward) equal,
+    within 1e-5 of each tensor's largest entry (at least 1e-3 of the
+    model's largest), those through kernel B's plain version and the
+    annex's plain chain with autograd through their einsums, and every
+    RAG layer's query_proj gets a nonzero gradient."""
     import aura_snn_rag_tpu_torch as port
     from aura_snn_rag_tpu_torch.memory import engine
 
@@ -644,19 +654,27 @@ def test_lm_gradient_through_kernel_b_matches_its_plain_version(dev):
         return loss.item(), {n: p.grad.clone() for n, p in
                              model.named_parameters() if p.grad is not None}
 
-    n0 = launch_counts["ivf_retrieve_fused"]
+    n0 = dict(launch_counts)
     la, ga = grads()
-    assert launch_counts["ivf_retrieve_fused"] == n0 + 3
-    real = engine.ivf_retrieve_fused_grad
+    assert {k: launch_counts[k] - n0.get(k, 0) for k in _with_annex(0)} \
+        == _with_annex(3)
+    real = engine.ivf_retrieve_fused, engine.annex_merge_grad
 
-    def plain_autograd(cl, aux, f, strength, w, qn, top_c, kk, k, fused):
-        return ivf_retrieve_fused_plain(cl, aux, f, qn, top_c, kk, k)
-    engine.ivf_retrieve_fused_grad = plain_autograd
+    def plain_autograd(cl, aux, f, qn, top_c, kk, k):
+        with torch.enable_grad():       # the engine calls B under no_grad
+            return ivf_retrieve_fused_plain(cl, aux, f, qn, top_c, kk, k)
+
+    def plain_merge(cfg_, st, qn, s, sl, kk, k):
+        return annex_merge_plain(cfg_, st, qn, s[:, :k], sl[:, :k].long(),
+                                 kk, k)
+    engine.ivf_retrieve_fused, engine.annex_merge_grad = (plain_autograd,
+                                                          plain_merge)
     try:
         lb, gb = grads()
     finally:
-        engine.ivf_retrieve_fused_grad = real
-    assert launch_counts["ivf_retrieve_fused"] == n0 + 3
+        engine.ivf_retrieve_fused, engine.annex_merge_grad = real
+    assert {k: launch_counts[k] - n0.get(k, 0) for k in _with_annex(0)} \
+        == _with_annex(3)
     assert abs(la - lb) <= 1e-6 * abs(lb)
     assert ga.keys() == gb.keys()
     for i in range(3):
@@ -1205,10 +1223,10 @@ def test_pipelined_rag_matches_the_sequential_run_on_the_card(nccl_mesh,
     with torch.no_grad():
         launch_counts.clear()
         got = pipelined_rag_apply(model, ids, bank, mesh, 4)
-        assert dict(launch_counts) == {"ivf_retrieve_fused": 2 * 4}
+        assert dict(launch_counts) == _with_annex(2 * 4)
         launch_counts.clear()
         want = model(ids, memory_state=bank)[0].logits
-        assert dict(launch_counts) == {"ivf_retrieve_fused": 2}
+        assert dict(launch_counts) == _with_annex(2)
     assert (got - want).abs().max() <= 1e-2
 
 
@@ -1216,8 +1234,9 @@ def test_flagship_demo_launches_kernel_b_per_layer_and_model_call(dev):
     """examples/flagship_demo.demo on a trainer whose bank has its index
     built (a 2-layer RAG model over `_small_bank`'s 20,000 rows, where a
     query takes IVF): kernel B once per RAG layer per model call of the
-    memory-conditioned generation (one call per new token), none in the
-    generation without memory, and no other kernel."""
+    memory-conditioned generation (one call per new token), with the
+    annex pass beside each, none in the generation without memory, and no
+    other kernel."""
     import dataclasses
     import aura_snn_rag_tpu_torch as port
     from aura_snn_rag_tpu_torch.examples import flagship_demo
@@ -1260,7 +1279,7 @@ def test_flagship_demo_launches_kernel_b_per_layer_and_model_call(dev):
     # without
     assert memory_calls == [False] + [True] * 6 + [False] * 6
     assert {k: n for k, n in launch_counts.items() if n} == \
-        {"ivf_retrieve_fused": 2 * 6}
+        _with_annex(2 * 6)
     assert plain == {}
     assert res.with_memory.shape == res.without_memory.shape == (11,)
 
@@ -1287,3 +1306,154 @@ def test_prosody_traces_on_the_card_match_the_cpu(dev):
     for key in ("salience", "gains", "mu_scalar"):
         np.testing.assert_allclose(card[key], cpu[key], rtol=0, atol=1e-5)
     np.testing.assert_array_equal(card["winners"], cpu["winners"])
+
+
+# The overflow annex's pass (`ops/cuda/annex.annex_merge`: two launches,
+# `annex_select` and `annex_rerank`) against its plain version, the
+# PyTorch chain, on the card: at the engine's shape (G = 64 clusters of C
+# = 512, so 32,768 rows, D = 768, kk 128, k 10; B = 1, 8, 1024) and the
+# LM's (G = 16, C = 896, k 5; B = 1, 8), with the annex full, partly
+# filled, filled with fewer live rows than kk (a sparse annex: most row
+# chunks keep nothing and the select stops at the top digit) or with every
+# generation stale, and with rows planted twice (equal coarse and exact
+# scores, other slots). A share `stale` of the rows hold a generation the
+# ring has overwritten. Kernel B's lanes are made up: scores in the
+# annex's range, some misses.
+@functools.lru_cache(maxsize=2)
+def _annex_bank(G, C, D, fill, ties, stale=0.1, seed=5):
+    import aura_snn_rag_tpu_torch as port
+    K = 4 * G
+    M = K * C // 2
+    cfg = port.MemoryConfig(max_memories=M, feature_dim=D, k_centroids=K,
+                            overflow_buckets=G, bucket_overprovision=2.0)
+    assert cfg.bucket_capacity == C
+    rng = np.random.RandomState(seed)
+    N, Ku = G * C, K - G
+    feats = rng.randn(M, D).astype(np.float32)
+    slots = rng.choice(M, N, replace=False).astype(np.int32)
+    count = M + M // 10
+    gens = (count - M + rng.randint(0, M, N)).astype(np.int32)
+    gens[rng.rand(N) < stale] = count - M - 1             # stale entries
+    strength = (rng.rand(M) + 0.5).astype(np.float32)
+    timestamp = (rng.rand(M) * 400).astype(np.float32)
+    decay = (rng.rand(N) * 0.3).astype(np.float32)
+    ts = (rng.rand(N) * 400).astype(np.float32)
+    if ties:        # row r + 1 repeats row r under another slot
+        for r in range(0, N - 1, 97):
+            feats[slots[r + 1]] = feats[slots[r]]
+            strength[slots[r + 1]] = strength[slots[r]]
+            timestamp[slots[r + 1]] = timestamp[slots[r]]
+            decay[r + 1], ts[r + 1], gens[r + 1] = decay[r], ts[r], gens[r]
+    rows = feats[slots] / np.linalg.norm(feats[slots], axis=1, keepdims=True)
+    empty = np.arange(N) >= int(fill * N)
+    rows[empty], slots[empty], gens[empty] = 0.0, -1, -1
+    dev = torch.device("cuda")
+    st = port.init_memory_state(cfg, dev)
+    st.features.copy_(torch.from_numpy(feats))
+    st.strength.copy_(torch.from_numpy(strength))
+    st.timestamp.copy_(torch.from_numpy(timestamp))
+    st.clustered[Ku:].copy_(torch.from_numpy(rows).view(G, C, D))
+    st.cluster_slot[Ku:].copy_(torch.from_numpy(slots).view(G, C))
+    st.cluster_gen[Ku:].copy_(torch.from_numpy(gens).view(G, C))
+    st.cluster_decay[Ku:].copy_(torch.from_numpy(decay - 0.2).view(G, C))
+    st.cluster_ts[Ku:].copy_(torch.from_numpy(ts).view(G, C))
+    st = st._replace(count=torch.tensor(count, dtype=torch.int32, device=dev),
+                     step=torch.tensor(500.0, device=dev),
+                     decay_accum=torch.tensor(-0.2, device=dev))
+    return cfg, st, feats, slots
+
+
+def _annex_inputs(cfg, st, feats, slots, B, k, seed):
+    """Queries (half near annex rows, half random) and kernel B's lanes."""
+    rng = np.random.RandomState(seed)
+    live = slots[slots >= 0]
+    q = rng.randn(B, feats.shape[1]).astype(np.float32)
+    near = rng.rand(B) < 0.5
+    near[0] = True
+    q[near] = feats[rng.choice(live, int(near.sum()))] + 0.3 * q[near]
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    b_s = np.full((B, 128), -1e30, np.float32)
+    b_slot = np.full((B, 128), -1, np.int32)
+    b_s[:, :k] = -np.sort(-(rng.rand(B, k) * 0.6 + 0.1), axis=1)
+    b_slot[:, :k] = rng.randint(0, cfg.max_memories, (B, k))
+    b_s[0, k // 2:k], b_slot[0, k // 2:k] = -1e30, -1        # misses
+    return [torch.from_numpy(x).cuda() for x in (q, b_s, b_slot)]
+
+
+def _assert_merge_matches(s, sl, ps, psl, tol):
+    """Scores within `tol`, slots equal wherever a score stands apart
+    from the rest of its row by more than `tol` (torch.topk on the card
+    orders equal scores its own way)."""
+    s, sl, ps, psl = (x.cpu().numpy() for x in (s, sl, ps, psl))
+    hit = ps > -5e29
+    assert np.array_equal(s > -5e29, hit)
+    np.testing.assert_allclose(s[hit], ps[hit], rtol=0, atol=tol)
+    assert (sl[~hit] == -1).all()
+    for r in range(s.shape[0]):
+        for j in np.nonzero(hit[r])[0]:
+            others = np.delete(ps[r], j)
+            if np.min(np.abs(others - ps[r, j])) > tol:
+                assert sl[r, j] == psl[r, j], (r, j, sl[r], psl[r])
+
+
+@pytest.mark.parametrize("G,C,k,B,fill,ties,stale", [
+    (64, 512, 10, 1, 1.0, False, 0.1), (64, 512, 10, 8, 1.0, False, 0.1),
+    (64, 512, 10, 1024, 1.0, False, 0.1), (64, 512, 10, 8, 0.4, False, 0.1),
+    (64, 512, 10, 33, 1.0, True, 0.1), (16, 896, 5, 1, 1.0, False, 0.1),
+    (16, 896, 5, 8, 1.0, False, 0.1),
+    # sparse: 65 and 28 rows, ~90% of them live, against kk 128
+    (64, 512, 10, 8, 0.002, False, 0.1),
+    (64, 512, 10, 1024, 0.002, False, 0.1),
+    (16, 896, 5, 8, 0.002, False, 0.1),
+    # every generation stale: B's lanes are the result
+    (64, 512, 10, 8, 1.0, False, 1.0), (64, 512, 10, 1024, 1.0, False, 1.0),
+    (16, 896, 5, 1, 1.0, False, 1.0)])
+def test_annex_pass_matches_plain(dev, G, C, k, B, fill, ties, stale):
+    from aura_snn_rag_tpu_torch.ops.cuda import annex
+    from aura_snn_rag_tpu_torch.utils.trace import counters
+    cfg, st, feats, slots = _annex_bank(G, C, 768, fill, ties, stale)
+    qn, b_s, b_slot = _annex_inputs(cfg, st, feats, slots, B, k, B + G)
+    n0, c0 = dict(launch_counts), counters["path.annex_fused"]
+    s, sl = annex.annex_merge(cfg, st, qn, b_s, b_slot, 128, k)
+    torch.cuda.synchronize()
+    assert {n: launch_counts[n] - n0.get(n, 0) for n in launch_counts
+            if launch_counts[n] != n0.get(n, 0)} == {"annex_select": 1,
+                                                     "annex_rerank": 1}
+    assert counters["path.annex_fused"] == c0 + 1
+    assert s.shape == sl.shape == (B, k) and sl.dtype == torch.int64
+    ps, psl = annex.annex_merge_plain(cfg, st, qn, b_s[:, :k],
+                                      b_slot[:, :k].long(), 128, k)
+    # exact f32 rerank: dot products summed in another order
+    _assert_merge_matches(s, sl, ps, psl, 1e-6)
+    from_annex = ~torch.isin(sl, b_slot[:, :k].long()) & (sl >= 0)
+    if stale < 1.0:
+        assert from_annex.any()
+    else:
+        assert not from_annex.any()
+        assert torch.equal(s, b_s[:, :k])
+        assert torch.equal(sl, torch.where(b_s[:, :k] > -5e29,
+                                           b_slot[:, :k].long(), -1))
+
+
+@pytest.mark.parametrize("G,C,k,B", [(64, 512, 10, 8), (16, 896, 5, 8),
+                                     (64, 512, 10, 1024)])
+def test_annex_pass_gradient_matches_plain_autograd(dev, G, C, k, B):
+    """Kernel B's lanes all miss, so every hit comes from the annex and
+    autograd through the plain chain is the reference."""
+    from aura_snn_rag_tpu_torch.ops.cuda import annex
+    cfg, st, feats, slots = _annex_bank(G, C, 768, 1.0, False)
+    qn, b_s, b_slot = _annex_inputs(cfg, st, feats, slots, B, k, 7 * B)
+    b_s.fill_(-1e30)
+    b_slot.fill_(-1)
+    w = torch.randn(B, k, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(B))
+    q1 = qn.clone().requires_grad_(True)
+    s1, sl1 = annex.annex_merge_grad(cfg, st, q1, b_s, b_slot, 128, k)
+    (s1 * w).sum().backward()
+    q2 = qn.clone().requires_grad_(True)
+    s2, _ = annex.annex_merge_plain(cfg, st, q2, b_s[:, :k],
+                                    b_slot[:, :k].long(), 128, k)
+    (torch.where(s2 > -5e29, s2, 0.0) * w).sum().backward()
+    assert not sl1.requires_grad and (sl1 >= 0).all()
+    assert q1.grad.abs().max() > 0
+    assert (q1.grad - q2.grad).abs().max().item() <= 1e-5
