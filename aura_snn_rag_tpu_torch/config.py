@@ -155,6 +155,66 @@ class ModelConfig:
     def place_k(self) -> int:
         return max(1, int(self.n_place_cells * self.place_cell_sparsity))
 
+    @property
+    def block(self) -> str:
+        """The block kind: "hippocampal" here, "deepseek_v3" for
+        `DeepSeekV3Config`."""
+        return "hippocampal"
+
+
+@dataclass(frozen=True)
+class DeepSeekV3Config(ModelConfig):
+    """The LM with DeepSeek-V3's block, as Moonlight-16B-A3B publishes it
+    (`model_type` "deepseek_v3"), on the same path as the hippocampal
+    block (`HippocampalTransformer`, `MemoryAugmentedLayer`, `Trainer`).
+
+    The model has a plain token embedding and no place cells or theta-
+    gamma positions; each layer is RMSNorm -> latent attention (MLA, RoPE
+    on `qk_rope_head_dim` dims of each query and of one shared key; no
+    prosody or memory query gains) -> residual; the episodic retrieval
+    and gate injection; RMSNorm -> a dense SwiGLU FFN of width
+    `intermediate_size` (the first `first_k_dense_replace` layers) or the
+    MoE -> residual. The head is untied and has no bias; the block has no
+    dropout (`dropout` is not read). `vocab_size` is the vocabulary this
+    model holds (a slice of the published one under vocabulary
+    parallelism).
+
+    The MoE's router scores all `n_routed_experts` (sigmoid of a
+    bias-free product, in f32), picks `num_experts_per_tok` by score plus
+    a load-balancing bias, and weighs them by their scores normalised
+    over the chosen times `routed_scaling_factor`;
+    this model holds and computes experts `experts_offset` ...
+    `experts_offset + experts_held - 1` (its share under expert
+    parallelism) and `n_shared_experts` shared ones, one SwiGLU of width
+    `n_shared_experts * moe_intermediate_size`. After each step the
+    trainer moves each expert's bias by `router_bias_rate` times
+    sign(mean load - its load) (arXiv:2412.19437 section 2.1.2).
+
+    A subclass, so `ModelConfig`'s fields stay those of the JAX
+    package's."""
+
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10_000.0
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    first_k_dense_replace: int = 1
+    n_routed_experts: int = 64
+    experts_held: int = 64
+    experts_offset: int = 0
+    num_experts_per_tok: int = 6
+    n_shared_experts: int = 2
+    moe_intermediate_size: int = 1408
+    routed_scaling_factor: float = 1.0
+    router_bias_rate: float = 0.001
+    tie_word_embeddings: bool = False
+    dropout: float = 0.0
+
+    @property
+    def block(self) -> str:
+        return "deepseek_v3"
+
 
 @dataclass(frozen=True)
 class TrainingConfig:
@@ -310,8 +370,9 @@ def get_full_config() -> AuraConfig:
         dict(max_memories=100_000, feature_dim=768),
         # batch 16, not the reference's 32. At this batch `retrieve_auto`
         # takes the flat scan (16 x probe 8 x capacity 896 >= 100k rows);
-        # gradient_accumulation_steps = 2 gives micro-batches of 8, which
-        # retrieve through IVF v3r (kernel B).
+        # setting gradient_accumulation_steps = 2 would give micro-batches
+        # of 8, which retrieve through IVF v3r (kernel B). The preset keeps
+        # the default of 1.
         dict(batch_size=16, max_steps=50_000, warmup_steps=2000,
              memory_warmup_steps=5000),
     )

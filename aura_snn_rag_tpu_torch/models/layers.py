@@ -29,6 +29,13 @@ does it). Where flax and PyTorch differ, the port follows flax:
   site's index, so a recompute (remat) draws the same mask; flax's masks
   come from JAX's PRNG and are not the same bits.
 
+DeepSeek-V3's block (`config.DeepSeekV3Config`, no JAX counterpart)
+follows the published modelling code (Hugging Face's `modeling_deepseek.
+py` for Moonlight-16B-A3B): `RMSNorm`, `LatentAttention` (MLA with RoPE),
+the SwiGLU `GatedMLP` and `MoEFFN`; `TransformerLayer` and
+`MemoryAugmentedLayer` take their norms, attention and FFN by the
+config's block kind.
+
 `Synapsis` carries the JAX module's STDP traces and `stdp_update` (no
 module of the LM calls them). The RAG layers reach a sharded bank
 through their `retrieve_fn`.
@@ -68,6 +75,8 @@ import torch.nn.functional as F
 
 from aura_snn_rag_tpu_torch.config import MemoryConfig, ModelConfig
 from aura_snn_rag_tpu_torch.memory import engine as memory_engine
+from aura_snn_rag_tpu_torch.ops.experts import (
+    held_experts_grouped, held_experts_loop)
 from aura_snn_rag_tpu_torch.ops.neurons import (
     gif_params, gif_scan, gif_scan_const)
 from aura_snn_rag_tpu_torch.ops.place_cells import sparse_place_code
@@ -77,7 +86,7 @@ from aura_snn_rag_tpu_torch.parallel.collectives import (
     all_reduce_sum, copy_in, gather_dim, reduce_out, reduce_scatter_dim)
 from aura_snn_rag_tpu_torch.parallel.ring_attention import (
     mesh_seq_axis, sequence_sharded_attention)
-from aura_snn_rag_tpu_torch.utils.trace import span
+from aura_snn_rag_tpu_torch.utils.trace import count, span
 
 LN_EPS = 1e-6            # flax nn.LayerNorm's epsilon
 PROSODY_DIM = 4          # prosody features: arousal, valence, ...
@@ -596,21 +605,274 @@ class HybridFFN(nn.Module):
         return (1.0 - g) * mlp_out + g * snn_out
 
 
+class RMSNorm(nn.Module):
+    """DeepSeek-V3's RMSNorm: x / sqrt(mean(x^2) + eps) times an f32
+    weight, in f32, cast to the compute dtype at the end (the published
+    code casts before the weight's product)."""
+
+    def __init__(self, features: int, eps: float, dtype: torch.dtype,
+                 device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(features, device=device))
+        self.eps, self.dtype = eps, dtype
+
+    def init_parameters(self, generator) -> None:
+        nn.init.ones_(self.weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        x = x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + self.eps)
+        return (self.weight * x).to(self.dtype)
+
+
+def rope_tables(L: int, dim: int, theta: float, device
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) [L, dim] f32 of positions 0..L-1: frequencies
+    theta^(-2i/dim), each used twice (cat(freqs, freqs)), no scaling."""
+    inv = 1.0 / (theta ** (torch.arange(0, dim, 2, device=device,
+                                        dtype=torch.float32) / dim))
+    freqs = torch.outer(torch.arange(L, device=device, dtype=torch.float32),
+                        inv)
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return emb.cos(), emb.sin()
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """The published `apply_rotary_pos_emb` on x [..., L, n, dim] (cos and
+    sin [L, dim]), in f32: the dims de-interleaved (evens, then odds),
+    then x * cos + rotate_half(x) * sin. Returns f32."""
+    *lead, d = x.shape
+    x = x.float().reshape(*lead, d // 2, 2).transpose(-1, -2) \
+        .reshape(*lead, d)
+    half = torch.cat([-x[..., d // 2:], x[..., :d // 2]], dim=-1)
+    return x * cos[:, None, :] + half * sin[:, None, :]
+
+
+class LatentAttention(nn.Module):
+    """DeepSeek-V3's multi-head latent attention without a query
+    compression (`q_lora_rank` null): per head a query of
+    `qk_nope_head_dim` + `qk_rope_head_dim` dims (W_q h); the latent
+    `kv_a` = W_kva h, whose first `kv_lora_rank` dims pass through
+    `kv_a_layernorm` and W_kvb into each head's key (nope part) and value,
+    and whose last `qk_rope_head_dim` dims are one rope key every head
+    shares; RoPE on the rope dims; the causal core at softmax scale
+    1/sqrt(nope + rope) on SDPA, keys of 192 dims and values of 128 as
+    they are (on the H100 PyTorch's cuDNN backend takes them: its flash
+    backend needs one width for all three, and padding the values to 192
+    for it took 28 ms a layer's forward and backward at 4 x 8192 against
+    cuDNN's 10); `o_proj`. No bias anywhere, no prosody or memory query
+    gains, no dropout. Spans `mla.project` (the projections and RoPE)
+    and `mla.core`; counter `path.mla`."""
+
+    def __init__(self, config: ModelConfig, device=None):
+        super().__init__()
+        self.config = c = config
+        D, H = c.embedding_dim, c.num_heads
+        dt = self.dtype = compute_dtype(c)
+        self.qk_dim = c.qk_nope_head_dim + c.qk_rope_head_dim
+        self.q_proj = Dense(D, H * self.qk_dim, dt, device, use_bias=False)
+        self.kv_a_proj_with_mqa = Dense(
+            D, c.kv_lora_rank + c.qk_rope_head_dim, dt, device,
+            use_bias=False)
+        self.kv_a_layernorm = RMSNorm(c.kv_lora_rank, c.rms_norm_eps, dt,
+                                      device)
+        self.kv_b_proj = Dense(c.kv_lora_rank,
+                               H * (c.qk_nope_head_dim + c.v_head_dim), dt,
+                               device, use_bias=False)
+        self.o_proj = Dense(H * c.v_head_dim, D, dt, device, use_bias=False)
+
+    def forward(self, hidden: torch.Tensor, prosody=None,
+                use_memory: bool = True, kv_cache=None, cache_index=None,
+                dropout_seed=None) -> Tuple[torch.Tensor, None]:
+        """hidden [B, L, D] at positions 0..L-1; no KV cache."""
+        if kv_cache is not None:
+            raise ValueError("latent attention keeps no KV cache")
+        c = self.config
+        B, L, _ = hidden.shape
+        H, nope, rope = c.num_heads, c.qk_nope_head_dim, c.qk_rope_head_dim
+        count("path.mla")
+        with span("mla.project"):
+            q = self.q_proj(hidden).view(B, L, H, self.qk_dim)
+            kv_a = self.kv_a_proj_with_mqa(hidden)
+            kv = self.kv_b_proj(self.kv_a_layernorm(
+                kv_a[..., :c.kv_lora_rank])).view(B, L, H, nope + c.v_head_dim)
+            cos, sin = rope_tables(L, rope, c.rope_theta, hidden.device)
+            q_pe = apply_rope(q[..., nope:], cos, sin).to(self.dtype)
+            k_pe = apply_rope(kv_a[..., None, c.kv_lora_rank:], cos, sin) \
+                .to(self.dtype)
+            q = torch.cat([q[..., :nope], q_pe], dim=-1).transpose(1, 2)
+            k = torch.cat([kv[..., :nope], k_pe.expand(B, L, H, rope)],
+                          dim=-1).transpose(1, 2)
+            v = kv[..., nope:].transpose(1, 2)
+        with span("mla.core"):
+            ctx = F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, scale=self.qk_dim ** -0.5)
+        ctx = ctx.transpose(1, 2).reshape(B, L, H * c.v_head_dim)
+        return self.o_proj(ctx), None
+
+
+class GatedMLP(nn.Module):
+    """SwiGLU: down(silu(gate(x)) * up(x)), no bias (DeepSeek-V3's dense
+    FFN and its shared experts)."""
+
+    def __init__(self, features: int, width: int, dtype: torch.dtype,
+                 device=None):
+        super().__init__()
+        self.gate_proj = Dense(features, width, dtype, device, use_bias=False)
+        self.up_proj = Dense(features, width, dtype, device, use_bias=False)
+        self.down_proj = Dense(width, features, dtype, device, use_bias=False)
+
+    def forward(self, x: torch.Tensor, dropout_seed=None) -> torch.Tensor:
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class MoEGate(nn.Module):
+    """The router: a bias-free [n_routed_experts, D] f32 weight and the
+    load-balancing bias `e_score_correction_bias` (a buffer the trainer
+    moves, no gradient)."""
+
+    def __init__(self, config: ModelConfig, device=None):
+        super().__init__()
+        E = config.n_routed_experts
+        self.weight = nn.Parameter(torch.empty(E, config.embedding_dim,
+                                               device=device))
+        self.register_buffer("e_score_correction_bias",
+                             torch.zeros(E, device=device))
+
+    def init_parameters(self, generator) -> None:
+        lecun_normal_(self.weight, self.weight.shape[1], generator)
+
+
+class HeldExperts(nn.Module):
+    """The SwiGLU experts held here, stacked: `gate_up_proj` [held, 2I, D]
+    (gate rows, then up rows) and `down_proj` [held, D, I], f32."""
+
+    def __init__(self, config: ModelConfig, device=None):
+        super().__init__()
+        n, D, I = (config.experts_held, config.embedding_dim,
+                   config.moe_intermediate_size)
+        self.gate_up_proj = nn.Parameter(torch.empty(n, 2 * I, D,
+                                                     device=device))
+        self.down_proj = nn.Parameter(torch.empty(n, D, I, device=device))
+
+    def init_parameters(self, generator) -> None:
+        lecun_normal_(self.gate_up_proj, self.gate_up_proj.shape[2],
+                      generator)
+        lecun_normal_(self.down_proj, self.down_proj.shape[2], generator)
+
+
+class MoEFFN(nn.Module):
+    """DeepSeek-V3's MoE (`noaux_tc` with one group) over this model's
+    share of the experts:
+      s = sigmoid(x W_r^T) in f32 over all `n_routed_experts`;
+      the top `num_experts_per_tok` of s + bias;
+      w = s_chosen / sum(s_chosen) * routed scaling;
+      y = sum of w_i E_i(x) over the chosen experts held here + shared(x).
+    On the card the held experts run as grouped products
+    (`ops.experts.held_experts_grouped`, counter `path.moe_grouped`), on
+    the CPU one at a time (`held_experts_loop`, `path.moe_loop`); no host
+    sync, no token dropped. Each forward outside a backward adds its
+    picks per expert (all `n_routed_experts`) to `step_load`, which the
+    trainer's bias update reads and clears (`update_bias`), and to
+    `load_tally`, which only grows (read around a window). Spans
+    `moe.route`, `moe.dispatch`, `moe.experts`, `moe.combine` and
+    `moe.shared`."""
+
+    def __init__(self, config: ModelConfig, device=None):
+        super().__init__()
+        self.config = c = config
+        dt = self.dtype = compute_dtype(c)
+        self.gate = MoEGate(c, device)
+        self.experts = HeldExperts(c, device)
+        self.shared_experts = GatedMLP(
+            c.embedding_dim, c.n_shared_experts * c.moe_intermediate_size,
+            dt, device)
+        E = c.n_routed_experts
+        self.register_buffer("step_load", torch.zeros(E, device=device),
+                             persistent=False)
+        self.register_buffer("load_tally",
+                             torch.zeros(E, dtype=torch.float64,
+                                         device=device), persistent=False)
+
+    def route(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(top [T, k] global expert ids, w [T, k] f32 weights) of x
+        [T, D]."""
+        c = self.config
+        s = torch.sigmoid(F.linear(x.float(), self.gate.weight))
+        top = torch.topk(s + self.gate.e_score_correction_bias,
+                         c.num_experts_per_tok, dim=-1).indices
+        w = s.gather(-1, top)
+        w = w / (w.sum(dim=-1, keepdim=True) + 1e-20)
+        return top, w * c.routed_scaling_factor
+
+    def forward(self, x: torch.Tensor, dropout_seed=None) -> torch.Tensor:
+        c = self.config
+        B, L, D = x.shape
+        xf = x.reshape(B * L, D)
+        with span("moe.route"):
+            top, w = self.route(xf)
+            if torch._C._current_graph_task_id() == -1:   # not a recompute
+                with torch.no_grad():
+                    load = torch.zeros_like(self.step_load).scatter_add_(
+                        0, top.reshape(-1),
+                        torch.ones(top.numel(), device=x.device))
+                    self.step_load += load
+                    self.load_tally += load.double()
+        dt = self.dtype
+        w13 = self.experts.gate_up_proj.to(dt)
+        w2 = self.experts.down_proj.to(dt)
+        if x.is_cuda:
+            count("path.moe_grouped")
+            y = held_experts_grouped(xf.to(dt), w13, w2, top, w,
+                                     c.experts_offset)
+        else:
+            count("path.moe_loop")
+            with span("moe.experts"):
+                y = held_experts_loop(xf.to(dt), w13, w2, top, w,
+                                      c.experts_offset)
+        with span("moe.shared"):
+            y = y + self.shared_experts(xf)
+        return y.reshape(B, L, D)
+
+    @torch.no_grad()
+    def update_bias(self, rate: float) -> None:
+        """bias += rate * sign(mean load - load) over the picks counted
+        since the last update; then the count restarts."""
+        load = self.step_load
+        self.gate.e_score_correction_bias.add_(
+            rate * torch.sign(load.mean() - load))
+        load.zero_()
+
+
 def _ffn(config: ModelConfig, use_snn_ffn: bool, device) -> nn.Module:
     return (HybridFFN if use_snn_ffn else MLP)(config, device)
+
+
+def _block(config: ModelConfig, use_snn_ffn: bool, layer_index: int, device
+           ) -> Tuple[nn.Module, nn.Module, nn.Module, nn.Module]:
+    """(attention norm, attention, FFN norm, FFN) of a layer by the
+    config's block kind."""
+    D, dt = config.embedding_dim, compute_dtype(config)
+    if config.block == "deepseek_v3":
+        eps = config.rms_norm_eps
+        ffn = (GatedMLP(D, config.intermediate_size, dt, device)
+               if layer_index < config.first_k_dense_replace
+               else MoEFFN(config, device))
+        return (RMSNorm(D, eps, dt, device), LatentAttention(config, device),
+                RMSNorm(D, eps, dt, device), ffn)
+    return (LayerNorm(D, dt, device), ProsodyGatedAttention(config, device),
+            LayerNorm(D, dt, device), _ffn(config, use_snn_ffn, device))
 
 
 class TransformerLayer(nn.Module):
     """Pre-norm block: LN -> attention -> residual; LN -> FFN -> residual."""
 
     def __init__(self, config: ModelConfig, use_snn_ffn: bool = False,
-                 device=None):
+                 device=None, layer_index: int = 0):
         super().__init__()
-        dt = compute_dtype(config)
-        self.attention_norm = LayerNorm(config.embedding_dim, dt, device)
-        self.attention = ProsodyGatedAttention(config, device)
-        self.ffn_norm = LayerNorm(config.embedding_dim, dt, device)
-        self.ffn = _ffn(config, use_snn_ffn, device)
+        (self.attention_norm, self.attention, self.ffn_norm,
+         self.ffn) = _block(config, use_snn_ffn, layer_index, device)
 
     def forward(self, hidden, prosody=None, use_memory: bool = True,
                 kv_cache=None, cache_index=None, dropout_seed=None):
@@ -670,7 +932,8 @@ RetrieveFn = Callable[[MemoryConfig, Any, torch.Tensor, int], Any]
 
 class MemoryAugmentedLayer(nn.Module):
     """RAG layer: self-attention, batched episodic retrieval + injection,
-    FFN. Injection modes:
+    FFN (the attention, norms and FFN by the config's block kind, the
+    retrieval and injection the same for every kind). Injection modes:
     - "cross_attention": hidden attends over the k retrieved memories;
     - "concat": score-softmax-weighted memory mean, `h + 0.1*ctx`;
     - "gate": sigmoid([h; ctx]) gated additive injection.
@@ -683,15 +946,18 @@ class MemoryAugmentedLayer(nn.Module):
 
     def __init__(self, config: ModelConfig, memory_config: MemoryConfig,
                  use_snn_ffn: bool = False,
-                 retrieve_fn: Optional[RetrieveFn] = None, device=None):
+                 retrieve_fn: Optional[RetrieveFn] = None, device=None,
+                 layer_index: int = 0):
         super().__init__()
         self.config = config
         self.memory_config = memory_config
         self.retrieve_fn = retrieve_fn
         D = config.embedding_dim
         dt = self.dtype = compute_dtype(config)
-        self.attention_norm = LayerNorm(D, dt, device)
-        self.attention = ProsodyGatedAttention(config, device)
+        attention_norm, attention, ffn_norm, ffn = _block(
+            config, use_snn_ffn, layer_index, device)
+        self.attention_norm = attention_norm
+        self.attention = attention
         self.query_proj = Dense(D, D, dt, device)
         mode = config.memory_injection
         if mode == "cross_attention":
@@ -703,8 +969,8 @@ class MemoryAugmentedLayer(nn.Module):
             self.memory_gate_proj = Dense(2 * D, D, dt, device)
         elif mode != "concat":
             raise ValueError(f"memory_injection {mode!r}")
-        self.ffn_norm = LayerNorm(D, dt, device)
-        self.ffn = _ffn(config, use_snn_ffn, device)
+        self.ffn_norm = ffn_norm
+        self.ffn = ffn
         self.mesh = None
         self.seq_axis_name = "seq"
 

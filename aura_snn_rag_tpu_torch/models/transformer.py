@@ -27,6 +27,13 @@ hold this rank's H/n heads), and a `mesh` (the constructor's, or
 parallel: each rank runs its chunk of the sequence, at its global
 positions, every attention core runs ring attention, and the RAG
 layers' query and `memory_summary` are means over the whole sequence.
+
+With DeepSeek-V3's block (`config.DeepSeekV3Config`) the model is a
+plain token embedding (`embed_tokens`), the layers (latent attention
+with RoPE in place of the theta-gamma positions, the dense FFN or the
+MoE), a final RMSNorm and an untied head without bias; it has no place
+cells (`place_activity` is None), no input norm and no dropout, runs on
+one rank, and keeps no KV cache (`init_kv_caches` refuses it).
 """
 
 from __future__ import annotations
@@ -36,13 +43,14 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from aura_snn_rag_tpu_torch._device import resolve_device
 from aura_snn_rag_tpu_torch.config import MemoryConfig, ModelConfig
 from aura_snn_rag_tpu_torch.models.layers import (
-    Dense, Dropout, KVCache, LayerNorm, MemoryAugmentedLayer,
-    PlaceCellEncoder, ProsodyGatedAttention, RetrieveFn,
+    Dense, Dropout, Embed, KVCache, LayerNorm, MemoryAugmentedLayer, MoEFFN,
+    PlaceCellEncoder, ProsodyGatedAttention, RetrieveFn, RMSNorm,
     ThetaGammaPositional, TransformerLayer, compute_dtype, initialize)
 from aura_snn_rag_tpu_torch.parallel.collectives import all_reduce_sum
 from aura_snn_rag_tpu_torch.parallel.mesh import axis_index
@@ -74,7 +82,7 @@ def _dots_context():
 
 class TransformerOutput(NamedTuple):
     logits: torch.Tensor           # [B, L, V] f32
-    place_activity: torch.Tensor   # [B, L, n_place_cells]
+    place_activity: Optional[torch.Tensor]   # [B, L, n_place_cells]
     memory_summary: torch.Tensor   # [B, D] f32 mean-pooled features for writes
     hidden: torch.Tensor           # [B, L, D] final hidden states
 
@@ -96,20 +104,29 @@ class HippocampalTransformer(nn.Module):
         self.config = cfg = config
         self.memory_config = memory_config
         dt = compute_dtype(cfg)
-        self.semantic_encoder = PlaceCellEncoder(cfg, dev)
-        self.pos_encoder = ThetaGammaPositional(cfg, dev)
-        self.input_norm = LayerNorm(cfg.embedding_dim, dt, dev)
+        latent = cfg.block == "deepseek_v3"
+        if latent:
+            if cfg.tie_word_embeddings:
+                raise ValueError("DeepSeek-V3's block has an untied head")
+            self.embed_tokens = Embed(cfg.vocab_size, cfg.embedding_dim, dev)
+        else:
+            self.semantic_encoder = PlaceCellEncoder(cfg, dev)
+            self.pos_encoder = ThetaGammaPositional(cfg, dev)
+            self.input_norm = LayerNorm(cfg.embedding_dim, dt, dev)
         rag = cfg.use_rag and memory_config is not None
         self.layers = nn.ModuleList([
             MemoryAugmentedLayer(cfg, memory_config, use_snn_ffn=i in
                                  cfg.snn_layers, retrieve_fn=retrieve_fn,
-                                 device=dev) if rag else
+                                 device=dev, layer_index=i) if rag else
             TransformerLayer(cfg, use_snn_ffn=i in cfg.snn_layers,
-                             device=dev)
+                             device=dev, layer_index=i)
             for i in range(cfg.num_layers)])
-        self.final_norm = LayerNorm(cfg.embedding_dim, dt, dev)
+        self.final_norm = (RMSNorm(cfg.embedding_dim, cfg.rms_norm_eps, dt,
+                                   dev) if latent
+                           else LayerNorm(cfg.embedding_dim, dt, dev))
         if not cfg.tie_word_embeddings:
-            self.lm_head = Dense(cfg.embedding_dim, cfg.vocab_size, dt, dev)
+            self.lm_head = Dense(cfg.embedding_dim, cfg.vocab_size, dt, dev,
+                                 use_bias=not latent)
         self.input_dropout = Dropout(cfg.dropout)
         # every dropout site gets its own index: its masks' seed
         sites = [m for m in self.modules() if isinstance(m, Dropout)]
@@ -137,7 +154,19 @@ class HippocampalTransformer(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.input_norm.weight.device
+        return self.final_norm.weight.device
+
+    @property
+    def token_table(self) -> torch.Tensor:
+        """The token embedding's [vocab, D] f32 table."""
+        if self.config.block == "deepseek_v3":
+            return self.embed_tokens.weight
+        return self.semantic_encoder.token_embedding.weight
+
+    @property
+    def moe_layers(self) -> Tuple[MoEFFN, ...]:
+        """The layers' MoE FFNs, in order."""
+        return tuple(m for m in self.modules() if isinstance(m, MoEFFN))
 
     def forward(self, input_ids: torch.Tensor,
                 prosody: Optional[torch.Tensor] = None,
@@ -157,14 +186,22 @@ class HippocampalTransformer(nn.Module):
         if n_seq > 1 and kv_caches is not None:
             raise ValueError("a KV cache decodes one sequence on one rank; "
                              "a 'seq'-sharded model has none")
-        hidden, place_activity = self.semantic_encoder(input_ids)
-        if positions is None:
-            start = (L * axis_index(self.mesh, self.seq_axis_name)
-                     if n_seq > 1 else 0)
-            positions = (start + torch.arange(L, device=input_ids.device)) \
-                .expand(B, L)
-        hidden = self.input_norm(hidden + self.pos_encoder(positions))
-        hidden = self.input_dropout(hidden, dropout_seed)
+        if cfg.block == "deepseek_v3":
+            if n_seq > 1 or kv_caches is not None or positions is not None:
+                raise ValueError("DeepSeek-V3's block runs whole sequences "
+                                 "at positions 0..L-1, on one rank")
+            place_activity = None
+            hidden = F.embedding(input_ids, self.embed_tokens.weight).to(
+                compute_dtype(cfg))
+        else:
+            hidden, place_activity = self.semantic_encoder(input_ids)
+            if positions is None:
+                start = (L * axis_index(self.mesh, self.seq_axis_name)
+                         if n_seq > 1 else 0)
+                positions = (start + torch.arange(
+                    L, device=input_ids.device)).expand(B, L)
+            hidden = self.input_norm(hidden + self.pos_encoder(positions))
+            hidden = self.input_dropout(hidden, dropout_seed)
 
         remat = (cfg.use_gradient_checkpointing and kv_caches is None
                  and torch.is_grad_enabled())
@@ -213,6 +250,10 @@ class HippocampalTransformer(nn.Module):
         dtype (the JAX package's are [B, max_len, H, Hd]); H is this
         rank's heads under tensor parallelism."""
         cfg = self.config
+        if cfg.block == "deepseek_v3":
+            raise NotImplementedError(
+                "DeepSeek-V3's block has no KV cache here: decoding needs a "
+                "latent cache (kv_a and the rope key per position)")
         tp = self.layers[0].attention.tp if len(self.layers) else None
         heads = cfg.num_heads // (tp.size if tp is not None else 1)
         shape = (batch_size, heads, max_len, cfg.head_dim)

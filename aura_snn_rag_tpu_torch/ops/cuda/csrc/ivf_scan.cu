@@ -1200,6 +1200,12 @@ cudaError_t launch_select(Kernel in_smem, Kernel in_l2, size_t fixed, int N,
 // writes ~4-5k keys a query. Sizing the lists by a bound the threshold
 // guarantees would take an overflow check; PyTorch's caching allocator
 // keeps the reservation between calls.
+//
+// Above D = 768 the tile's queries (64 x D bf16, 256 KB at D = 2048) no
+// longer fit in shared memory beside the ring: `annex_select_kernel<true>`
+// then rounds each stage's 64-deep slice of them into the stage beside its
+// rows (8 KB more a stage), from the f32 queries in L2, once per row tile;
+// the rest is the same.
 
 constexpr int AX_ROWS = 128;           // annex rows per tile (wgmma N: 2 x 64)
 constexpr int AX_NQ = 64;              // queries per launch-1 CTA (wgmma M)
@@ -1308,9 +1314,37 @@ __device__ __forceinline__ void fence_acc32(float (&d)[32]) {
 // same few tiles, which stay in L2 for every query tile. Two warpgroups:
 // warpgroup wr multiplies the 64 queries by rows 64 wr .. 64 wr + 63 of
 // a tile, 64 deep a stage, on `wgmma` (issued on every query tile, also
-// past B: a wgmma under a branch is serialised).
+// past B: a wgmma under a branch is serialised). QSTREAM: the queries'
+// slice of each stage rides in the stage (`AX_QSUB_BYTES` after its
+// rows) instead of all of them being held for the whole launch.
+constexpr int AX_QSUB_BYTES = AX_NQ * 128;   // a stage's [64 queries][64]
+
+// Queries q0 .. q0 + 63's depth chunk kb, rounded to bf16 (to nearest
+// even), zero past B and past D, into a [64][64] swizzled block: a
+// stage's slice when the queries stream.
+__device__ __forceinline__ void round_queries(unsigned char* dst,
+                                              const AnnexArgs& a, int q0,
+                                              int nq, int kb, int tid) {
+  const int dch = a.D / 8;
+  for (int i = tid; i < AX_NQ * 8; i += AX_THREADS) {
+    const int q = i / 8, ch = i % 8, c8 = kb * 8 + ch;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (q < nq && c8 < dch) {
+      const float4* src =
+          reinterpret_cast<const float4*>(a.qn + (long)(q0 + q) * a.D) +
+          2 * c8;
+      const float4 u = src[0], w = src[1];
+      v = make_uint4(bf16x2(u.x, u.y), bf16x2(u.z, u.w), bf16x2(w.x, w.y),
+                     bf16x2(w.z, w.w));
+    }
+    *reinterpret_cast<uint4*>(dst + swz(q, ch)) = v;
+  }
+}
+
+template <bool QSTREAM>
 __global__ void __launch_bounds__(AX_THREADS)
 annex_select_kernel(const AnnexArgs a) {
+  constexpr int STAGE = AX_SUB_BYTES + (QSTREAM ? AX_QSUB_BYTES : 0);
   extern __shared__ unsigned char smem_raw[];
   const unsigned raw = (unsigned)__cvta_generic_to_shared(smem_raw);
   unsigned char* smem = smem_raw + ((1024 - (raw & 1023)) & 1023);
@@ -1321,9 +1355,10 @@ annex_select_kernel(const AnnexArgs a) {
   const int nkb = (D + 63) / 64;
   const int R = a.tiles * AX_ROWS;
   const int ntile = ((a.N + AX_ROWS - 1) / AX_ROWS - chunk + a.nc - 1) / a.nc;
-  unsigned char* qsm = smem + AX_STAGES * AX_SUB_BYTES;    // [nkb][64][64]
+  unsigned char* qsm = smem + AX_STAGES * STAGE;    // [nkb][64][64]
   unsigned long long* stage_all =       // [warps][8 queries][64] kept keys
-      reinterpret_cast<unsigned long long*>(qsm + nkb * AX_NQ * 128);
+      reinterpret_cast<unsigned long long*>(
+          qsm + (QSTREAM ? 0 : nkb * AX_NQ * 128));
   float* rt_tt =
       reinterpret_cast<float*>(stage_all + AX_THREADS / 32 * 8 * 64);
   float* rt_st = rt_tt + AX_ROWS;
@@ -1348,19 +1383,21 @@ annex_select_kernel(const AnnexArgs a) {
   for (int i = tid; i < AX_NQ * AX_HSTRIDE; i += AX_THREADS) hist[i] = 0u;
   if (tid == 0) unbased = nq;
   // the tile's queries, rounded to bf16 (to nearest even), zero past B
-  for (int i = tid; i < nkb * AX_NQ * 8; i += AX_THREADS) {
-    const int kb = i / (AX_NQ * 8), q = (i / 8) % AX_NQ, ch = i % 8;
-    const int c8 = kb * 8 + ch;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (q < nq && c8 < dch) {
-      const float4* src =
-          reinterpret_cast<const float4*>(a.qn + (long)(q0 + q) * D) + 2 * c8;
-      const float4 u = src[0], w = src[1];
-      v = make_uint4(bf16x2(u.x, u.y), bf16x2(u.z, u.w), bf16x2(w.x, w.y),
-                     bf16x2(w.z, w.w));
+  if constexpr (!QSTREAM)
+    for (int i = tid; i < nkb * AX_NQ * 8; i += AX_THREADS) {
+      const int kb = i / (AX_NQ * 8), q = (i / 8) % AX_NQ, ch = i % 8;
+      const int c8 = kb * 8 + ch;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (q < nq && c8 < dch) {
+        const float4* src =
+            reinterpret_cast<const float4*>(a.qn + (long)(q0 + q) * D) +
+            2 * c8;
+        const float4 u = src[0], w = src[1];
+        v = make_uint4(bf16x2(u.x, u.y), bf16x2(u.z, u.w), bf16x2(w.x, w.y),
+                       bf16x2(w.z, w.w));
+      }
+      *reinterpret_cast<uint4*>(qsm + kb * AX_NQ * 128 + swz(q, ch)) = v;
     }
-    *reinterpret_cast<uint4*>(qsm + kb * AX_NQ * 128 + swz(q, ch)) = v;
-  }
 
   const unsigned ring0 = (unsigned)__cvta_generic_to_shared(smem);
   const unsigned q_s = (unsigned)__cvta_generic_to_shared(qsm);
@@ -1368,7 +1405,7 @@ annex_select_kernel(const AnnexArgs a) {
   // stage s <- depth chunk s % nkb of the chunk's tile s / nkb
   auto load = [&](int s) {
     const int tile = s / nkb, kb = s - tile * nkb;
-    const unsigned xs = ring0 + (s % AX_STAGES) * AX_SUB_BYTES;
+    const unsigned xs = ring0 + (s % AX_STAGES) * STAGE;
     const int r0 = (tile * a.nc + chunk) * AX_ROWS;
 #pragma unroll
     for (int j = 0; j < AX_ROWS * 8 / AX_THREADS; ++j) {
@@ -1378,6 +1415,9 @@ annex_select_kernel(const AnnexArgs a) {
       cp_async16(xs + swz(row, ch),
                  ok ? a.rows + (long)(r0 + row) * D + c8 * 8 : a.rows, ok);
     }
+    if constexpr (QSTREAM)
+      round_queries(smem + (s % AX_STAGES) * STAGE + AX_SUB_BYTES, a, q0, nq,
+                    kb, tid);
   };
   // stages s + 1 and s + 2 load while stage s multiplies; slot s - 1 may
   // still be read by the wgmma group left in flight
@@ -1415,8 +1455,12 @@ annex_select_kernel(const AnnexArgs a) {
         }
         rt_ok[tid] = ok; rt_tt[tid] = tt; rt_st[tid] = st;
       }
-      const uint64_t da = da0 + ((kb * AX_NQ * 128) >> 4);
-      const uint64_t db = desc_sw128(ring0 + (s % AX_STAGES) * AX_SUB_BYTES +
+      uint64_t da;
+      if constexpr (QSTREAM)
+        da = desc_sw128(ring0 + (s % AX_STAGES) * STAGE + AX_SUB_BYTES);
+      else
+        da = da0 + ((kb * AX_NQ * 128) >> 4);
+      const uint64_t db = desc_sw128(ring0 + (s % AX_STAGES) * STAGE +
                                      wr * 64 * 128);
       asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
@@ -1916,12 +1960,14 @@ annex_rerank_kernel(const AnnexArgs a) {
 }
 
 // Launch 1's dynamic shared memory: 1 KB to align it for the swizzle,
-// the ring, the queries, the warps' staged keys, the tile's row terms,
-// each query's threshold state and histogram.
-size_t annex_select_smem(int D) {
-  return 1024 + (size_t)AX_STAGES * AX_SUB_BYTES +
-         (size_t)((D + 63) / 64) * AX_NQ * 128 + AX_THREADS / 32 * 8 * 64 * 8 +
-         3 * AX_ROWS * 4 +
+// the ring (with the queries' slices when they stream), the queries
+// (when they do not), the warps' staged keys, the tile's row terms, each
+// query's threshold state and histogram.
+size_t annex_select_smem(int D, bool qstream) {
+  return 1024 +
+         (size_t)AX_STAGES * (AX_SUB_BYTES + (qstream ? AX_QSUB_BYTES : 0)) +
+         (qstream ? 0 : (size_t)((D + 63) / 64) * AX_QSUB_BYTES) +
+         AX_THREADS / 32 * 8 * 64 * 8 + 3 * AX_ROWS * 4 +
          (size_t)AX_NQ * (6 * 4 + AX_HSTRIDE * 4);
 }
 
@@ -1981,13 +2027,25 @@ cudaError_t launch_after(Kernel kernel, dim3 grid, int threads, size_t smem,
   return err != cudaSuccess ? err : last;
 }
 
+// The queries stay in shared memory for the whole launch where they fit
+// (D <= 768 on the H100), else they stream through the ring.
 cudaError_t launch_annex_select(const AnnexArgs& a, dim3 grid,
                                 cudaStream_t s) {
+  static const size_t limit =
+      device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin, 232448);
+  const size_t held = annex_select_smem(a.D, false);
+  if (held <= limit) {
+    static size_t done = 0;
+    const cudaError_t err = opt_in(annex_select_kernel<false>, held, &done);
+    if (err != cudaSuccess) return err;
+    annex_select_kernel<false><<<grid, AX_THREADS, held, s>>>(a);
+    return cudaGetLastError();
+  }
   static size_t done = 0;
-  const size_t smem = annex_select_smem(a.D);
-  const cudaError_t err = opt_in(annex_select_kernel, smem, &done);
+  const size_t smem = annex_select_smem(a.D, true);
+  const cudaError_t err = opt_in(annex_select_kernel<true>, smem, &done);
   if (err != cudaSuccess) return err;
-  annex_select_kernel<<<grid, AX_THREADS, smem, s>>>(a);
+  annex_select_kernel<true><<<grid, AX_THREADS, smem, s>>>(a);
   return cudaGetLastError();
 }
 

@@ -26,6 +26,14 @@ What differs from the JAX package: no jit (each step runs eagerly), the
 parameters live in the optimizer's flat buffer, and the dropout masks
 come from per-step seeds (`layers.Dropout`) and are not JAX's bits.
 
+With DeepSeek-V3's block (`config.DeepSeekV3Config`, no JAX
+counterpart) the step is the same with three differences: the loss has
+no place-code term (the model has no place cells), the modulators read
+the plain token embedding, and after the optimizer step every MoE layer
+moves its routing bias by the step's per-expert loads, which it counted
+on the device (`MoEFFN.update_bias`, no host sync). It trains on one
+rank (`shard_to_mesh` refuses it).
+
 `shard_to_mesh` trains over a DeviceMesh, one process per device, on
 every mesh the JAX package's `Trainer.shard_to_mesh` takes:
 - data parallelism over the batch axes (every axis but 'model', 'seq'
@@ -211,6 +219,7 @@ class Trainer:
         self.model = HippocampalTransformer(
             cfg, mcfg if cfg.use_rag else None, device=dev, generator=gen)
         self.model.train()
+        self._moe = self.model.moe_layers
         self.hippocampus = HippocampalFormation(mcfg, seed=seed + 1,
                                                 device=dev)
         self.schedule = warmup_cosine_schedule(
@@ -289,6 +298,10 @@ class Trainer:
         if self._tp is not None:
             raise RuntimeError("the trainer's model is already split over "
                                "a 'model' axis; place a new trainer")
+        if self.config.model.block != "hippocampal":
+            raise NotImplementedError(
+                "DeepSeek-V3's block trains on one rank here: its expert "
+                "loads and experts are not exchanged over a mesh")
         pcfg = self.config.parallel
         names = tuple(mesh.mesh_dim_names)
         seq_ax = pcfg.seq_axis_name
@@ -450,8 +463,7 @@ class Trainer:
         if self.amygdala is None and self.thalamus is None:
             return prosody, thalamus_scale
         with torch.no_grad():
-            emb = self.model.semantic_encoder.token_embedding.weight
-            token_embeds = emb[ids].float()
+            token_embeds = self.model.token_table[ids].float()
             if self._tp is not None:      # the table holds D/n features
                 token_embeds = gather_dim(token_embeds, self._tp.group, -1)
             arousal = torch.zeros((), device=self.device)
@@ -547,6 +559,8 @@ class Trainer:
             opt.grad.add_(self.ewc.penalty_grad(opt.flat))
         with span("optim.step"):
             opt.step(loss, lr_scale)
+        for moe in self._moe:
+            moe.update_bias(self.config.model.router_bias_rate)
 
         if store_memory:
             with span("trainer.store"):

@@ -11,7 +11,12 @@
   off, a span is one flag test and a shared no-op context;
 - `counters`, `count(name)`, `host_sync(site)`: always-on event counts
   (which retrieval path ran, aux builds, each place where the host waits
-  for the device), one dict increment each and no device work;
+  for the device), one dict increment each and no device work. DeepSeek-
+  V3's block records spans `mla.project`, `mla.core`, `moe.route`,
+  `moe.dispatch`, `moe.experts`, `moe.combine`, `moe.shared` and, on
+  autograd's thread, `moe.experts_bwd`, and counts `path.mla` and
+  `path.moe_grouped` (`path.moe_loop` on the CPU) once a layer's
+  forward;
 - `StepTimer`: host-clock step times, fenced on the card.
 """
 

@@ -1457,3 +1457,137 @@ def test_annex_pass_gradient_matches_plain_autograd(dev, G, C, k, B):
     assert not sl1.requires_grad and (sl1 >= 0).all()
     assert q1.grad.abs().max() > 0
     assert (q1.grad - q2.grad).abs().max().item() <= 1e-5
+
+
+# Kernel B, its gradient and the annex pass at DeepSeek-V3's width: the
+# Moonlight LM's memory layers retrieve rows of D = 2048 (K = 256 clusters
+# of C = 896, probe 8, 100,000 rows, k = 5) at batches of 1 and 4. At this
+# width the annex pass's queries stream through its ring (`annex_select_
+# kernel<true>`).
+@functools.lru_cache(maxsize=1)
+def _wide_bank():
+    rng = np.random.RandomState(2048)
+    return _ivf_inputs(rng, 256, 896, 2048, 1, 8, 100_000)[:3]
+
+
+def _wide_inputs(B):
+    cl, aux, feats = _wide_bank()
+    rng = np.random.RandomState(B)
+    q = rng.randn(B, 2048).astype(np.float32)
+    qn = torch.from_numpy(q / np.linalg.norm(q, axis=1, keepdims=True))
+    top_c = torch.from_numpy(np.stack([rng.choice(256, 8, replace=False)
+                                       for _ in range(B)]).astype(np.int32))
+    return cl, aux, feats, qn, top_c
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_ivf_retrieve_fused_kernel_at_d2048(dev, B):
+    cl, aux, feats, qn, top_c = (t.to(dev) for t in _wide_inputs(B))
+    s, sl = ivf_retrieve_fused(cl, aux, feats, qn, top_c, 128, 5)
+    ps, psl = ivf_retrieve_fused_plain(cl, aux, feats, qn, top_c, 128, 5)
+    torch.cuda.synchronize()
+    _assert_select_matches(s[:, :5], sl[:, :5], ps[:, :5], psl[:, :5], B)
+
+
+def test_ivf_retrieve_fused_grad_at_d2048(dev):
+    from aura_snn_rag_tpu_torch.ops.cuda.ivf_scan import (
+        ivf_retrieve_fused_grad)
+    cl, aux, feats, qn, top_c = (t.to(dev) for t in _wide_inputs(4))
+    rng = np.random.RandomState(7)
+    strength = torch.from_numpy(rng.rand(100_000).astype(np.float32)
+                                + 0.5).to(dev)
+    aux = aux.clone()
+    aux[:, 0] = 0.5 * strength[aux[:, 2].long()]
+    g = torch.from_numpy(rng.randn(4, 5).astype(np.float32)).to(dev)
+
+    def loss(s, sl):
+        return (torch.where(sl[:, :5] >= 0, s[:, :5], 0.0) * g).sum()
+
+    q1 = qn.clone().requires_grad_(True)
+    s1, sl1 = ivf_retrieve_fused_grad(cl, aux, feats, strength, 0.5, q1,
+                                      top_c, 128, 5)
+    loss(s1, sl1).backward()
+    q2 = qn.clone().requires_grad_(True)
+    s2, sl2 = ivf_retrieve_fused_plain(cl, aux, feats, q2, top_c, 128, 5)
+    loss(s2, sl2).backward()
+    torch.cuda.synchronize()
+    assert torch.equal(sl1[:, :5], sl2[:, :5])
+    # f32 products and sums in another order, over 2048 terms
+    assert (q1.grad - q2.grad).abs().max().item() <= 1e-5
+    assert q1.grad.abs().sum().item() > 0
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_annex_pass_at_d2048_matches_plain(dev, B):
+    from aura_snn_rag_tpu_torch.ops.cuda import annex
+    cfg, st, feats, slots = _annex_bank(16, 896, 2048, 1.0, True)
+    qn, b_s, b_slot = _annex_inputs(cfg, st, feats, slots, B, 5, 40 + B)
+    n0 = dict(launch_counts)
+    s, sl = annex.annex_merge(cfg, st, qn, b_s, b_slot, 128, 5)
+    torch.cuda.synchronize()
+    assert launch_counts["annex_select"] == n0.get("annex_select", 0) + 1
+    ps, psl = annex.annex_merge_plain(cfg, st, qn, b_s[:, :5],
+                                      b_slot[:, :5].long(), 128, 5)
+    _assert_merge_matches(s, sl, ps, psl, 1e-6)
+    assert (~torch.isin(sl, b_slot[:, :5].long()) & (sl >= 0)).any()
+
+
+def test_annex_pass_gradient_at_d2048(dev):
+    from aura_snn_rag_tpu_torch.ops.cuda import annex
+    cfg, st, feats, slots = _annex_bank(16, 896, 2048, 1.0, False)
+    qn, b_s, b_slot = _annex_inputs(cfg, st, feats, slots, 4, 5, 11)
+    b_s.fill_(-1e30)
+    b_slot.fill_(-1)
+    w = torch.randn(4, 5, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(4))
+    q1 = qn.clone().requires_grad_(True)
+    s1, sl1 = annex.annex_merge_grad(cfg, st, q1, b_s, b_slot, 128, 5)
+    (s1 * w).sum().backward()
+    q2 = qn.clone().requires_grad_(True)
+    s2, _ = annex.annex_merge_plain(cfg, st, q2, b_s[:, :5],
+                                    b_slot[:, :5].long(), 128, 5)
+    (torch.where(s2 > -5e29, s2, 0.0) * w).sum().backward()
+    assert (sl1 >= 0).all() and q1.grad.abs().max() > 0
+    assert (q1.grad - q2.grad).abs().max().item() <= 1e-5
+
+
+# The MoE's held experts (`ops.experts`) at the published widths (D =
+# 2048, I = 1408, 8 of 64 experts held, 6 picked a token): the grouped
+# products against the per-expert loop, forward and backward, with no
+# host sync, under a bias that sends every pick to the held experts (the
+# buffer's worst case), under none, and under plain routing.
+@pytest.mark.parametrize("skew", [0.0, 10.0])
+def test_grouped_experts_match_the_loop_on_the_card(dev, skew):
+    from aura_snn_rag_tpu_torch.ops import experts as ex
+    T, D, I, held, off, k = 4096, 2048, 1408, 8, 8, 6
+    gen = torch.Generator(device=dev).manual_seed(int(skew) + 3)
+    x = torch.randn(T, D, device=dev, generator=gen).bfloat16() \
+        .requires_grad_(True)
+    w13 = (torch.randn(held, 2 * I, D, device=dev, generator=gen)
+           * D ** -0.5).bfloat16().requires_grad_(True)
+    w2 = (torch.randn(held, D, I, device=dev, generator=gen)
+          * I ** -0.5).bfloat16().requires_grad_(True)
+    bias = torch.zeros(64, device=dev)
+    bias[off:off + held] = skew
+    s = torch.rand(T, 64, device=dev, generator=gen)
+    top = torch.topk(s + bias, k).indices
+    w = s.gather(-1, top).requires_grad_(True)
+    g = torch.randn(T, D, device=dev, generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y1 = ex.held_experts_grouped(x, w13, w2, top, w, off)
+        got = torch.autograd.grad((y1.float() * g).sum(), [x, w13, w2, w])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    y2 = ex.held_experts_loop(x, w13, w2, top, w, off)
+    want = torch.autograd.grad((y2.float() * g).sum(), [x, w13, w2, w])
+    torch.cuda.synchronize()
+    # bf16 products summed in other orders (and the experts' outputs
+    # rounded to bf16 at other places)
+    scale = y2.float().abs().max().item()
+    assert (y1.float() - y2.float()).abs().max().item() <= 2e-2 * scale
+    for a, b, n in zip(got, want, ["x", "w13", "w2", "w"]):
+        assert torch.isfinite(a.float()).all(), n
+        err = (a.float() - b.float()).norm() / b.float().norm()
+        assert err <= 1e-2, (n, err.item())
