@@ -770,9 +770,12 @@ class MoEFFN(nn.Module):
       w = s_chosen / sum(s_chosen) * routed scaling;
       y = sum of w_i E_i(x) over the chosen experts held here + shared(x).
     On the card the held experts run as grouped products
-    (`ops.experts.held_experts_grouped`, counter `path.moe_grouped`), on
-    the CPU one at a time (`held_experts_loop`, `path.moe_loop`); no host
-    sync, no token dropped. Each forward outside a backward adds its
+    (`ops.experts.held_experts_grouped`, counter `path.moe_grouped`) with
+    hand-written passes around them that touch only the filled rows of
+    the worst-case row buffer, and a combine that gathers each token's
+    held picks and sums them in f32 (no atomics); on the CPU one at a
+    time (`held_experts_loop`, `path.moe_loop`); no host sync, no token
+    dropped. Each forward outside a backward adds its
     picks per expert (all `n_routed_experts`) to `step_load`, which the
     trainer's bias update reads and clears (`update_bias`), and to
     `load_tally`, which only grows (read around a window). Spans

@@ -17,34 +17,45 @@ Two paths compute the same function:
   pick) of a held expert into a row buffer grouped by expert, each group
   padded to `ALIGN` rows, from device tensors alone: the buffer has room
   for the most the picks can bring (T * min(k, held) rows and the
-  padding), so nothing is dropped and nothing is read back. Then
-  `torch._grouped_mm` runs each projection once over all held experts
-  (gate and up as one [held, 2I, D] weight, then down), with the
-  groups' ends `offs` on the device. The rows past the last group are
-  never computed (their contents are undefined); every such row, and
-  every padding row, points at one of `DUMP` extra output rows that are
-  dropped (spread, so that their atomic adds do not queue on one row),
-  and its weight is 0. The autograd Function recomputes the gathered rows
-  and the first product in the backward rather than keep [R, .]
-  buffers for it, and opens span `moe.experts_bwd` there.
+  padding), so nothing is dropped and nothing is read back. Routing
+  fills about held / n_routed_experts of it. `torch._grouped_mm` runs
+  each projection once over all held experts (gate and up as one [held,
+  2I, D] weight, then down), with the groups' ends `offs` on the device;
+  the passes around the products (the rows' gather, the SwiGLU, the
+  weighted combine and their gradients) are hand-written kernels
+  (`ops/cuda/csrc/experts.cu`) that read the groups' end `offs[-1]` on
+  the device as well. So every pass touches only the filled rows: the
+  rows from the end up to the buffer's size are allocated and never read
+  or written. A padding row gathers zeros and carries weight 0, so it
+  adds nothing to any gradient. The combine gathers, for each token, the
+  rows of its picks held here (`pos`) and sums them weighted in f32 in
+  pick order: no atomics, one fixed order. The autograd Function
+  recomputes the gathered rows and the first product in the backward
+  rather than keep [R, .] buffers for it, and opens span
+  `moe.experts_bwd` there.
+
+Each pass has a plain PyTorch version here (`*_plain`), bounded by the
+same end (read on the host): CPU tensors take it, CUDA tensors launch the
+kernel (counted in `ops.cuda.launch_counts`) or raise.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import ctypes
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
+from aura_snn_rag_tpu_torch.ops.cuda import _build
 from aura_snn_rag_tpu_torch.utils.trace import span
 
 ALIGN = 16                # rows a group is padded to
-DUMP = 512                # dropped output rows the unused rows add into
+MAX_PICKS = 32            # k the combine kernel takes (a lane a pick)
 
 
 class Plan(NamedTuple):
-    src: torch.Tensor      # [R] token of each row (0 for unused rows)
-    dest: torch.Tensor     # [R] token the row's output adds to (>= T: none)
+    src: torch.Tensor      # [R] pick t * k + p of each row; -1: none
     pos: torch.Tensor      # [T * k] row of each (token, pick); R if not held
     offs: torch.Tensor     # [held] int32 end row of each expert's group
 
@@ -76,65 +87,286 @@ def dispatch_plan(top: torch.Tensor, held: int, offset: int) -> Plan:
     starts = ends - padded
     pos = torch.where(lid < held, starts[lid.clamp(max=held - 1)] + rank,
                       torch.full_like(lid, R))
-    tok = torch.arange(T, device=dev).repeat_interleave(k)
-    src = torch.zeros(R + 1, dtype=torch.long, device=dev)
-    dest = T + torch.arange(R + 1, device=dev) % DUMP
-    src[pos] = tok               # picks of other experts land on row R
-    dest[pos] = tok
-    return Plan(src[:R], dest[:R], pos, ends.to(torch.int32))
+    src = torch.full((R + 1,), -1, dtype=torch.long, device=dev)
+    src[pos] = torch.arange(T * k, device=dev)   # other experts' on row R
+    return Plan(src[:R], pos, ends.to(torch.int32))
 
 
-def _swiglu(h: torch.Tensor) -> torch.Tensor:
-    g, u = h.chunk(2, dim=-1)
-    return F.silu(g) * u
+def _rows(R: int, width: int, like: torch.Tensor) -> torch.Tensor:
+    """An [R, width] row buffer in `like`'s dtype, left unset: only its
+    filled rows are ever written."""
+    return torch.empty(R, width, dtype=like.dtype, device=like.device)
+
+
+def _end(offs: torch.Tensor) -> int:
+    """The groups' end, read on the host (the plain versions)."""
+    return int(offs[-1])
+
+
+def gather_rows_plain(x: torch.Tensor, src: torch.Tensor,
+                      offs: torch.Tensor, k: int) -> torch.Tensor:
+    """xs [R, D]: row r < end holds x[src[r] // k] (zeros for padding)."""
+    n = _end(offs)
+    xs = _rows(src.shape[0], x.shape[1], x)
+    s = src[:n]
+    xs[:n] = torch.where((s >= 0)[:, None], x[s.clamp(min=0) // k], 0)
+    return xs
+
+
+def swiglu_plain(h: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+    """a [R, I]: silu(g) * u of the rows r < end of h = [g | u], in f32,
+    rounded once."""
+    n = _end(offs)
+    a = _rows(h.shape[0], h.shape[1] // 2, h)
+    g, u = h[:n].float().chunk(2, dim=-1)
+    a[:n] = (F.silu(g) * u).to(h.dtype)
+    return a
+
+
+def combine_plain(rows: torch.Tensor, w: Optional[torch.Tensor],
+                  pos: torch.Tensor, offs: torch.Tensor,
+                  T: int) -> torch.Tensor:
+    """y [T, D] in rows' dtype: for each token the sum over its picks p
+    held here (pos < end) of w[t, p] * rows[pos[t * k + p]] (w None:
+    unweighted), in f32 in pick order."""
+    n = _end(offs)
+    k = pos.numel() // T
+    sel = (pos < n).nonzero()[:, 0]
+    part = torch.zeros(T * k, rows.shape[1], dtype=torch.float32,
+                       device=rows.device)
+    v = rows[pos[sel]].float()
+    part[sel] = v if w is None else v * w.reshape(-1)[sel, None]
+    part = part.view(T, k, -1)
+    y = torch.zeros(T, rows.shape[1], dtype=torch.float32,
+                    device=rows.device)
+    for p in range(k):
+        y += part[:, p]
+    return y.to(rows.dtype)
+
+
+def grad_gather_plain(gy: torch.Tensor, w: torch.Tensor, src: torch.Tensor,
+                      offs: torch.Tensor, k: int):
+    """(gyr, go) [R, D]: row r < end holds gy[src[r] // k] and w[src[r]]
+    times it (zeros for padding)."""
+    n = _end(offs)
+    R, D = src.shape[0], gy.shape[1]
+    gyr, go = _rows(R, D, gy), _rows(R, D, gy)
+    s = src[:n]
+    live = s >= 0
+    q = s.clamp(min=0)
+    g = torch.where(live[:, None], gy[q // k], 0)
+    gyr[:n] = g
+    wt = torch.where(live, w.reshape(-1)[q], 0.0)
+    go[:n] = (g.float() * wt[:, None]).to(gy.dtype)
+    return gyr, go
+
+
+def swiglu_bwd_plain(h: torch.Tensor, ga0: torch.Tensor, w: torch.Tensor,
+                     src: torch.Tensor, offs: torch.Tensor):
+    """From h = [g | u] and ga0 (the gradient into a before the row's
+    weight wt) at the rows r < end: (a [R, I] as the forward rounded it,
+    dh [R, 2I] = [ga * u * silu'(g) | ga * silu(g)] with ga = wt * ga0,
+    gw [T, k] f32 with gw[src[r]] = sum_i a * ga0 and 0 at picks not held
+    here)."""
+    n = _end(offs)
+    R, I = h.shape[0], h.shape[1] // 2
+    a, dh = _rows(R, I, h), _rows(R, 2 * I, h)
+    gw = torch.zeros(w.numel(), dtype=torch.float32, device=w.device)
+    g, u = h[:n].float().chunk(2, dim=-1)
+    s = src[:n]
+    live = s >= 0
+    q = s.clamp(min=0)
+    wt = torch.where(live, w.reshape(-1)[q], 0.0)
+    sg = torch.sigmoid(g)
+    silu = g * sg
+    ab = (silu * u).to(h.dtype)
+    ga0f = ga0[:n].float()
+    ga = ga0f * wt[:, None]
+    a[:n] = ab
+    dh[:n] = torch.cat([ga * u * (sg * (1 + g * (1 - sg))), ga * silu],
+                       dim=-1).to(h.dtype)
+    gw[q[live]] = (ab.float() * ga0f).sum(-1)[live]
+    return a, dh, gw.view_as(w)
+
+
+# each launcher's C arguments before the stream
+_ARGTYPES = {
+    "experts_gather": [ctypes.c_void_p] * 4 + [ctypes.c_long]
+    + [ctypes.c_int] * 3,
+    "experts_swiglu": [ctypes.c_void_p] * 3 + [ctypes.c_long]
+    + [ctypes.c_int] * 2,
+    "experts_combine": [ctypes.c_void_p] * 5 + [ctypes.c_long]
+    + [ctypes.c_int] * 3,
+    "experts_grad_gather": [ctypes.c_void_p] * 6 + [ctypes.c_long]
+    + [ctypes.c_int] * 3,
+    "experts_swiglu_bwd": [ctypes.c_void_p] * 8 + [ctypes.c_long]
+    + [ctypes.c_int] * 2,
+}
+_bound: Dict[str, Callable[..., int]] = {}
+
+
+def _launch(symbol: str, *args, counted: Optional[str] = None) -> None:
+    """Calls `<symbol>_launch` of `csrc/experts.cu` on the current stream
+    (tensors as pointers, None as null) and counts it as `counted` (by
+    default `symbol`)."""
+    fn = _bound.get(symbol)
+    if fn is None:
+        fn = getattr(_build.load("experts"), f"{symbol}_launch")
+        fn.argtypes = _ARGTYPES[symbol] + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _bound[symbol] = fn
+    args = [ctypes.c_void_p(None) if a is None else
+            _build.ptr(a) if isinstance(a, torch.Tensor) else a
+            for a in args]
+    _build.check(fn(*args, _build.stream()), symbol)
+    _build.launch_counts[counted or symbol] += 1
+
+
+def _check(name: str, *pairs) -> None:
+    """Each (tensor, dtype) contiguous, of that dtype, on the first's
+    device; bf16 rows 16-byte aligned with a width a multiple of 8."""
+    dev = pairs[0][0].device
+    for t, dt in pairs:
+        if t.dtype != dt:
+            raise TypeError(f"{name}: expected {dt}, got {t.dtype}")
+        if not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{name}: inputs must be contiguous and on "
+                             f"one device")
+        if dt == torch.bfloat16 and (t.data_ptr() % 16 or t.shape[-1] % 8):
+            raise ValueError(f"{name}: bf16 rows must be 16-byte aligned "
+                             f"and a multiple of 8 wide, got "
+                             f"{tuple(t.shape)}")
+
+
+def _half_width(name: str, h: torch.Tensor) -> int:
+    """I of h = [g | u], a multiple of 8 (16-byte chunks of a and of g)."""
+    if h.shape[1] % 16:
+        raise ValueError(f"{name}: h {tuple(h.shape)} is not [g | u] with "
+                         f"g a multiple of 8 wide")
+    return h.shape[1] // 2
+
+
+_BF16, _F32, _I32, _I64 = torch.bfloat16, torch.float32, torch.int32, \
+    torch.long
+
+
+def gather_rows(x: torch.Tensor, src: torch.Tensor, offs: torch.Tensor,
+                k: int) -> torch.Tensor:
+    """`gather_rows_plain` (kernel `experts_gather` on the card)."""
+    if not x.is_cuda:
+        return gather_rows_plain(x, src, offs, k)
+    _check("experts_gather", (x, _BF16), (src, _I64), (offs, _I32))
+    R, D = src.shape[0], x.shape[1]
+    xs = _rows(R, D, x)
+    _launch("experts_gather", x, src, offs, xs, R, D, offs.numel(), k)
+    return xs
+
+
+def swiglu(h: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+    """`swiglu_plain` (kernel `experts_swiglu` on the card)."""
+    if not h.is_cuda:
+        return swiglu_plain(h, offs)
+    _check("experts_swiglu", (h, _BF16), (offs, _I32))
+    R, I = h.shape[0], _half_width("experts_swiglu", h)
+    a = _rows(R, I, h)
+    _launch("experts_swiglu", h, offs, a, R, I, offs.numel())
+    return a
+
+
+def combine(rows: torch.Tensor, w: Optional[torch.Tensor], pos: torch.Tensor,
+            offs: torch.Tensor, T: int) -> torch.Tensor:
+    """`combine_plain` (kernel `experts_combine` on the card; counted as
+    `experts_grad_combine` when unweighted, the gradient's)."""
+    if not rows.is_cuda:
+        return combine_plain(rows, w, pos, offs, T)
+    k = pos.numel() // T
+    _check("experts_combine", (rows, _BF16), (pos, _I64), (offs, _I32),
+           *([] if w is None else [(w, _F32)]))
+    if not 0 < k <= MAX_PICKS or pos.numel() != T * k:
+        raise ValueError(f"experts_combine: {pos.numel()} picks over "
+                         f"{T} tokens")
+    D = rows.shape[1]
+    y = torch.empty(T, D, dtype=rows.dtype, device=rows.device)
+    _launch("experts_combine", rows, w, pos, offs, y, T, D, offs.numel(), k,
+            counted=None if w is not None else "experts_grad_combine")
+    return y
+
+
+def grad_gather(gy: torch.Tensor, w: torch.Tensor, src: torch.Tensor,
+                offs: torch.Tensor, k: int):
+    """`grad_gather_plain` (kernel `experts_grad_gather` on the card)."""
+    if not gy.is_cuda:
+        return grad_gather_plain(gy, w, src, offs, k)
+    _check("experts_grad_gather", (gy, _BF16), (w, _F32), (src, _I64),
+           (offs, _I32))
+    R, D = src.shape[0], gy.shape[1]
+    gyr, go = _rows(R, D, gy), _rows(R, D, gy)
+    _launch("experts_grad_gather", gy, w, src, offs, gyr, go, R, D,
+            offs.numel(), k)
+    return gyr, go
+
+
+def swiglu_bwd(h: torch.Tensor, ga0: torch.Tensor, w: torch.Tensor,
+               src: torch.Tensor, offs: torch.Tensor):
+    """`swiglu_bwd_plain` (kernel `experts_swiglu_bwd` on the card)."""
+    if not h.is_cuda:
+        return swiglu_bwd_plain(h, ga0, w, src, offs)
+    _check("experts_swiglu_bwd", (h, _BF16), (ga0, _BF16), (w, _F32),
+           (src, _I64), (offs, _I32))
+    R, I = h.shape[0], _half_width("experts_swiglu_bwd", h)
+    if ga0.shape != (R, I):
+        raise ValueError(f"experts_swiglu_bwd: h {tuple(h.shape)}, ga0 "
+                         f"{tuple(ga0.shape)}")
+    a, dh = _rows(R, I, h), _rows(R, 2 * I, h)
+    gw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+    _launch("experts_swiglu_bwd", h, ga0, w, src, offs, a, dh, gw, R, I,
+            offs.numel())
+    return a, dh, gw
 
 
 class _HeldExperts(torch.autograd.Function):
-    """y [T, D] = sum over rows r with dest[r] = t of wt[r] * SwiGLU_e(x[src
-    [r]]) (e the row's group), through `torch._grouped_mm`; x and the
-    weights in the compute dtype (bf16), the sum in f32."""
+    """y [T, D] = for each token the sum over its picks p held here of
+    w[t, p] * SwiGLU_e(x[t]) (e the pick's expert), through
+    `torch._grouped_mm` over the rows of `src`; x and the weights in the
+    compute dtype (bf16), the sum in f32, y in x's dtype."""
 
     @staticmethod
-    def forward(ctx, x, w13, w2, wt, src, dest, offs):
-        T, D = x.shape
+    def forward(ctx, x, w13, w2, w, src, pos, offs):
+        T, k = w.shape
         with span("moe.experts"):
-            h = torch._grouped_mm(x[src], w13.transpose(1, 2), offs=offs)
-            o = torch._grouped_mm(_swiglu(h), w2.transpose(1, 2), offs=offs)
+            xs = gather_rows(x, src, offs, k)
+            h = torch._grouped_mm(xs, w13.transpose(1, 2), offs=offs)
+            del xs
+            a = swiglu(h, offs)
             del h
+            o = torch._grouped_mm(a, w2.transpose(1, 2), offs=offs)
+            del a
         with span("moe.combine"):
-            y = torch.zeros(T + DUMP, D, dtype=torch.float32,
-                            device=x.device)
-            y.index_add_(0, dest, o.float() * wt[:, None])
-        ctx.save_for_backward(x, w13, w2, wt, src, dest, offs)
-        return y[:T].to(x.dtype)
+            y = combine(o, w, pos, offs, T)
+        ctx.save_for_backward(x, w13, w2, w, src, pos, offs)
+        return y
 
     @staticmethod
     def backward(ctx, gy):
-        x, w13, w2, wt, src, dest, offs = ctx.saved_tensors
-        T, D = x.shape
-        dt = x.dtype
+        x, w13, w2, w, src, pos, offs = ctx.saved_tensors
+        T, k = w.shape
         with span("moe.experts_bwd"):
-            xs = x[src]
+            xs = gather_rows(x, src, offs, k)
             h = torch._grouped_mm(xs, w13.transpose(1, 2), offs=offs)
-            g, u = h.chunk(2, dim=-1)
-            silu = F.silu(g)
-            a = silu * u
-            # the rows' output gradient before the weight (0 past T)
-            gyr = F.pad(gy.to(dt), (0, 0, 0, DUMP))[dest]
+            # the rows' output gradient, before and after the weight
+            gyr, go = grad_gather(gy.to(x.dtype).contiguous(), w, src, offs,
+                                  k)
             ga0 = torch._grouped_mm(gyr, w2, offs=offs)          # [R, I]
-            live = dest < T
-            gwt = torch.where(live, (a.float() * ga0.float()).sum(-1), 0.0)
-            go = (gyr.float() * wt[:, None]).to(dt)
+            del gyr
+            a, dh, gw = swiglu_bwd(h, ga0, w, src, offs)
+            del h, ga0
             gw2 = torch._grouped_mm(go.t(), a, offs=offs)         # [E, D, I]
-            ga = (ga0.float() * wt[:, None]).to(dt)
-            dh = torch.cat([torch.ops.aten.silu_backward(ga * u, g),
-                            ga * silu], dim=-1)
+            del go, a
             gw13 = torch._grouped_mm(dh.t(), xs, offs=offs)       # [E, 2I, D]
             gxs = torch._grouped_mm(dh, w13, offs=offs)           # [R, D]
-            gx = torch.zeros(T + DUMP, D, dtype=torch.float32,
-                             device=x.device)
-            gx.index_add_(0, dest, gxs.float())
-        return gx[:T].to(dt), gw13, gw2, gwt, None, None, None
+            del dh, xs
+            gx = combine(gxs, None, pos, offs, T)
+        return gx, gw13, gw2, gw, None, None, None
 
 
 def held_experts_grouped(x: torch.Tensor, w13: torch.Tensor,
@@ -144,14 +376,10 @@ def held_experts_grouped(x: torch.Tensor, w13: torch.Tensor,
     [held, D, I] (bf16), top [T, k] the picked experts' global ids, w
     [T, k] f32 their weights: the held experts' part of the layer's
     output [T, D], in x's dtype."""
-    held = w13.shape[0]
     with span("moe.dispatch"):
-        plan = dispatch_plan(top, held, offset)
-        R = plan.src.shape[0]
-        wt = torch.zeros(R + 1, dtype=w.dtype, device=w.device).index_put(
-            (plan.pos,), w.reshape(-1))[:R]
-    return _HeldExperts.apply(x, w13, w2, wt, plan.src, plan.dest,
-                              plan.offs)
+        plan = dispatch_plan(top, w13.shape[0], offset)
+    return _HeldExperts.apply(x.contiguous(), w13, w2, w.float().contiguous(),
+                              plan.src, plan.pos, plan.offs)
 
 
 def held_experts_loop(x: torch.Tensor, w13: torch.Tensor, w2: torch.Tensor,
@@ -171,3 +399,8 @@ def held_experts_loop(x: torch.Tensor, w13: torch.Tensor, w2: torch.Tensor,
         wt = (w * pick).sum(dim=-1)[tok]
         y = y.index_add(0, tok, h.float() * wt[:, None])
     return y.to(x.dtype)
+
+
+def _swiglu(h: torch.Tensor) -> torch.Tensor:
+    g, u = h.chunk(2, dim=-1)
+    return F.silu(g) * u

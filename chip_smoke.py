@@ -34,7 +34,10 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
    pass (`annex_select` + `annex_rerank`, after kernel B on the engine's
    paths) at the engine's annex (B = 1, 8, 1024) and the LM's (B = 1, 8)
    against its plain version, the PyTorch chain it replaced (also its
-   `library_ms`);
+   `library_ms`), and the held experts' six passes around their grouped
+   products (`ops/experts.py`) at the Moonlight cell's shape against
+   their plain versions and the chain over the worst-case row buffer they
+   replaced;
 2. engine phase: the episodic-memory engine in bench.py's configuration
    (1,000,000 x 768, K = 4096, probe 64, int8 coarse bank): bulk_load,
    write_memories, rebuild_centroids, a write on the live index, then
@@ -1115,6 +1118,146 @@ def kernel_annex(dev, gen, name, cases_B, profile_cases=()):
             f"distinct candidates={uniq} {row.get('launch_ms', '')}")
         del st, sets, calls
         torch.cuda.empty_cache()
+    return res
+
+
+# the held experts at the Moonlight cell's shape (4 x 8192 tokens, hidden
+# 2048, expert width 1408, experts 0-7 of 64 held, 6 picked a token)
+EXPERTS_SHAPE = dict(T=32768, D=2048, I=1408, held=8, k=6, E=64)
+# the held experts' passes around the grouped products (`ops/experts.py`,
+# `csrc/experts.cu`); they replace no Pallas kernel
+EXPERT_PASSES = ("experts_gather", "experts_swiglu", "experts_combine",
+                 "experts_grad_gather", "experts_swiglu_bwd",
+                 "experts_grad_combine")
+
+
+def kernel_experts(dev, gen):
+    """Each of the held experts' passes at `EXPERTS_SHAPE` under plain
+    routing (top 6 of 64 uniform scores): held against its plain version
+    (bounded by the same end, read on the host), timed with CUDA events
+    and graph replay beside the plain version and the PyTorch chain that
+    ran over the whole worst-case buffer before (`chain_ms`, the
+    yardstick), and its bound: the bytes of the filled rows (each input
+    row read once, each output row written once) at 3.35 TB/s."""
+    import torch
+    import torch.nn.functional as F
+    from aura_snn_rag_tpu_torch.ops import experts as ex
+
+    sh = EXPERTS_SHAPE
+    T, D, I, held, k = sh["T"], sh["D"], sh["I"], sh["held"], sh["k"]
+    s = torch.rand(T, sh["E"], device=dev, generator=gen)
+    top = torch.topk(s, k).indices
+    w = s.gather(-1, top)
+    w = (w / w.sum(-1, keepdim=True) * 2.446).contiguous()
+    plan = ex.dispatch_plan(top, held, 0)
+    src, pos, offs = plan.src, plan.pos, plan.offs
+    R, n = src.shape[0], int(offs[-1])
+    live = src[:n] >= 0
+    picks = int(live.sum())
+    tokens = int(torch.unique(src[:n][live] // k).numel())
+    bf = torch.bfloat16
+
+    def rows(width):
+        return torch.randn(R, width, device=dev, generator=gen).to(bf)
+
+    x = torch.randn(T, D, device=dev, generator=gen).to(bf)
+    gy = torch.randn(T, D, device=dev, generator=gen).to(bf)
+    h, ga0, o = rows(2 * I), rows(I), rows(D)
+    # the chain's row maps over the whole buffer: the token of each row (0
+    # for a row without a pick), the output row it added into (one of 512
+    # dropped rows past T without one) and its weight (0 without one)
+    has = src >= 0
+    tok = torch.where(has, src // k, 0)
+    dest = torch.where(has, src // k, T + torch.arange(R, device=dev) % 512)
+    wt = torch.where(has, w.reshape(-1)[src.clamp(min=0)], 0.0)
+
+    def chain_combine(v, weighted):
+        y = torch.zeros(T + 512, D, dtype=torch.float32, device=dev)
+        y.index_add_(0, dest, v.float() * wt[:, None] if weighted
+                     else v.float())
+        return y[:T].to(bf)
+
+    def chain_swiglu_bwd():
+        g, u = h.chunk(2, dim=-1)
+        silu = F.silu(g)
+        a = silu * u
+        torch.where(dest < T, (a.float() * ga0.float()).sum(-1), 0.0)
+        ga = (ga0.float() * wt[:, None]).to(bf)
+        return torch.cat([torch.ops.aten.silu_backward(ga * u, g),
+                          ga * silu], dim=-1)
+
+    def chain_grad_gather():
+        gyr = F.pad(gy, (0, 0, 0, 512))[dest]
+        return (gyr.float() * wt[:, None]).to(bf)
+
+    b_rows = D * 2                    # bytes of a bf16 row of width D
+    cases = {
+        "experts_gather": (
+            lambda: ex.gather_rows(x, src, offs, k),
+            lambda: ex.gather_rows_plain(x, src, offs, k),
+            lambda: x[tok],
+            tokens * b_rows + n * (8 + b_rows)),
+        "experts_swiglu": (
+            lambda: ex.swiglu(h, offs), lambda: ex.swiglu_plain(h, offs),
+            lambda: ex._swiglu(h), n * 6 * I),
+        "experts_combine": (
+            lambda: ex.combine(o, w, pos, offs, T),
+            lambda: ex.combine_plain(o, w, pos, offs, T),
+            lambda: chain_combine(o, True),
+            picks * b_rows + T * k * 12 + T * b_rows),
+        "experts_grad_gather": (
+            lambda: ex.grad_gather(gy, w, src, offs, k),
+            lambda: ex.grad_gather_plain(gy, w, src, offs, k),
+            chain_grad_gather,
+            tokens * b_rows + n * (8 + 2 * b_rows) + picks * 4),
+        "experts_swiglu_bwd": (
+            lambda: ex.swiglu_bwd(h, ga0, w, src, offs),
+            lambda: ex.swiglu_bwd_plain(h, ga0, w, src, offs),
+            chain_swiglu_bwd, n * (8 + 12 * I) + T * k * 4),
+        "experts_grad_combine": (
+            lambda: ex.combine(o, None, pos, offs, T),
+            lambda: ex.combine_plain(o, None, pos, offs, T),
+            lambda: chain_combine(o, False),
+            picks * b_rows + T * k * 8 + T * b_rows),
+    }
+    res = dict(T=T, D=D, I=I, held=held, k=k, R=R, filled_rows=n,
+               picks=picks, distinct_tokens=tokens)
+    for name, (kern, plain, chain, nbytes) in cases.items():
+        got, want = kern(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        err = 0.0
+        for a, b in zip(got, want):
+            m = n if a.shape[0] == R else a.shape[0]
+            a, b = a[:m].float(), b[:m].float()
+            check(torch.isfinite(a).all().item(), f"{name}: not finite")
+            err = max(err, (a - b).abs().max().item()
+                      / max(b.abs().max().item(), 1e-30))
+        # one bf16 rounding apart at most (f32 sums in the same order)
+        check(err <= 2 ** -7, f"{name}: relative error {err}")
+        ms, g_ms = time_ms([kern], iters=20), graph_ms([kern])
+        plain_ms = time_ms([plain], iters=6)
+        chain_ms = time_ms([chain], iters=6)
+        b_ms, b_by = bound_ms(nbytes, 0, "bf16")
+        res[name] = dict(max_rel_err=err, ms=ms, graph_ms=g_ms,
+                         plain_ms=plain_ms, chain_ms=chain_ms,
+                         bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+        log(f"kernel {name} T={T} D={D} I={I} rows {n} of {R}: "
+            f"max_rel_err={err:.3g} ms={ms:.4f} graph_ms={g_ms:.4f} "
+            f"plain_ms={plain_ms:.4f} chain_ms={chain_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}, {nbytes / 1e9:.3f} GB)")
+    # a layer's forward (gather, SwiGLU, combine) and backward (the
+    # gather again, the gradient gather, the SwiGLU's backward, the
+    # gradient combine)
+    fwd, bwd = EXPERT_PASSES[:3], ("experts_gather",) + EXPERT_PASSES[3:]
+    for key in ("graph_ms", "chain_ms", "bound_ms"):
+        res[f"layer_{key}"] = sum(res[p][key] for p in fwd + bwd)
+    log(f"kernel experts a layer: graph {res['layer_graph_ms']:.3f} ms, "
+        f"chain {res['layer_chain_ms']:.3f} ms, bound "
+        f"{res['layer_bound_ms']:.3f} ms")
+    del x, gy, h, ga0, o
+    torch.cuda.empty_cache()
     return res
 
 
@@ -5661,6 +5804,8 @@ def main() -> int:
     res_annex = {"engine": kernel_annex(dev, gen, "engine", (1, 8, 1024),
                                         profile_cases=(1024,)),
                  "lm": kernel_annex(dev, gen, "lm", (1, 8))}
+    # the held experts' passes at the Moonlight cell's shape
+    res_experts = kernel_experts(dev, gen)
 
     # ---- the main path: counts from zero, read after the last phase ----
     _build.reset_launch_counts()
@@ -5854,6 +5999,13 @@ def main() -> int:
             row.update({f"{shape}_b{B}_{key}": value
                         for key, value in r.items()})
     kernels.append(row)
+    # the held experts' passes (no Pallas kernel; only the DeepSeek-V3
+    # block runs them, which no phase here builds)
+    kernels.append(dict(name="+".join(EXPERT_PASSES), route="cuda",
+                        source="aura_snn_rag_tpu_torch/ops/cuda/csrc/"
+                               "experts.cu",
+                        replaces="none (no Pallas kernel for DeepSeek-V3's "
+                                 "experts)", **res_experts))
     log(json.dumps({"torch_topk_ms": topk_ms}))
     log(json.dumps({"engine": stats}))
     log(json.dumps({"lm": lm}))

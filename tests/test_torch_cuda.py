@@ -1,7 +1,8 @@
-"""Kernels A, B, C, D and E and the overflow annex's pass against their
-plain PyTorch versions on the card, the neuromorphic brain system and the
-NaturalBrain path (NaturalBrain, the MoE language zone's forward and
-gradients, the prosody gains, the SRFFN; no kernel) on the card against
+"""Kernels A, B, C, D and E, the overflow annex's pass and the held
+experts' passes against their plain PyTorch versions on the card, the
+neuromorphic brain system and the NaturalBrain path (NaturalBrain, the
+MoE language zone's forward and gradients, the prosody gains, the
+SRFFN; no kernel) on the card against
 the same port objects on the CPU, the sharded bank and the data-parallel
 trainer on a one-rank NCCL group against the unsharded paths, and on the
 same group ring attention against SDPA and the pipelined RAG stack (one
@@ -1555,11 +1556,29 @@ def test_annex_pass_gradient_at_d2048(dev):
 # 2048, I = 1408, 8 of 64 experts held, 6 picked a token): the grouped
 # products against the per-expert loop, forward and backward, with no
 # host sync, under a bias that sends every pick to the held experts (the
-# buffer's worst case), under none, and under plain routing.
-@pytest.mark.parametrize("skew", [0.0, 10.0])
-def test_grouped_experts_match_the_loop_on_the_card(dev, skew):
-    from aura_snn_rag_tpu_torch.ops import experts as ex
-    T, D, I, held, off, k = 4096, 2048, 1408, 8, 8, 6
+# buffer's worst case), under none, and under plain routing. Every row
+# from the groups' end up to the buffer's size starts as NaN (the
+# caching allocator's free memory and the passes' own buffers are
+# poisoned first), so a pass that read one would show.
+_EXPERT_PASSES = {"experts_gather": (1, 1), "experts_swiglu": (1, 0),
+                  "experts_combine": (1, 0), "experts_grad_gather": (0, 1),
+                  "experts_swiglu_bwd": (0, 1),
+                  "experts_grad_combine": (0, 1)}
+
+
+def _poison_rows(dev, monkeypatch, ex, nbytes=6 << 30):
+    """NaN (0xFF bytes: NaN in bf16 and f32) in `nbytes` of the caching
+    allocator's free memory, from which the next calls' buffers (the
+    grouped products' outputs too) are cut, and in every row buffer the
+    held experts' passes allocate."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.empty(nbytes, dtype=torch.uint8, device=dev).fill_(255)
+    monkeypatch.setattr(ex, "_rows", lambda R, width, like: torch.full(
+        (R, width), float("nan"), dtype=like.dtype, device=like.device))
+
+
+def _expert_inputs(dev, skew, T=4096, D=2048, I=1408, held=8, off=8, k=6):
     gen = torch.Generator(device=dev).manual_seed(int(skew) + 3)
     x = torch.randn(T, D, device=dev, generator=gen).bfloat16() \
         .requires_grad_(True)
@@ -1573,13 +1592,34 @@ def test_grouped_experts_match_the_loop_on_the_card(dev, skew):
     top = torch.topk(s + bias, k).indices
     w = s.gather(-1, top).requires_grad_(True)
     g = torch.randn(T, D, device=dev, generator=gen)
-    torch.cuda.synchronize()
+    return x, w13, w2, top, w, g, off
+
+
+@pytest.mark.parametrize("skew", [0.0, 10.0, -10.0])
+def test_grouped_experts_match_the_loop_on_the_card(dev, monkeypatch, skew):
+    from aura_snn_rag_tpu_torch.ops import experts as ex
+    x, w13, w2, top, w, g, off = _expert_inputs(dev, skew)
+    picked = int(((top >= off) & (top < off + 8)).sum())
+    _poison_rows(dev, monkeypatch, ex)
+    launch_counts.clear()
     torch.cuda.set_sync_debug_mode("error")
     try:
         y1 = ex.held_experts_grouped(x, w13, w2, top, w, off)
+        fwd = dict(launch_counts)
         got = torch.autograd.grad((y1.float() * g).sum(), [x, w13, w2, w])
     finally:
         torch.cuda.set_sync_debug_mode(0)
+    bwd = dict(launch_counts)
+    # each pass once per forward or backward
+    assert fwd == {n: f for n, (f, b) in _EXPERT_PASSES.items() if f}
+    assert bwd == {n: f + b for n, (f, b) in _EXPERT_PASSES.items()}
+    assert torch.isfinite(y1.float()).all()
+    for a, n in zip(got, ["x", "w13", "w2", "w"]):
+        assert torch.isfinite(a.float()).all(), n
+    if picked == 0:                     # nothing here: a zero output
+        assert not y1.float().any()
+        assert all(not a.float().any() for a in got)
+        return
     y2 = ex.held_experts_loop(x, w13, w2, top, w, off)
     want = torch.autograd.grad((y2.float() * g).sum(), [x, w13, w2, w])
     torch.cuda.synchronize()
@@ -1588,6 +1628,55 @@ def test_grouped_experts_match_the_loop_on_the_card(dev, skew):
     scale = y2.float().abs().max().item()
     assert (y1.float() - y2.float()).abs().max().item() <= 2e-2 * scale
     for a, b, n in zip(got, want, ["x", "w13", "w2", "w"]):
-        assert torch.isfinite(a.float()).all(), n
         err = (a.float() - b.float()).norm() / b.float().norm()
         assert err <= 1e-2, (n, err.item())
+
+
+@pytest.mark.parametrize("skew", [0.0, 10.0, -10.0])
+def test_expert_passes_match_their_plain_versions_on_the_card(dev, monkeypatch,
+                                                              skew):
+    """Each hand-written pass of the held experts against its plain
+    version on the same inputs: the filled rows agree (one bf16 rounding
+    apart at most, the sums in f32 in the same order), and no pass writes
+    a row from the groups' end on (NaN stays NaN there)."""
+    from aura_snn_rag_tpu_torch.ops import experts as ex
+    x, w13, _, top, w, g, off = _expert_inputs(dev, skew, T=1000)
+    T, k = top.shape
+    plan = ex.dispatch_plan(top, 8, off)
+    src, pos, offs = plan.src, plan.pos, plan.offs
+    R, n = src.shape[0], int(offs[-1])
+    x, w, gy = x.detach(), w.detach(), g.bfloat16()
+    gen = torch.Generator(device=dev).manual_seed(int(skew) + 5)
+    h = torch.randn(R, 2 * 1408, device=dev, generator=gen).bfloat16()
+    ga0 = torch.randn(R, 1408, device=dev, generator=gen).bfloat16()
+    rows = torch.randn(R, 2048, device=dev, generator=gen).bfloat16()
+
+    def same(a, b, name, tol):
+        assert torch.isnan(a[n:].float()).all(), name   # never written
+        a, b = a[:n].float(), b[:n].float()
+        assert torch.isfinite(a).all(), name
+        if n:
+            err = (a - b).abs().max().item()
+            assert err <= tol * b.abs().max().item(), (name, err)
+
+    monkeypatch.setattr(ex, "_rows", lambda R, width, like: torch.full(
+        (R, width), float("nan"), dtype=like.dtype, device=like.device))
+    same(ex.gather_rows(x, src, offs, k),
+         ex.gather_rows_plain(x, src, offs, k), "gather", 0)
+    same(ex.swiglu(h, offs), ex.swiglu_plain(h, offs), "swiglu", 2 ** -7)
+    gyr, go = ex.grad_gather(gy, w, src, offs, k)
+    pgyr, pgo = ex.grad_gather_plain(gy, w, src, offs, k)
+    same(gyr, pgyr, "gyr", 0)
+    same(go, pgo, "go", 2 ** -7)
+    a, dh, gw = ex.swiglu_bwd(h, ga0, w, src, offs)
+    pa, pdh, pgw = ex.swiglu_bwd_plain(h, ga0, w, src, offs)
+    same(a, pa, "a", 2 ** -7)
+    same(dh, pdh, "dh", 2 ** -7)
+    assert (gw - pgw).abs().max().item() <= 1e-4 * max(
+        pgw.abs().max().item(), 1e-30)
+    for wt in (w, None):
+        y = ex.combine(rows, wt, pos, offs, T)
+        py = ex.combine_plain(rows, wt, pos, offs, T)
+        assert y.shape == (T, 2048) and torch.isfinite(y.float()).all()
+        assert (y.float() - py.float()).abs().max().item() <= 2 ** -7 * max(
+            py.float().abs().max().item(), 1e-30)

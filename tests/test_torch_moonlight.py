@@ -267,13 +267,10 @@ def test_shares_of_the_experts_add_up_to_the_uncut_layer():
     assert (outs[0] - want).abs().max() > 1e-2
 
 
-@pytest.mark.parametrize("skew", [0.0, 10.0, -10.0])
-def test_grouped_experts_drop_no_token(skew):
-    """The grouped products (bf16, `torch._grouped_mm`) against the plain
-    loop, forward and backward, under a bias that sends every token to the
-    held experts (skew 10: T * k picks, the buffer's worst case), to none
-    of them (-10), or neither: no pick is lost."""
-    T, D, I, held, off, k = 96, 64, 24, 8, 8, 6
+def _expert_case(skew, T=96, D=64, I=24, held=8, off=8, k=6):
+    """Inputs of the held experts in bf16 under a bias that sends every
+    token to the held experts (skew 10: T * k picks, the buffer's worst
+    case), to none of them (-10), or neither (0)."""
     gen = torch.Generator().manual_seed(int(skew) + 20)
     x = torch.randn(T, D, generator=gen).bfloat16().requires_grad_(True)
     w13 = (torch.randn(held, 2 * I, D, generator=gen) / 8).bfloat16() \
@@ -285,17 +282,15 @@ def test_grouped_experts_drop_no_token(skew):
     s = torch.rand(T, 64, generator=gen)
     top = torch.topk(s + bias, k).indices
     w = s.gather(-1, top).requires_grad_(True)
-    plan = ex.dispatch_plan(top, held, off)
-    picked = ((top >= off) & (top < off + held)).sum().item()
-    assert (plan.pos < plan.src.shape[0]).sum().item() == picked
-    if skew > 0:
-        assert picked == T * k
-    assert plan.src.shape[0] == ex.capacity(T, k, held)
+    g = torch.randn(T, D, generator=gen)
+    return x, w13, w2, top, w, off, g
+
+
+def _grouped_matches_the_loop(x, w13, w2, top, w, off, g, picked):
     y1 = ex.held_experts_grouped(x, w13, w2, top, w, off)
     y2 = ex.held_experts_loop(x, w13, w2, top, w, off)
     assert torch.isfinite(y1.float()).all()
     _close(y1.float(), y2.float(), 1e-2, "grouped forward")
-    g = torch.randn(T, D, generator=gen)
     got = torch.autograd.grad((y1.float() * g).sum(), [x, w13, w2, w])
     if picked == 0:                     # nothing here: a zero output
         assert not y1.float().any() and not y2.float().any()
@@ -305,6 +300,64 @@ def test_grouped_experts_drop_no_token(skew):
     for a, b, n in zip(got, want, ["x", "w13", "w2", "w"]):
         assert torch.isfinite(a.float()).all(), n
         _close(a.float(), b.float(), 2e-2, n)       # bf16 products
+
+
+@pytest.mark.parametrize("skew", [0.0, 10.0, -10.0])
+def test_grouped_experts_drop_no_token(skew):
+    """The grouped products (bf16, `torch._grouped_mm`) against the plain
+    loop, forward and backward, under a bias that sends every token to the
+    held experts (skew 10: T * k picks, the buffer's worst case), to none
+    of them (-10), or neither: no pick is lost."""
+    x, w13, w2, top, w, off, g = _expert_case(skew)
+    T, k = top.shape
+    held = w13.shape[0]
+    plan = ex.dispatch_plan(top, held, off)
+    picked = ((top >= off) & (top < off + held)).sum().item()
+    assert (plan.pos < plan.src.shape[0]).sum().item() == picked
+    assert (plan.src >= 0).sum().item() == picked
+    if skew > 0:
+        assert picked == T * k
+    assert plan.src.shape[0] == ex.capacity(T, k, held)
+    _grouped_matches_the_loop(x, w13, w2, top, w, off, g, picked)
+
+
+@pytest.mark.parametrize("skew", [0.0, 10.0, -10.0])
+@pytest.mark.parametrize("plain", [
+    "gather_rows_plain", "swiglu_plain", "combine_plain",
+    "grad_gather_plain", "swiglu_bwd_plain"])
+def test_each_expert_pass_touches_only_the_filled_rows(monkeypatch, plain,
+                                                        skew):
+    """Each pass's plain version (the CPU path of the grouped Function)
+    with every row buffer NaN from the start: its rows from the groups'
+    end up to the buffer's size stay NaN (never written), its filled rows
+    are finite, and the grouped output and its gradients still match the
+    loop (no pass read a NaN row)."""
+    x, w13, w2, top, w, off, g = _expert_case(skew)
+    T, k = top.shape
+    held = w13.shape[0]
+    R = ex.capacity(T, k, held)
+    n = int(ex.dispatch_plan(top, held, off).offs[-1])
+    assert n < R                         # ragged at every skew
+    monkeypatch.setattr(ex, "_rows", lambda R, width, like: torch.full(
+        (R, width), float("nan"), dtype=like.dtype, device=like.device))
+    outs = []
+    real = getattr(ex, plain)
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        outs.extend(out if isinstance(out, tuple) else (out,))
+        return out
+
+    monkeypatch.setattr(ex, plain, spy)
+    picked = ((top >= off) & (top < off + held)).sum().item()
+    _grouped_matches_the_loop(x, w13, w2, top, w, off, g, picked)
+    assert outs, plain
+    for t in outs:
+        if t.shape[0] == R:
+            assert torch.isnan(t[n:].float()).all(), plain
+            assert torch.isfinite(t[:n].float()).all(), plain
+        else:                            # per token: [T, D] or [T, k]
+            assert torch.isfinite(t.float()).all(), plain
 
 
 def test_the_block_refuses_a_kv_cache():
