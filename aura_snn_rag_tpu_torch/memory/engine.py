@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from aura_snn_rag_tpu_torch.config import MemoryConfig
 from aura_snn_rag_tpu_torch.memory.state import MemoryState
 from aura_snn_rag_tpu_torch.ops.cuda.annex import (
-    annex_coarse, annex_merge_grad)
+    annex_clusters, annex_coarse, annex_merge_grad)
 from aura_snn_rag_tpu_torch.ops.cuda.flat_scan import (
     BLOCK_R, block_member_slots, flat_blockmax, pack_row_terms)
 from aura_snn_rag_tpu_torch.ops.cuda.ivf_scan import (
@@ -294,7 +294,7 @@ def retrieve(config: MemoryConfig, state: MemoryState, queries: torch.Tensor,
     probe*capacity) raise ValueError.
     """
     with span("engine.retrieve"):
-        G = min(config.overflow_buckets, state.k_centroids // 4)
+        G = annex_clusters(config, state)
         P = min(config.probe_centroids, state.k_centroids - G)
         C = state.bucket_capacity
         M = state.max_memories
@@ -691,7 +691,7 @@ def rebuild_centroids(config: MemoryConfig, state: MemoryState,
     (drawn on the CPU from `generator`, so a seed gives the same rows on
     every device), then `_rebuild_from_init`."""
     M, K = state.max_memories, state.k_centroids
-    Ku = K - min(config.overflow_buckets, K // 4)
+    Ku = K - annex_clusters(config, state)
     r = torch.rand(M, generator=generator)
     r[int(state.active_count()):] += 1e9
     init_idx = torch.topk(-r, Ku).indices
@@ -711,7 +711,7 @@ def _rebuild_from_init(config: MemoryConfig, state: MemoryState,
     active = torch.arange(M, device=dev) < n_active
     # reserved overflow annex: the last G clusters get sentinel centroids
     # (never nearest, never probed) and hold rows that still overflow
-    G = min(config.overflow_buckets, K // 4)
+    G = annex_clusters(config, state)
     Ku = K - G
     centroids = feats[init_idx.long()]
     if G:

@@ -22,7 +22,6 @@ which no probe reaches, so every query scores all G*C of them.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import numpy as np
@@ -30,7 +29,7 @@ import torch
 
 from aura_snn_rag_tpu_torch.ops.cuda import _build
 from aura_snn_rag_tpu_torch.ops.cuda.ivf_scan import (
-    DEAD, KK_MAX_FUSED, KPAD, NEG_INF, _bind, _check, exact_score_grad)
+    DEAD, KK_MAX_FUSED, KPAD, NEG_INF, exact_score_grad)
 from aura_snn_rag_tpu_torch.ops.scoring import combined_score, l2norm
 from aura_snn_rag_tpu_torch.utils.trace import count
 
@@ -93,16 +92,13 @@ def annex_merge_plain(config, state, qn: torch.Tensor, scores: torch.Tensor,
     return scores, all_sl.gather(1, pick)
 
 
-def _workspace_bytes(B: int, N: int) -> int:
-    """Bytes of the pass's kept keys and their counts at (B, N) (the
-    library's launch shape; it needs the built library)."""
-    return _bind("annex_workspace_bytes", [ctypes.c_int] * 2,
-                 ctypes.c_long)(B, N)
-
-
-_MERGE_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_long]
-                   + [ctypes.c_int] * 7 + [ctypes.c_float] * 4
-                   + [ctypes.c_void_p])
+# (B, N) -> bytes of the pass's kept keys and their counts at the
+# library's launch shape
+_workspace_bytes = _build.Entry("ivf_scan", "annex_workspace_bytes", "ii",
+                                restype="l")
+_merge_launch = _build.Entry(
+    "ivf_scan", "annex_merge_launch", "p" * 17 + " l iiiiiii ffff",
+    counts=("annex_select", "annex_rerank"))
 
 
 def annex_merge(config, state, qn: torch.Tensor, b_scores: torch.Tensor,
@@ -129,21 +125,19 @@ def annex_merge(config, state, qn: torch.Tensor, b_scores: torch.Tensor,
     Ku, N = K - G, G * C
     kcap = min(kcap, N)
     qn = qn.float().contiguous()
-    tensors = [state.clustered[Ku:], state.cluster_decay[Ku:],
-               state.cluster_ts[Ku:], state.cluster_gen[Ku:],
-               state.cluster_slot[Ku:], state.features, state.strength,
-               state.timestamp, state.step, state.decay_accum, state.count,
-               qn, b_scores, b_slots]
+    rows, cdecay, cts, cgen, cslot = (
+        t[Ku:] for t in (state.clustered, state.cluster_decay,
+                         state.cluster_ts, state.cluster_gen,
+                         state.cluster_slot))
     f32, i32 = torch.float32, torch.int32
     # 16-byte loads from the rows, the queries and the features; the rest
     # is read a word at a time
-    _check("annex_merge", [tensors[i] for i in (0, 11, 5)],
-           [torch.bfloat16, f32, f32])
-    for t, dt in zip(tensors, [torch.bfloat16, f32, f32, i32, i32, f32, f32,
-                               f32, f32, f32, i32, f32, f32, i32]):
-        if t.dtype != dt or not t.is_contiguous() or t.device != qn.device:
-            raise ValueError(f"annex_merge: expected a contiguous {dt} on "
-                             f"{qn.device}, got {t.dtype} on {t.device}")
+    _build.check_inputs(
+        "annex_merge", (rows, torch.bfloat16), (qn, f32),
+        (state.features, f32), (cdecay, f32), (cts, f32), (cgen, i32),
+        (cslot, i32), (state.strength, f32),
+        (state.timestamp, f32), (state.step, f32), (state.decay_accum, f32),
+        (state.count, i32), (b_scores, f32), (b_slots, i32), aligned=3)
     if (D % 8 or qn.shape != (B, D) or state.features.shape[1:] != (D,)
             or b_scores.shape != (B, KPAD) or b_slots.shape != (B, KPAD)):
         raise ValueError(f"annex_merge: clustered "
@@ -157,15 +151,13 @@ def annex_merge(config, state, qn: torch.Tensor, b_scores: torch.Tensor,
     # PyTorch divides a CUDA tensor by a Python float as a multiply by its
     # f32 reciprocal; the pass does the same
     inv_tau = float(np.float32(1.0) / np.float32(config.temporal_tau))
-    fn = _bind("annex_merge_launch", _MERGE_ARGTYPES, ctypes.c_int)
-    _build.check(fn(*[_build.ptr(t) for t in tensors], _build.ptr(work),
-                    _build.ptr(out_s), _build.ptr(out_slot),
-                    state.features.shape[0], N, D, B, kcap, k, KPAD,
-                    state.max_memories, config.w_cosine, config.w_temporal,
-                    config.seconds_per_step, inv_tau, _build.stream()),
-                 "annex_merge")
-    _build.launch_counts["annex_select"] += 1
-    _build.launch_counts["annex_rerank"] += 1
+    _merge_launch(rows, cdecay, cts, cgen, cslot, state.features,
+                  state.strength, state.timestamp, state.step,
+                  state.decay_accum, state.count, qn, b_scores, b_slots,
+                  work, out_s, out_slot,
+                  state.features.shape[0], N, D, B, kcap, k, KPAD,
+                  state.max_memories, config.w_cosine, config.w_temporal,
+                  config.seconds_per_step, inv_tau)
     count("path.annex_fused")
     return out_s, out_slot
 

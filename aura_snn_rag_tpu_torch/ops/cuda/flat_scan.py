@@ -23,7 +23,6 @@ tensor it runs `flat_blockmax_plain`, the same function in PyTorch.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -34,6 +33,9 @@ NEG_INF = -1e30
 BLOCK_R = 8                      # rows per funnel block
 INV_127SQ = 1.0 / (127.0 * 127.0)
 PLAIN_SLAB = 1 << 20             # bank rows per slab of the plain version
+
+_blockmax_launch = _build.Entry("flat_scan", "flat_blockmax_launch",
+                                "pppppp l iii")
 
 
 def pack_row_terms(mul: torch.Tensor, add: torch.Tensor,
@@ -114,27 +116,14 @@ def flat_blockmax(bank: torch.Tensor, q: torch.Tensor, mul: torch.Tensor,
     for name, t in (("mul", mul), ("add", add)):
         if t.dtype != torch.float32 or t.numel() < nb * BLOCK_R:
             raise ValueError(f"flat_blockmax: {name} {t.dtype} {t.numel()}")
-    tensors = [bank, q, mul, add]
+    pairs = [(bank, bank.dtype), (q, bank.dtype), (mul, torch.float32),
+             (add, torch.float32)]
     if q_scale is not None:
         if q_scale.dtype != torch.float32 or q_scale.numel() != B:
             raise ValueError("flat_blockmax: q_scale must be f32 [B]")
-        tensors.append(q_scale)
-    for t in tensors:
-        if (not t.is_contiguous() or t.device != bank.device
-                or t.data_ptr() % 16):
-            raise ValueError("flat_blockmax: inputs must be contiguous, "
-                             "16-byte aligned and on the bank's device")
+        pairs.append((q_scale, torch.float32))
+    _build.check_inputs("flat_blockmax", *pairs)
     out = torch.empty((B, nb), dtype=torch.float32, device=bank.device)
-    lib = _build.load("flat_scan")
-    fn = lib.flat_blockmax_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_long, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(_build.ptr(bank), _build.ptr(q), _build.ptr(mul), _build.ptr(add),
-            _build.ptr(q_scale) if q_scale is not None else None,
-            _build.ptr(out), M, D, B, int(bank.dtype == torch.int8),
-            _build.stream())
-    _build.check(rc, "flat_blockmax")
-    _build.launch_counts["flat_blockmax"] += 1
+    _blockmax_launch(bank, q, mul, add, q_scale, out, M, D, B,
+                     int(bank.dtype == torch.int8))
     return out

@@ -23,11 +23,10 @@ pass is chosen in the library from (B, P, K): per pair at small batches,
 cluster-major once the batch's pairs crowd the clusters (each probed
 cluster read once for all the queries that probe it; its workspace rides
 after the scratch, `_workspace_words`).
-`ivf_retrieve_fused_grad` is kernel B alone with a gradient into the
-queries (plain PyTorch backward, on either device); `exact_score_grad` is
-that backward. The engine's v3r path takes its gradient from the overflow
-annex's Function (`annex.py`), which merges B's lanes detached and shares
-`exact_score_grad`.
+`exact_score_grad` is the gradient of B's exact scores into the queries
+(plain PyTorch, on either device): the engine's v3r path takes it through
+the overflow annex's Function (`annex.py`), which merges B's lanes
+detached.
 
 Output conventions:
 - `ivf_retrieve_fused`: lanes < k hold the final top-k sorted by exact
@@ -42,8 +41,7 @@ Output conventions:
 
 from __future__ import annotations
 
-import ctypes
-from typing import Callable, Dict, Tuple
+from typing import Tuple
 
 import torch
 
@@ -127,16 +125,6 @@ def ivf_topk_scores_plain(clustered: torch.Tensor, aux: torch.Tensor,
     return out_s, out_slot
 
 
-def _check(name, tensors, dtypes):
-    dev = tensors[0].device
-    for t, dt in zip(tensors, dtypes):
-        if t.dtype != dt:
-            raise TypeError(f"{name}: expected {dt}, got {t.dtype}")
-        if not t.is_contiguous() or t.device != dev or t.data_ptr() % 16:
-            raise ValueError(f"{name}: inputs must be contiguous, 16-byte "
-                             f"aligned and on one device")
-
-
 def _ivf_args(name, clustered, aux, qn, top_c, features=None):
     """Checks the CUDA kernels' inputs; returns (qn f32, top_c i32), both
     contiguous. The keys carry the flat index p*C + c in 32 bits."""
@@ -144,15 +132,10 @@ def _ivf_args(name, clustered, aux, qn, top_c, features=None):
     B, P = top_c.shape
     top_c = top_c.to(torch.int32).contiguous()
     qn = qn.float().contiguous()
-    tensors = [clustered, qn, top_c]
-    dtypes = [torch.bfloat16, torch.float32, torch.int32]
-    if aux is not None:
-        tensors.append(aux)
-        dtypes.append(torch.float32)
-    if features is not None:
-        tensors.append(features)
-        dtypes.append(torch.float32)
-    _check(name, tensors, dtypes)
+    _build.check_inputs(
+        name, (clustered, torch.bfloat16), (qn, torch.float32),
+        (top_c, torch.int32),
+        *[(t, torch.float32) for t in (aux, features) if t is not None])
     if (D % 8 or qn.shape != (B, D) or P * C >= 2 ** 31
             or (aux is not None and aux.shape != (K, 8, C))
             or (features is not None and features.shape[1:] != (D,))):
@@ -164,41 +147,19 @@ def _ivf_args(name, clustered, aux, qn, top_c, features=None):
     return qn, top_c
 
 
-# each launcher's C arguments before the stream
-_ARGTYPES = {
-    "ivf_scan_scores": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4,
-    "ivf_retrieve_fused": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
-        ctypes.c_long] + [ctypes.c_int] * 5,
-    "ivf_candidates": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6,
-    "ivf_topk_scores": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5,
-}
-_bound: Dict[str, Callable[..., int]] = {}
-
-
-def _bind(symbol: str, argtypes, restype):
-    """The library's `symbol`, looked up and typed once per process."""
-    fn = _bound.get(symbol)
-    if fn is None:
-        fn = getattr(_build.load("ivf_scan"), symbol)
-        fn.argtypes, fn.restype = argtypes, restype
-        _bound[symbol] = fn
-    return fn
-
-
-def _launch(name: str, *args) -> None:
-    """Calls `<name>_launch` on the current stream."""
-    fn = _bind(f"{name}_launch", _ARGTYPES[name] + [ctypes.c_void_p],
-               ctypes.c_int)
-    _build.check(fn(*args, _build.stream()), name)
-    _build.launch_counts[name] += 1
-
-
-def _workspace_words(B: int, P: int, K: int, D: int) -> int:
-    """f32 words that B and D's coarse pass needs after the [B, P*C]
-    scratch: 0 where it runs per pair, else the cluster-major pass's
-    buckets, tiles and bf16 queries."""
-    return _bind("ivf_coarse_workspace_words", [ctypes.c_int] * 4,
-                 ctypes.c_long)(B, P, K, D)
+_scores_launch = _build.Entry("ivf_scan", "ivf_scan_scores_launch",
+                              "pppp iiii")
+_fused_launch = _build.Entry("ivf_scan", "ivf_retrieve_fused_launch",
+                             "pppppppp iii l iiiii")
+_candidates_launch = _build.Entry("ivf_scan", "ivf_candidates_launch",
+                                  "ppppppp iiiiii")
+_topk_launch = _build.Entry("ivf_scan", "ivf_topk_scores_launch",
+                            "pppppp iiiii")
+# (B, P, K, D) -> f32 words that B and D's coarse pass needs after the
+# [B, P*C] scratch: 0 where it runs per pair, else the cluster-major
+# pass's buckets, tiles and bf16 queries
+_workspace_words = _build.Entry("ivf_scan", "ivf_coarse_workspace_words",
+                                "iiii", restype="l")
 
 
 def cluster_major(B: int, P: int, K: int) -> bool:
@@ -225,8 +186,7 @@ def ivf_scan_scores(clustered: torch.Tensor, qn: torch.Tensor,
     B, P = top_c.shape
     qn, top_c = _ivf_args("ivf_scan_scores", clustered, None, qn, top_c)
     out = torch.empty((B, P, C), dtype=torch.float32, device=qn.device)
-    _launch("ivf_scan_scores", _build.ptr(clustered), _build.ptr(qn),
-            _build.ptr(top_c), _build.ptr(out), C, D, B, P)
+    _scores_launch(clustered, qn, top_c, out, C, D, B, P)
     return out
 
 
@@ -251,40 +211,9 @@ def ivf_retrieve_fused(clustered: torch.Tensor, aux: torch.Tensor,
     scratch = _scratch(B, P, C, K, D, qn.device)
     out_s = torch.empty((B, KPAD), dtype=torch.float32, device=qn.device)
     out_slot = torch.empty((B, KPAD), dtype=torch.int32, device=qn.device)
-    _launch("ivf_retrieve_fused", _build.ptr(clustered), _build.ptr(aux),
-            _build.ptr(features), _build.ptr(qn), _build.ptr(top_c),
-            _build.ptr(scratch), _build.ptr(out_s), _build.ptr(out_slot), C,
-            D, K, M, B, P, kk, k, KPAD)
+    _fused_launch(clustered, aux, features, qn, top_c, scratch, out_s,
+                  out_slot, C, D, K, M, B, P, kk, k, KPAD)
     return out_s, out_slot
-
-
-class _RetrieveFused(torch.autograd.Function):
-    """Kernel B with a gradient into the queries. The selection (probes,
-    funnel, top-k) is piecewise constant, so a lane's exact score
-    w_cos * strength[slot] * <f_hat[slot], qn> + const is linear in qn
-    where the slots do not change: d score / d qn = w_cos *
-    strength[slot] * f_hat[slot], with f_hat = row * rsqrt(|row|^2 +
-    1e-12) as in the kernel's rerank. This is the gradient of the JAX
-    package's XLA path (its exact rerank einsum); its Pallas kernel B
-    has no VJP."""
-
-    @staticmethod
-    def forward(ctx, qn, clustered, aux, features, strength, top_c, kk, k,
-                w_cosine, fused):
-        with torch.no_grad():
-            s, sl = fused(clustered, aux, features, qn.detach(), top_c, kk,
-                          k)
-        ctx.mark_non_differentiable(sl)
-        ctx.save_for_backward(features, strength, sl)
-        ctx.k, ctx.w_cosine = k, w_cosine
-        return s, sl
-
-    @staticmethod
-    def backward(ctx, g_s, g_sl):
-        features, strength, sl = ctx.saved_tensors
-        g_qn = exact_score_grad(g_s[:, :ctx.k], features, strength,
-                                sl[:, :ctx.k], ctx.w_cosine)
-        return g_qn, None, None, None, None, None, None, None, None, None
 
 
 def exact_score_grad(g_s: torch.Tensor, features: torch.Tensor,
@@ -292,8 +221,13 @@ def exact_score_grad(g_s: torch.Tensor, features: torch.Tensor,
                      w_cosine: float) -> torch.Tensor:
     """The gradient into qn [B, D] of exact scores [B, n] whose lanes hold
     bank `slots` [B, n] (-1 for a miss, which passes none): for each hit,
-    g[b, j] * w_cosine * strength[slot] * f_hat[slot]. Kernel B's
-    Function and the annex's (`ops/cuda/annex.py`) both take it."""
+    g[b, j] * w_cosine * strength[slot] * f_hat[slot]. The selection
+    (probes, funnel, top-k) is piecewise constant, so a lane's exact score
+    w_cosine * strength[slot] * <f_hat[slot], qn> + const is linear in qn
+    where the slots do not change, with f_hat = row * rsqrt(|row|^2 +
+    1e-12) as in kernel B's rerank: the gradient of the JAX package's XLA
+    path (its exact rerank einsum; its Pallas kernel B has no VJP). The
+    annex's Function (`ops/cuda/annex.py`) takes it."""
     slots = slots.long()
     hit = slots >= 0
     safe = slots.clamp(min=0)
@@ -304,23 +238,6 @@ def exact_score_grad(g_s: torch.Tensor, features: torch.Tensor,
     coef = coef * torch.rsqrt((rows * rows).sum(-1) + 1e-12)
     coef = torch.where(hit, coef, 0.0)
     return torch.einsum("bk,bkd->bd", coef, rows)
-
-
-def ivf_retrieve_fused_grad(clustered: torch.Tensor, aux: torch.Tensor,
-                            features: torch.Tensor, strength: torch.Tensor,
-                            w_cosine: float, qn: torch.Tensor,
-                            top_c: torch.Tensor, kk: int, k: int,
-                            fused: Callable = ivf_retrieve_fused
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`fused(clustered, aux, features, qn, top_c, kk, k)` (kernel B, whose
-    wrapper runs the plain version for CPU tensors) under no grad, with
-    the exact score's gradient into `qn`: for each hit lane j < k,
-    g[b, j] * w_cosine * strength[slot] * f_hat[slot] (`_RetrieveFused`).
-    Misses (slot -1) and lanes >= k pass no gradient. strength [M] is
-    the bank's per-slot strength; aux row 0 holds w_cosine times the same
-    strength, as decayed at the cluster entry."""
-    return _RetrieveFused.apply(qn, clustered, aux, features, strength,
-                                top_c, kk, k, w_cosine, fused)
 
 
 def ivf_candidates(clustered: torch.Tensor, aux: torch.Tensor,
@@ -343,9 +260,8 @@ def ivf_candidates(clustered: torch.Tensor, aux: torch.Tensor,
     scratch = _scratch(B, P, C, K, D, qn.device)
     out_s = torch.empty((B, kk), dtype=torch.float32, device=qn.device)
     out_slot = torch.empty((B, kk), dtype=torch.int32, device=qn.device)
-    _launch("ivf_candidates", _build.ptr(clustered), _build.ptr(aux),
-            _build.ptr(qn), _build.ptr(top_c), _build.ptr(scratch),
-            _build.ptr(out_s), _build.ptr(out_slot), C, D, K, B, P, kk)
+    _candidates_launch(clustered, aux, qn, top_c, scratch, out_s, out_slot,
+                       C, D, K, B, P, kk)
     return out_s, out_slot
 
 
@@ -369,7 +285,5 @@ def ivf_topk_scores(clustered: torch.Tensor, aux: torch.Tensor,
     qn, top_c = _ivf_args("ivf_topk_scores", clustered, aux, qn, top_c)
     out_s = torch.empty((B, P, KPAD), dtype=torch.float32, device=qn.device)
     out_slot = torch.empty((B, P, KPAD), dtype=torch.int32, device=qn.device)
-    _launch("ivf_topk_scores", _build.ptr(clustered), _build.ptr(aux),
-            _build.ptr(qn), _build.ptr(top_c), _build.ptr(out_s),
-            _build.ptr(out_slot), C, D, B, P, k)
+    _topk_launch(clustered, aux, qn, top_c, out_s, out_slot, C, D, B, P, k)
     return out_s, out_slot

@@ -41,8 +41,7 @@ kernel (counted in `ops.cuda.launch_counts`) or raise.
 
 from __future__ import annotations
 
-import ctypes
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -189,53 +188,17 @@ def swiglu_bwd_plain(h: torch.Tensor, ga0: torch.Tensor, w: torch.Tensor,
     return a, dh, gw.view_as(w)
 
 
-# each launcher's C arguments before the stream
-_ARGTYPES = {
-    "experts_gather": [ctypes.c_void_p] * 4 + [ctypes.c_long]
-    + [ctypes.c_int] * 3,
-    "experts_swiglu": [ctypes.c_void_p] * 3 + [ctypes.c_long]
-    + [ctypes.c_int] * 2,
-    "experts_combine": [ctypes.c_void_p] * 5 + [ctypes.c_long]
-    + [ctypes.c_int] * 3,
-    "experts_grad_gather": [ctypes.c_void_p] * 6 + [ctypes.c_long]
-    + [ctypes.c_int] * 3,
-    "experts_swiglu_bwd": [ctypes.c_void_p] * 8 + [ctypes.c_long]
-    + [ctypes.c_int] * 2,
-}
-_bound: Dict[str, Callable[..., int]] = {}
-
-
-def _launch(symbol: str, *args, counted: Optional[str] = None) -> None:
-    """Calls `<symbol>_launch` of `csrc/experts.cu` on the current stream
-    (tensors as pointers, None as null) and counts it as `counted` (by
-    default `symbol`)."""
-    fn = _bound.get(symbol)
-    if fn is None:
-        fn = getattr(_build.load("experts"), f"{symbol}_launch")
-        fn.argtypes = _ARGTYPES[symbol] + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _bound[symbol] = fn
-    args = [ctypes.c_void_p(None) if a is None else
-            _build.ptr(a) if isinstance(a, torch.Tensor) else a
-            for a in args]
-    _build.check(fn(*args, _build.stream()), symbol)
-    _build.launch_counts[counted or symbol] += 1
-
-
-def _check(name: str, *pairs) -> None:
-    """Each (tensor, dtype) contiguous, of that dtype, on the first's
-    device; bf16 rows 16-byte aligned with a width a multiple of 8."""
-    dev = pairs[0][0].device
-    for t, dt in pairs:
-        if t.dtype != dt:
-            raise TypeError(f"{name}: expected {dt}, got {t.dtype}")
-        if not t.is_contiguous() or t.device != dev:
-            raise ValueError(f"{name}: inputs must be contiguous and on "
-                             f"one device")
-        if dt == torch.bfloat16 and (t.data_ptr() % 16 or t.shape[-1] % 8):
-            raise ValueError(f"{name}: bf16 rows must be 16-byte aligned "
-                             f"and a multiple of 8 wide, got "
-                             f"{tuple(t.shape)}")
+# the kernels read their bf16 rows (the leading inputs, `aligned` in each
+# check below) in 16-byte chunks
+_gather_launch = _build.Entry("experts", "experts_gather_launch",
+                              "pppp l iii")
+_swiglu_launch = _build.Entry("experts", "experts_swiglu_launch", "ppp l ii")
+_combine_launch = _build.Entry("experts", "experts_combine_launch",
+                               "ppppp l iii")
+_grad_gather_launch = _build.Entry("experts", "experts_grad_gather_launch",
+                                   "pppppp l iii")
+_swiglu_bwd_launch = _build.Entry("experts", "experts_swiglu_bwd_launch",
+                                  "pppppppp l ii")
 
 
 def _half_width(name: str, h: torch.Tensor) -> int:
@@ -255,10 +218,11 @@ def gather_rows(x: torch.Tensor, src: torch.Tensor, offs: torch.Tensor,
     """`gather_rows_plain` (kernel `experts_gather` on the card)."""
     if not x.is_cuda:
         return gather_rows_plain(x, src, offs, k)
-    _check("experts_gather", (x, _BF16), (src, _I64), (offs, _I32))
+    _build.check_inputs("experts_gather", (x, _BF16), (src, _I64),
+                        (offs, _I32), aligned=1, whole_rows=True)
     R, D = src.shape[0], x.shape[1]
     xs = _rows(R, D, x)
-    _launch("experts_gather", x, src, offs, xs, R, D, offs.numel(), k)
+    _gather_launch(x, src, offs, xs, R, D, offs.numel(), k)
     return xs
 
 
@@ -266,10 +230,11 @@ def swiglu(h: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
     """`swiglu_plain` (kernel `experts_swiglu` on the card)."""
     if not h.is_cuda:
         return swiglu_plain(h, offs)
-    _check("experts_swiglu", (h, _BF16), (offs, _I32))
+    _build.check_inputs("experts_swiglu", (h, _BF16), (offs, _I32),
+                        aligned=1, whole_rows=True)
     R, I = h.shape[0], _half_width("experts_swiglu", h)
     a = _rows(R, I, h)
-    _launch("experts_swiglu", h, offs, a, R, I, offs.numel())
+    _swiglu_launch(h, offs, a, R, I, offs.numel())
     return a
 
 
@@ -280,15 +245,16 @@ def combine(rows: torch.Tensor, w: Optional[torch.Tensor], pos: torch.Tensor,
     if not rows.is_cuda:
         return combine_plain(rows, w, pos, offs, T)
     k = pos.numel() // T
-    _check("experts_combine", (rows, _BF16), (pos, _I64), (offs, _I32),
-           *([] if w is None else [(w, _F32)]))
+    _build.check_inputs("experts_combine", (rows, _BF16), (pos, _I64),
+                        (offs, _I32), *([] if w is None else [(w, _F32)]),
+                        aligned=1, whole_rows=True)
     if not 0 < k <= MAX_PICKS or pos.numel() != T * k:
         raise ValueError(f"experts_combine: {pos.numel()} picks over "
                          f"{T} tokens")
     D = rows.shape[1]
     y = torch.empty(T, D, dtype=rows.dtype, device=rows.device)
-    _launch("experts_combine", rows, w, pos, offs, y, T, D, offs.numel(), k,
-            counted=None if w is not None else "experts_grad_combine")
+    _combine_launch(rows, w, pos, offs, y, T, D, offs.numel(), k,
+                    counts=("experts_grad_combine",) if w is None else ())
     return y
 
 
@@ -297,12 +263,12 @@ def grad_gather(gy: torch.Tensor, w: torch.Tensor, src: torch.Tensor,
     """`grad_gather_plain` (kernel `experts_grad_gather` on the card)."""
     if not gy.is_cuda:
         return grad_gather_plain(gy, w, src, offs, k)
-    _check("experts_grad_gather", (gy, _BF16), (w, _F32), (src, _I64),
-           (offs, _I32))
+    _build.check_inputs("experts_grad_gather", (gy, _BF16), (w, _F32),
+                        (src, _I64), (offs, _I32), aligned=1,
+                        whole_rows=True)
     R, D = src.shape[0], gy.shape[1]
     gyr, go = _rows(R, D, gy), _rows(R, D, gy)
-    _launch("experts_grad_gather", gy, w, src, offs, gyr, go, R, D,
-            offs.numel(), k)
+    _grad_gather_launch(gy, w, src, offs, gyr, go, R, D, offs.numel(), k)
     return gyr, go
 
 
@@ -311,16 +277,16 @@ def swiglu_bwd(h: torch.Tensor, ga0: torch.Tensor, w: torch.Tensor,
     """`swiglu_bwd_plain` (kernel `experts_swiglu_bwd` on the card)."""
     if not h.is_cuda:
         return swiglu_bwd_plain(h, ga0, w, src, offs)
-    _check("experts_swiglu_bwd", (h, _BF16), (ga0, _BF16), (w, _F32),
-           (src, _I64), (offs, _I32))
+    _build.check_inputs("experts_swiglu_bwd", (h, _BF16), (ga0, _BF16),
+                        (w, _F32), (src, _I64), (offs, _I32), aligned=2,
+                        whole_rows=True)
     R, I = h.shape[0], _half_width("experts_swiglu_bwd", h)
     if ga0.shape != (R, I):
         raise ValueError(f"experts_swiglu_bwd: h {tuple(h.shape)}, ga0 "
                          f"{tuple(ga0.shape)}")
     a, dh = _rows(R, I, h), _rows(R, 2 * I, h)
     gw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
-    _launch("experts_swiglu_bwd", h, ga0, w, src, offs, a, dh, gw, R, I,
-            offs.numel())
+    _swiglu_bwd_launch(h, ga0, w, src, offs, a, dh, gw, R, I, offs.numel())
     return a, dh, gw
 
 

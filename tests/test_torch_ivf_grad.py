@@ -1,12 +1,13 @@
-"""Kernel B's gradient (`ops/cuda/ivf_scan.ivf_retrieve_fused_grad`): the
-gradient of the retrieval scores with respect to the queries.
+"""Kernel B's gradient (`ops/cuda/ivf_scan.exact_score_grad`, the backward
+of the annex's Function on the engine's v3r path): the gradient of the
+retrieval scores with respect to the queries.
 
 The JAX package's Pallas kernel B has no VJP, so its training with memory
 runs the XLA path of `retrieve`, whose exact rerank einsum carries the
 gradient: d score / d qn = w_cos * strength[slot] * f_hat[slot] for each
 hit. Here:
-- the Function's backward against autograd through kernel B's plain
-  version, with misses (slot -1) present;
+- `exact_score_grad` over kernel B's lanes against autograd through
+  kernel B's plain version, with misses (slot -1) present;
 - the port's `retrieve` (v3r, kernel B's plain version on CPU tensors)
   against `jax.grad` through the JAX package's `retrieve` on its XLA path
   (AURA_PALLAS_INTERPRET unset), on `test_torch_common`'s decayed bank,
@@ -30,7 +31,7 @@ torch.set_num_threads(1)
 
 # f32 dot products and norms summed in another order; the plain version's
 # lane multiplier is aux row 0 (w_cos * strength as decayed at the cluster
-# entry), the Function's w_cos * strength[slot]: equal here by
+# entry), `exact_score_grad`'s w_cos * strength[slot]: equal here by
 # construction, within an ulp on a real bank
 GRAD_TOL = 1e-5
 
@@ -64,24 +65,22 @@ def test_fused_grad_matches_autograd_through_plain(k, n_live):
         hit = sl[:, :k] >= 0
         return (torch.where(hit, s[:, :k], 0.0) * g).sum(), hit
 
-    q1 = qn.clone().requires_grad_(True)
-    s1, sl1 = tivf.ivf_retrieve_fused_grad(cl, aux, feats, strength, w_cos,
-                                           q1, top_c, 128, k)
-    l1, hit = loss(s1, sl1)
-    l1.backward()
+    with torch.no_grad():
+        s1, sl1 = tivf.ivf_retrieve_fused_plain(cl, aux, feats, qn, top_c,
+                                                128, k)
+    g1 = tivf.exact_score_grad(g, feats, strength, sl1[:, :k], w_cos)
     q2 = qn.clone().requires_grad_(True)
     s2, sl2 = tivf.ivf_retrieve_fused_plain(cl, aux, feats, q2, top_c, 128,
                                             k)
-    l2, _ = loss(s2, sl2)
+    l2, hit = loss(s2, sl2)
     l2.backward()
-    assert torch.equal(sl1, sl2) and torch.equal(s1.detach(), s2.detach())
+    assert torch.equal(sl1, sl2) and torch.equal(s1, s2.detach())
     assert int(hit[0].sum()) == min(n_live, k)      # misses on query 0
-    assert sl1.dtype == torch.int32 and not sl1.requires_grad
-    np.testing.assert_allclose(q1.grad.numpy(), q2.grad.numpy(), rtol=0,
+    np.testing.assert_allclose(g1.numpy(), q2.grad.numpy(), rtol=0,
                                atol=GRAD_TOL)
     if n_live == 0:
-        assert not q1.grad[0].any()                 # no hit, no gradient
-    assert q1.grad.abs().sum() > 0
+        assert not g1[0].any()                      # no hit, no gradient
+    assert g1.abs().sum() > 0
 
 
 @pytest.mark.parametrize("annex", [True, False])
@@ -109,9 +108,10 @@ def test_retrieve_grad_matches_jax_xla_path(monkeypatch, annex):
 
 def test_retrieve_grad_flows_through_the_engine_not_the_plain_autograd(
         monkeypatch):
-    """The engine's v3r branch takes its gradient from the Function: with
-    kernel B swapped for a version whose outputs carry no autograd graph
-    (as the CUDA kernel's do), the queries still get the same gradient."""
+    """The engine's v3r branch takes its gradient from the annex's
+    Function (backward `exact_score_grad`): with kernel B swapped for a
+    version whose outputs carry no autograd graph (as the CUDA kernel's
+    do), the queries still get the same gradient."""
     jcfg, tcfg, js, ts, feats = bank_pair("bf16")
     q = torch.from_numpy(queries_near(feats, 33, 2))
 

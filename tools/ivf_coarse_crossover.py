@@ -65,9 +65,9 @@ def build_variants():
 
 def use(lib):
     """Route the port's wrappers to the library at `lib`."""
-    from aura_snn_rag_tpu_torch.ops.cuda import _build, ivf_scan
+    from aura_snn_rag_tpu_torch.ops.cuda import _build
     _build._libs["ivf_scan"] = ctypes.CDLL(str(lib))
-    ivf_scan._bound.clear()
+    _build._bound.clear()
 
 
 def measure(libs, ivf, shape, batches, iters):
