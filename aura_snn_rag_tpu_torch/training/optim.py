@@ -18,8 +18,15 @@ An update follows optax's order of operations in f32:
 - u <- -lr(count) * u * lr_scale (lr_scale multiplies the whole update,
   weight decay included), p <- p + u.
 A non-finite loss leaves the parameters, both moments and the count as
-they were, selected on the device with `torch.where`, so the step needs
-no host sync.
+they were, decided on the device, so the step needs no host sync.
+
+The update is `ops/cuda/adamw.py`'s: on the card two hand-written passes
+over the flat buffers (the gradient's sum of squares, deterministic in
+f64, and one pass that reads p, g, mu and nu once and writes p, mu and
+nu), on the CPU the PyTorch chain (`adamw_sumsq_plain`,
+`adamw_update_plain`), which fed the same norm the passes match bit for
+bit. The step's scalars (norm, bias corrections, learning rate, scale,
+the loss's finiteness) come from 0-dim ops on the device.
 
 Under tensor parallelism (`sharded`, `group`) a rank holds its part of
 the sharded parameters and the whole of the replicated ones; the clip
@@ -36,8 +43,7 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 
-B1, B2, EPS = 0.9, 0.999, 1e-8      # optax.adamw's defaults, as the JAX
-                                    # package's trainer uses them
+from aura_snn_rag_tpu_torch.ops.cuda import adamw
 
 
 class AdamWState(NamedTuple):
@@ -100,36 +106,29 @@ class ClippedAdamW:
         rank of it calls this), the replicated ones counted once."""
         if self.sharded is None:
             return x.sum()
-        part = torch.where(self.sharded, x, 0.0).sum()
+        return self._across(torch.where(self.sharded, x, 0.0).sum(),
+                            torch.where(self.sharded, 0.0, x).sum())
+
+    def _across(self, part: torch.Tensor, rest: torch.Tensor) -> torch.Tensor:
+        """The sharded entries' sum `part` all-reduced over the 'model'
+        axis, plus the replicated entries' `rest`."""
         dist.all_reduce(part, group=self.group)
-        return torch.where(self.sharded, 0.0, x).sum() + part
+        return rest + part
 
     @torch.no_grad()
     def step(self, loss: torch.Tensor,
              lr_scale: Union[float, torch.Tensor] = 1.0) -> None:
         """One update from the accumulated gradient; skipped on the device
         when `loss` is not finite."""
-        p, g = self.flat, self.grad
         count, mu, nu = self.state
         # a sum of squares: PyTorch's f32 vector_norm on the CPU drifts
         # by ~5e-5 over 10^5-10^6 entries
-        norm = torch.sqrt(self.global_sum(g * g))
-        g = torch.where(norm < self.gradient_clip, g,
-                        g / norm * self.gradient_clip)
-        count_inc = count + 1
-        c = count_inc.float()
-        # b1 * mu in mu's dtype, the constant rounded to it first (JAX's
-        # weak type: bf16(0.9) for a bf16 mu), then the sum in f32
-        new_mu = (1 - B1) * g + torch.tensor(B1, dtype=mu.dtype) * mu
-        new_nu = (1 - B2) * (g * g) + B2 * nu
-        mu_hat = new_mu / (1 - torch.pow(B1, c))
-        nu_hat = new_nu / (1 - torch.pow(B2, c))
-        u = mu_hat / (torch.sqrt(nu_hat) + EPS)
-        u = u + self.weight_decay * p
-        u = -self.schedule(count).to(p.device) * u
-        u = u * lr_scale
-        finite = torch.isfinite(loss.detach())
-        p.copy_(torch.where(finite, p + u, p))
-        mu.copy_(torch.where(finite, new_mu.to(mu.dtype), mu))
-        nu.copy_(torch.where(finite, new_nu, nu))
-        count.copy_(torch.where(finite, count_inc, count))
+        sums = adamw.adamw_sumsq(self.grad, self.sharded)
+        total = (sums[0] if self.sharded is None
+                 else self._across(sums[0], sums[1]))
+        scalars = adamw.adamw_scalars(
+            torch.sqrt(total), count, self.schedule(count).to(count.device),
+            loss, lr_scale)
+        adamw.adamw_update(self.flat, self.grad, mu, nu, scalars,
+                           self.gradient_clip, self.weight_decay)
+        count.copy_(torch.where(scalars[adamw.FINITE] > 0, count + 1, count))

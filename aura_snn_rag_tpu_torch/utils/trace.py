@@ -16,7 +16,8 @@
   `moe.dispatch`, `moe.experts`, `moe.combine`, `moe.shared` and, on
   autograd's thread, `moe.experts_bwd`, and counts `path.mla` and
   `path.moe_grouped` (`path.moe_loop` on the CPU) once a layer's
-  forward;
+  forward; the optimizer counts `path.adamw_fused` once an update on the
+  card;
 - `StepTimer`: host-clock step times, fenced on the card.
 """
 

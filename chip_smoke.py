@@ -37,7 +37,10 @@ Builds the port's CUDA kernels from the sources in this checkout, then:
    `library_ms`), and the held experts' six passes around their grouped
    products (`ops/experts.py`) at the Moonlight cell's shape against
    their plain versions and the chain over the worst-case row buffer they
-   replaced;
+   replaced, and AdamW's two passes (`ops/cuda/adamw.py`) at the
+   Moonlight and LM cells' parameter counts against the plain chain (bit
+   for bit) and its time; every optimizer step on the card launches
+   both passes once, which the training phases' launch checks count;
 2. engine phase: the episodic-memory engine in bench.py's configuration
    (1,000,000 x 768, K = 4096, probe 64, int8 coarse bank): bulk_load,
    write_memories, rebuild_centroids, a write on the live index, then
@@ -1261,6 +1264,109 @@ def kernel_experts(dev, gen):
     return res
 
 
+# AdamW over the trainer's flat buffers at the Moonlight cell's and the LM
+# cell's parameter counts (`ops/cuda/adamw.py`, `csrc/adamw.cu`; f32
+# moments, as both cells keep them); the passes replace no Pallas kernel
+ADAMW_SIZES = {"moonlight": 1_121_157_632, "lm": 229_579_442}
+ADAMW_PASSES = ("adamw_sumsq", "adamw_update")
+
+
+def kernel_adamw(dev, gen):
+    """AdamW's two passes at each of `ADAMW_SIZES`, the clip engaged: the
+    update held bit for bit against the plain chain fed the same scalars
+    (checked in slices of 2^26 entries, so the chain's temporaries stay
+    small), the sum of squares within 1e-6 of an f64 sum and the same
+    bits twice; each pass, and the fused step (the sum, the scalars, the
+    update), timed with CUDA events and graph replay, the plain step (its
+    f32 sum, the scalars, the chain) with events (`plain_ms`, the
+    yardstick), the extra memory each step allocates, and the bound:
+    g read once for the sum, p, g, mu and nu read once and p, mu and nu
+    written once for the update, at 3.35 TB/s."""
+    import torch
+    from aura_snn_rag_tpu_torch.ops.cuda import _build, adamw
+    from aura_snn_rag_tpu_torch.training.schedule import (
+        warmup_cosine_schedule)
+
+    sched = warmup_cosine_schedule(1e-3, 2, 100)
+    count = torch.tensor(3, dtype=torch.int32, device=dev)
+    loss = torch.tensor(2.5, device=dev)
+    res = {}
+    for name, n in ADAMW_SIZES.items():
+        torch.cuda.empty_cache()
+        g = torch.randn(n, device=dev, generator=gen)
+        p = torch.randn(n, device=dev, generator=gen)
+        mu = torch.randn(n, device=dev, generator=gen) * 1e-2
+        nu = torch.rand(n, device=dev, generator=gen) * 1e-3
+        sums = adamw.adamw_sumsq(g)
+        want = sum((c.double() ** 2).sum() for c in g.split(1 << 26)).item()
+        sum_err = abs(sums[0].item() - want) / want
+        check(torch.equal(sums, adamw.adamw_sumsq(g)),
+              f"adamw_sumsq {name}: two runs differ")
+        check(sum_err <= 1e-6, f"adamw_sumsq {name}: relative error "
+              f"{sum_err}")
+        s = adamw.adamw_scalars(torch.sqrt(sums[0]), count, sched(count),
+                                loss, 1.0)
+        check(s[0].item() >= 1.0, f"adamw {name}: norm {s[0].item()}")
+        plain = [t.clone() for t in (p, mu, nu)]
+        _build.reset_launch_counts()
+        adamw.adamw_update(p, g, mu, nu, s, 1.0, 0.01)
+        check(nonzero_counts(_build.launch_counts) == {"adamw_update": 1},
+              f"adamw_update {name}: launches {dict(_build.launch_counts)}")
+        for pp, mm, vv, gg in zip(*(t.split(1 << 26) for t in (*plain, g))):
+            adamw.adamw_update_plain(pp, gg, mm, vv, s, 1.0, 0.01)
+        differ = [k for k, a, b in zip(("p", "mu", "nu"), (p, mu, nu), plain)
+                  if not torch.equal(a, b)]
+        check(not differ, f"adamw_update {name}: {differ} differ from the "
+              f"plain chain's")
+        del plain
+
+        def fused():
+            sc = adamw.adamw_scalars(torch.sqrt(adamw.adamw_sumsq(g)[0]),
+                                     count, sched(count), loss, 1.0)
+            adamw.adamw_update(p, g, mu, nu, sc, 1.0, 0.01)
+
+        def plain_step():
+            sc = adamw.adamw_scalars(
+                torch.sqrt(adamw.adamw_sumsq_plain(g)[0]), count,
+                sched(count), loss, 1.0)
+            adamw.adamw_update_plain(p, g, mu, nu, sc, 1.0, 0.01)
+
+        def extra_gb(fn):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+        passes = {
+            "adamw_sumsq": (lambda: adamw.adamw_sumsq(g), 4 * n),
+            "adamw_update": (lambda: adamw.adamw_update(p, g, mu, nu, s,
+                                                        1.0, 0.01), 28 * n),
+            "step": (fused, 32 * n)}
+        r = dict(n=n, sum_rel_err=sum_err)
+        for key, (fn, nbytes) in passes.items():
+            b_ms, b_by = bound_ms(nbytes, 0, "f32")
+            r[key] = dict(ms=time_ms([fn], iters=10),
+                          graph_ms=graph_ms([fn], iters=10, replays=3),
+                          bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+        step = r["step"]
+        step.update(plain_ms=time_ms([plain_step], iters=3, warmup=1),
+                    extra_gb=extra_gb(fused), plain_extra_gb=extra_gb(
+                        plain_step))
+        res[name] = r
+        timed = "; ".join(f"{key} ms={r[key]['ms']:.3f} graph_ms="
+                          f"{r[key]['graph_ms']:.3f} bound_ms="
+                          f"{r[key]['bound_ms']:.3f}" for key in passes)
+        log(f"kernel adamw {name} N={n}: sum rel err {sum_err:.3g}; "
+            f"{timed}; plain step ms={step['plain_ms']:.3f}; extra memory "
+            f"{step['extra_gb']:.3f} GB fused, {step['plain_extra_gb']:.2f} "
+            f"GB plain")
+        del g, p, mu, nu
+    torch.cuda.empty_cache()
+    return res
+
+
 # --------------------------------------------------------------------------
 # engine phase
 # --------------------------------------------------------------------------
@@ -2206,6 +2312,9 @@ def train_phase(dev, profile=False):
           f"training: launches {launches}, expected kernel B (and the "
           f"annex pass) only, "
           f"{n_layers} x {accum} x {n_mem} = {want_b}")
+    check(all(launches.get(name, 0) == TRAIN_STEPS for name in ADAMW_PASSES),
+          f"training: launches {launches}, expected AdamW's two passes once "
+          f"a step, {TRAIN_STEPS}")
     for s in steps:
         want = B if (s["use_memory"] and s["step"]
                      % tcfg.memory_store_interval == 0) else 0
@@ -4112,9 +4221,11 @@ def dp_train_check(dev, mesh, tmp):
                 check(m["use_memory"], f"{name} trainer: memory off")
             launches = nonzero_counts(_build.launch_counts)
             want = n_layers * accum * SHARDED_STEPS
-            check(launches == annexed({"ivf_retrieve_fused": want}),
+            check(launches == stepped(annexed({"ivf_retrieve_fused": want}),
+                                      SHARDED_STEPS),
                   f"{name} trainer: launches {launches}, expected kernel B "
-                  f"{n_layers} x {accum} x {SHARDED_STEPS} = {want}")
+                  f"{n_layers} x {accum} x {SHARDED_STEPS} = {want} and "
+                  f"AdamW's passes {SHARDED_STEPS}")
             trainers[name] = tr
             out[name] = dict(
                 launches=launches, ms_per_step=times,
@@ -4565,8 +4676,10 @@ def mp_train_check(dev, bank):
                 times.append(sec * 1e3)
             launches = nonzero_counts(_build.launch_counts)
             want = n_layers * accum * MP_TRAIN_STEPS
-            check(launches == annexed({"ivf_retrieve_fused": want}),
-                  f"{name} trainer: launches {launches}, expected {want}")
+            check(launches == stepped(annexed({"ivf_retrieve_fused": want}),
+                                      MP_TRAIN_STEPS),
+                  f"{name} trainer: launches {launches}, expected kernel B "
+                  f"{want} and AdamW's passes {MP_TRAIN_STEPS}")
             out[name] = dict(ms_per_step=times, losses=tr.history["loss"][1:]
                              + [tr.latest_metrics()["loss"]])
     differ = tensors_differ(mp_tr, plain_tr)
@@ -4702,18 +4815,24 @@ def bench_phase():
 def benchmark_run(name, argv, package="benchmarks"):
     """`aura_snn_rag_tpu_torch.<package>.<name>.run(argv)` in this
     process, the launch counts zeroed just before it and read just after:
-    (its result, {kernel: launches} of the kernels that ran, seconds)."""
+    (its result, {kernel: launches} of the kernels that ran, seconds).
+    AdamW's two passes, checked to have launched once for each optimizer
+    step on the card, are left out of the launches returned."""
     import importlib
     from aura_snn_rag_tpu_torch.ops.cuda import _build
     module = importlib.import_module(
         f"aura_snn_rag_tpu_torch.{package}.{name}")
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    res = module.run(argv)
+    with counted_steps() as steps:
+        res = module.run(argv)
     seconds = time.perf_counter() - t0
     launches = {k: n for k, n in _build.launch_counts.items() if n}
     log(f"{name} {' '.join(argv) or '(defaults)'}: {seconds:.1f} s, "
-        f"launches {launches}")
+        f"launches {launches}, optimizer steps {steps[0]}")
+    check(all(launches.pop(k, 0) == steps[0] for k in ADAMW_PASSES),
+          f"{name}: AdamW's passes launched other than once for each of "
+          f"{steps[0]} optimizer steps")
     return res, launches, seconds
 
 
@@ -4723,6 +4842,29 @@ def annexed(expect):
     on a bank with an overflow annex."""
     n = expect.get("ivf_retrieve_fused", 0)
     return {**expect, **{name: n for name in ANNEX}}
+
+
+def stepped(expect, steps):
+    """`expect` with AdamW's two passes once for each of `steps` updates
+    of a `ClippedAdamW` on the card."""
+    return {**expect, **{name: steps for name in ADAMW_PASSES}}
+
+
+@contextlib.contextmanager
+def counted_steps():
+    """Counts the `ClippedAdamW.step` calls on the card inside: yields a
+    one-item list that holds the count."""
+    from aura_snn_rag_tpu_torch.training.optim import ClippedAdamW
+    n, real = [0], ClippedAdamW.step
+
+    def step(self, *args, **kwargs):
+        n[0] += self.flat.is_cuda
+        return real(self, *args, **kwargs)
+    ClippedAdamW.step = step
+    try:
+        yield n
+    finally:
+        ClippedAdamW.step = real
 
 
 def kernel_b_only(launches):
@@ -5806,6 +5948,8 @@ def main() -> int:
                  "lm": kernel_annex(dev, gen, "lm", (1, 8))}
     # the held experts' passes at the Moonlight cell's shape
     res_experts = kernel_experts(dev, gen)
+    # AdamW's two passes at the Moonlight and LM cells' parameter counts
+    res_adamw = kernel_adamw(dev, gen)
 
     # ---- the main path: counts from zero, read after the last phase ----
     _build.reset_launch_counts()
@@ -6006,6 +6150,14 @@ def main() -> int:
                                "experts.cu",
                         replaces="none (no Pallas kernel for DeepSeek-V3's "
                                  "experts)", **res_experts))
+    # AdamW's passes (no Pallas kernel: optax's chain, which XLA fuses)
+    kernels.append(dict(name="+".join(ADAMW_PASSES), route="cuda",
+                        source="aura_snn_rag_tpu_torch/ops/cuda/csrc/"
+                               "adamw.cu",
+                        replaces="none (optax's clip + adamw chain, fused "
+                                 "by XLA)",
+                        launches_train=launches_train[ADAMW_PASSES[0]],
+                        **res_adamw))
     log(json.dumps({"torch_topk_ms": topk_ms}))
     log(json.dumps({"engine": stats}))
     log(json.dumps({"lm": lm}))

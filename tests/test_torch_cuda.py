@@ -1,5 +1,6 @@
-"""Kernels A, B, C, D and E, the overflow annex's pass and the held
-experts' passes against their plain PyTorch versions on the card, the
+"""Kernels A, B, C, D and E, the overflow annex's pass, the held
+experts' passes and AdamW's two passes against their plain PyTorch
+versions on the card, the
 neuromorphic brain system and the NaturalBrain path (NaturalBrain, the
 MoE language zone's forward and gradients, the prosody gains, the
 SRFFN; no kernel) on the card against
@@ -1694,3 +1695,114 @@ def test_expert_passes_match_their_plain_versions_on_the_card(dev, monkeypatch,
         assert y.shape == (T, 2048) and torch.isfinite(y.float()).all()
         assert (y.float() - py.float()).abs().max().item() <= 2 ** -7 * max(
             py.float().abs().max().item(), 1e-30)
+
+
+# ---- AdamW's two passes (`ops/cuda/adamw.py`) ----
+
+def _adamw_buffers(dev, n, mu_dtype, clipped):
+    """p, g, mu, nu of length n; g's norm ~sqrt(n) (clipped) or ~0.5."""
+    gen = torch.Generator(device=dev).manual_seed(n % 1000 + 11)
+    g = torch.randn(n, device=dev, generator=gen)
+    g *= 1.0 if clipped else 0.5 / n ** 0.5
+    p = torch.randn(n, device=dev, generator=gen)
+    mu = (torch.randn(n, device=dev, generator=gen) * 1e-2).to(mu_dtype)
+    nu = torch.rand(n, device=dev, generator=gen) * 1e-3
+    return p, g, mu, nu
+
+
+@pytest.mark.parametrize("tensor_scale", [False, True])
+@pytest.mark.parametrize("clipped", [True, False])
+@pytest.mark.parametrize("mu_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [7, 1_000_003, 2 ** 24])
+def test_adamw_passes_match_their_plain_versions(dev, n, mu_dtype, clipped,
+                                                 tensor_scale):
+    """The update bit for bit against the plain one fed the same scalars
+    (N not a multiple of any vector width, the clip engaged or not, a
+    bf16 first moment); the sum of squares within 1e-6 of f64's, the
+    same bits twice."""
+    from aura_snn_rag_tpu_torch.ops.cuda import adamw
+    from aura_snn_rag_tpu_torch.training.schedule import (
+        warmup_cosine_schedule)
+    p, g, mu, nu = _adamw_buffers(dev, n, mu_dtype, clipped)
+    sums = adamw.adamw_sumsq(g)
+    assert sums.shape == (1,) and sums.dtype == torch.float32
+    assert torch.equal(sums, adamw.adamw_sumsq(g))
+    want = (g.double() ** 2).sum().item()
+    assert abs(sums[0].item() - want) <= 1e-6 * want
+    norm = torch.sqrt(sums[0])
+    assert bool(norm >= 1.0) == clipped
+    count = torch.tensor(3, dtype=torch.int32, device=dev)
+    lr = warmup_cosine_schedule(1e-3, 2, 100)(count)
+    scale = torch.tensor(0.93, device=dev) if tensor_scale else 0.93
+    s = adamw.adamw_scalars(norm, count, lr, torch.tensor(2.5, device=dev),
+                            scale)
+    got = [t.clone() for t in (p, mu, nu)]
+    plain = [t.clone() for t in (p, mu, nu)]
+    adamw.adamw_update(got[0], g, got[1], got[2], s, 1.0, 0.01)
+    adamw.adamw_update_plain(plain[0], g, plain[1], plain[2], s, 1.0, 0.01)
+    for a, b, name in zip(got, plain, ("p", "mu", "nu")):
+        assert torch.equal(a, b), (name, (a.float() - b.float()).abs().max())
+    assert not torch.equal(got[0], p)
+
+
+@pytest.mark.parametrize("n", [7, 1_000_003])
+def test_adamw_sumsq_with_a_sharded_mask(dev, n):
+    """With the tensor-parallel mask, the sharded and the replicated
+    entries' sums against the plain `where` sums and f64's."""
+    from aura_snn_rag_tpu_torch.ops.cuda import adamw
+    gen = torch.Generator(device=dev).manual_seed(n % 1000 + 3)
+    g = torch.randn(n, device=dev, generator=gen)
+    mask = torch.rand(n, device=dev, generator=gen) < 0.3
+    mask[0], mask[-1] = True, False
+    sums = adamw.adamw_sumsq(g, mask)
+    assert sums.shape == (2,)
+    assert torch.equal(sums, adamw.adamw_sumsq(g, mask))
+    plain = adamw.adamw_sumsq_plain(g, mask)
+    sq = g.double() ** 2
+    for k, want in enumerate((sq[mask].sum().item(),
+                              sq[~mask].sum().item())):
+        assert abs(sums[k].item() - want) <= 1e-6 * want, k
+        assert abs(plain[k].item() - want) <= 1e-5 * want, k
+
+
+@pytest.mark.parametrize("mu_dtype", ["float32", "bfloat16"])
+def test_adamw_step_launches_each_pass_once(dev, mu_dtype):
+    """A CUDA `ClippedAdamW.step`: one launch of each pass, one
+    `path.adamw_fused`, no host sync, the plain update's result fed the
+    same norm; a non-finite loss then leaves p, mu, nu and the count as
+    they were, bit for bit."""
+    from aura_snn_rag_tpu_torch.ops.cuda import adamw
+    from aura_snn_rag_tpu_torch.training.optim import ClippedAdamW
+    from aura_snn_rag_tpu_torch.training.schedule import (
+        warmup_cosine_schedule)
+    from aura_snn_rag_tpu_torch.utils.trace import counters
+    gen = torch.Generator(device=dev).manual_seed(5)
+    params = [torch.nn.Parameter(torch.randn(s, device=dev, generator=gen))
+              for s in ((1000, 999), (3,), (4,))]        # N = 999,007
+    opt = ClippedAdamW(params, warmup_cosine_schedule(1e-3, 2, 100),
+                       mu_dtype=mu_dtype)
+    opt.grad.copy_(torch.randn(opt.grad.shape, device=dev, generator=gen))
+    state = lambda: [t.clone() for t in (opt.flat, *opt.state)]  # noqa: E731
+    before = state()
+    loss, nan = (torch.tensor(x, device=dev) for x in (2.0, float("nan")))
+    torch.cuda.synchronize()
+    launch_counts.clear()
+    fused = counters["path.adamw_fused"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        opt.step(loss, torch.tensor(1.05))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert dict(launch_counts) == {"adamw_sumsq": 1, "adamw_update": 1}
+    assert counters["path.adamw_fused"] == fused + 1
+    assert int(opt.state.count) == 1
+    p, count, mu, nu = before
+    norm = torch.sqrt(adamw.adamw_sumsq(opt.grad)[0])
+    s = adamw.adamw_scalars(norm, count, opt.schedule(count), loss, 1.05)
+    adamw.adamw_update_plain(p, opt.grad, mu, nu, s, 1.0, 0.01)
+    for a, b in zip((p, mu, nu), (opt.flat, opt.state.mu, opt.state.nu)):
+        assert torch.equal(a, b)
+    kept = state()
+    opt.step(nan)
+    for a, b in zip(kept, state()):
+        assert torch.equal(a, b)

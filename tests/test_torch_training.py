@@ -186,6 +186,43 @@ def test_optimizer_parameters_view_one_flat_buffer():
     np.testing.assert_allclose(lin.bias.grad.numpy(), [8.0, 8.0])
 
 
+# each wrapper of AdamW's two passes refuses a wrong dtype and a strided
+# buffer before it picks a path (ValueError, TypeError), and a CPU step
+# runs the plain chain, which launches nothing
+@pytest.mark.parametrize("case", ["sumsq_dtype", "sumsq_strided",
+                                  "update_dtype", "update_strided",
+                                  "cpu_step"])
+def test_adamw_wrappers_check_inputs_and_cpu_step_launches_nothing(case):
+    from aura_snn_rag_tpu_torch.ops.cuda import _build, adamw
+    n = 10
+    p, g, nu = torch.zeros(n), torch.ones(n), torch.zeros(n)
+    mu = torch.zeros(n, dtype=torch.bfloat16)
+    s = adamw.adamw_scalars(torch.tensor(1.0), torch.tensor(0),
+                            torch.tensor(1e-3), torch.tensor(2.0), 1.0)
+    strided = torch.zeros(2 * n)[::2]
+    if case == "cpu_step":
+        lin = torch.nn.Linear(3, 2)
+        opt = ClippedAdamW(lin.parameters(), tschedule(1e-3, 1, 10))
+        lin(torch.randn(4, 3)).sum().backward()
+        _build.reset_launch_counts()
+        opt.step(torch.tensor(1.0))
+        assert not any(_build.launch_counts.values())
+        assert int(opt.state.count) == 1 and bool(opt.state.nu.any())
+        return
+    call, err = {
+        "sumsq_dtype": (lambda: adamw.adamw_sumsq(g.double()), TypeError),
+        "sumsq_strided": (lambda: adamw.adamw_sumsq(strided), ValueError),
+        "update_dtype": (lambda: adamw.adamw_update(
+            p, g.half(), mu, nu, s, 1.0, 0.01), TypeError),
+        "update_strided": (lambda: adamw.adamw_update(
+            p, g, mu, strided, s, 1.0, 0.01), ValueError),
+    }[case]
+    name = case.split("_")[0]
+    with pytest.raises(err, match=f"^adamw_{name}: "):
+        call()
+    assert torch.equal(p, torch.zeros(n))
+
+
 def test_dropout_statistics_and_identity():
     x = torch.ones(1000, 1000)
     d = Dropout(0.1)
