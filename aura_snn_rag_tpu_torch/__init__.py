@@ -28,6 +28,7 @@ meshes, collectives), the bank sharded over a mesh (`memory.sharded`),
 from aura_snn_rag_tpu_torch.config import (  # noqa: F401
     AuraConfig,
     DeepSeekV3Config,
+    KimiLinearConfig,
     MemoryConfig,
     MeshConfig,
     ModelConfig,

@@ -156,10 +156,12 @@ class ModelConfig:
         return max(1, int(self.n_place_cells * self.place_cell_sparsity))
 
     @property
-    def block(self) -> str:
-        """The block kind: "hippocampal" here, "deepseek_v3" for
-        `DeepSeekV3Config`."""
-        return "hippocampal"
+    def latent_stem(self) -> bool:
+        """Whether the model is DeepSeek-V3's stem (a plain embedding, RMS
+        norms, an untied head, MLA and the MoE; `DeepSeekV3Config` and its
+        subclasses) rather than the hippocampal one. Such a model runs
+        whole sequences on one rank and keeps no KV cache."""
+        return False
 
 
 @dataclass(frozen=True)
@@ -189,6 +191,8 @@ class DeepSeekV3Config(ModelConfig):
     `n_shared_experts * moe_intermediate_size`. After each step the
     trainer moves each expert's bias by `router_bias_rate` times
     sign(mean load - its load) (arXiv:2412.19437 section 2.1.2).
+    `mla_use_nope` leaves the rotation out of latent attention (Kimi-
+    Linear's full layers; off for DeepSeek-V3's).
 
     A subclass, so `ModelConfig`'s fields stay those of the JAX
     package's."""
@@ -208,12 +212,42 @@ class DeepSeekV3Config(ModelConfig):
     moe_intermediate_size: int = 1408
     routed_scaling_factor: float = 1.0
     router_bias_rate: float = 0.001
+    mla_use_nope: bool = False
     tie_word_embeddings: bool = False
     dropout: float = 0.0
 
     @property
-    def block(self) -> str:
-        return "deepseek_v3"
+    def latent_stem(self) -> bool:
+        return True
+
+    def delta_rule_layer(self, layer_index: int) -> bool:
+        """Whether layer `layer_index` mixes tokens with Kimi Delta
+        Attention rather than latent attention (none of DeepSeek-V3's)."""
+        return False
+
+
+@dataclass(frozen=True)
+class KimiLinearConfig(DeepSeekV3Config):
+    """The LM with Kimi-Linear's hybrid block, as Kimi-Linear-48B-A3B
+    publishes it (`model_type` "kimi_linear"), on DeepSeek-V3's stem: the
+    layers in `kda_layers` (0-based indices of this model's layers) mix
+    tokens with Kimi Delta Attention (`models/layers.KimiDeltaAttention`:
+    `kda_num_heads` heads of `kda_head_dim`, a causal depthwise
+    convolution of `short_conv_kernel_size` on q, k and v, a gated delta
+    rule with a decay per key channel), the others with latent attention,
+    without RoPE when `mla_use_nope` (the rope dims, the shared rope key
+    and the scale 1/sqrt(nope + rope) stay). The FFNs, the MoE (its
+    `noaux_tc` router with one group), the memory layers and the head are
+    `DeepSeekV3Config`'s."""
+
+    kda_layers: Tuple[int, ...] = ()
+    kda_num_heads: int = 32
+    kda_head_dim: int = 128
+    short_conv_kernel_size: int = 4
+    mla_use_nope: bool = True
+
+    def delta_rule_layer(self, layer_index: int) -> bool:
+        return layer_index in self.kda_layers
 
 
 @dataclass(frozen=True)

@@ -34,7 +34,10 @@ follows the published modelling code (Hugging Face's `modeling_deepseek.
 py` for Moonlight-16B-A3B): `RMSNorm`, `LatentAttention` (MLA with RoPE),
 the SwiGLU `GatedMLP` and `MoEFFN`; `TransformerLayer` and
 `MemoryAugmentedLayer` take their norms, attention and FFN by the
-config's block kind.
+config's block kind. Kimi-Linear's hybrid block (`config.KimiLinearConfig`)
+is that stem with `KimiDeltaAttention` in the layers its pattern names
+(after the published `modeling_kimi.py` and the Flash Linear Attention
+layer it builds on) and `LatentAttention` without RoPE in the others.
 
 `Synapsis` carries the JAX module's STDP traces and `stdp_update` (no
 module of the LM calls them). The RAG layers reach a sharded bank
@@ -72,11 +75,13 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from aura_snn_rag_tpu_torch.config import MemoryConfig, ModelConfig
 from aura_snn_rag_tpu_torch.memory import engine as memory_engine
 from aura_snn_rag_tpu_torch.ops.experts import (
     held_experts_grouped, held_experts_loop)
+from aura_snn_rag_tpu_torch.ops.kda import kda
 from aura_snn_rag_tpu_torch.ops.neurons import (
     gif_params, gif_scan, gif_scan_const)
 from aura_snn_rag_tpu_torch.ops.place_cells import sparse_place_code
@@ -662,8 +667,10 @@ class LatentAttention(nn.Module):
     backend needs one width for all three, and padding the values to 192
     for it took 28 ms a layer's forward and backward at 4 x 8192 against
     cuDNN's 10); `o_proj`. No bias anywhere, no prosody or memory query
-    gains, no dropout. Spans `mla.project` (the projections and RoPE)
-    and `mla.core`; counter `path.mla`."""
+    gains, no dropout. With `mla_use_nope` (Kimi-Linear's full layers)
+    no rotation: the rope dims, the shared rope key and the scale stay.
+    Spans `mla.project` (the projections and RoPE) and `mla.core`;
+    counter `path.mla`."""
 
     def __init__(self, config: ModelConfig, device=None):
         super().__init__()
@@ -697,10 +704,11 @@ class LatentAttention(nn.Module):
             kv_a = self.kv_a_proj_with_mqa(hidden)
             kv = self.kv_b_proj(self.kv_a_layernorm(
                 kv_a[..., :c.kv_lora_rank])).view(B, L, H, nope + c.v_head_dim)
-            cos, sin = rope_tables(L, rope, c.rope_theta, hidden.device)
-            q_pe = apply_rope(q[..., nope:], cos, sin).to(self.dtype)
-            k_pe = apply_rope(kv_a[..., None, c.kv_lora_rank:], cos, sin) \
-                .to(self.dtype)
+            q_pe, k_pe = q[..., nope:], kv_a[..., None, c.kv_lora_rank:]
+            if not c.mla_use_nope:
+                cos, sin = rope_tables(L, rope, c.rope_theta, hidden.device)
+                q_pe = apply_rope(q_pe, cos, sin).to(self.dtype)
+                k_pe = apply_rope(k_pe, cos, sin).to(self.dtype)
             q = torch.cat([q[..., :nope], q_pe], dim=-1).transpose(1, 2)
             k = torch.cat([kv[..., :nope], k_pe.expand(B, L, H, rope)],
                           dim=-1).transpose(1, 2)
@@ -710,6 +718,135 @@ class LatentAttention(nn.Module):
                 q, k, v, is_causal=True, scale=self.qk_dim ** -0.5)
         ctx = ctx.transpose(1, 2).reshape(B, L, H * c.v_head_dim)
         return self.o_proj(ctx), None
+
+
+def causal_conv(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """A causal depthwise convolution without bias over x [B, L, n] with
+    weight [n, 1, w] (`nn.Conv1d`'s layout, the published
+    `ShortConvolution`'s): y_t = sum_j weight[:, 0, j] x_{t - w + 1 + j},
+    zeros before the sequence; the taps as w shifted products."""
+    w = weight.shape[-1]
+    L = x.shape[1]
+    xp = F.pad(x, (0, 0, w - 1, 0))
+    taps = weight[:, 0].to(x.dtype)
+    y = xp[:, :L] * taps[:, 0]
+    for j in range(1, w):
+        y = y + xp[:, j:j + L] * taps[:, j]
+    return y
+
+
+def l2_unit(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """x / sqrt(sum x^2 + eps) over the last dim, in f32, cast back."""
+    xf = x.float()
+    return (xf * torch.rsqrt((xf * xf).sum(-1, keepdim=True) + eps)) \
+        .to(x.dtype)
+
+
+class KimiDeltaAttention(nn.Module):
+    """Kimi Delta Attention (Kimi-Linear's linear layers), on x [B, L, D]
+    at positions 0..L-1 with H = `kda_num_heads` heads of d =
+    `kda_head_dim`:
+      q, k, v = SiLU(causal depthwise conv(x W_q)), and so with W_k, W_v;
+      q and k unit per head (eps 1e-6), q times d^-1/2;
+      g = -exp(A_log[h]) softplus(W_fb W_fa x + dt_bias) per channel, f32;
+      beta = sigmoid(x W_b) per head, f32;
+      o = the gated delta rule over (q, k, v, g, beta) (`ops.kda.kda`);
+      out = W_o [RMSNorm_d(o) * o_norm * sigmoid(W_gb W_ga x)] (eps
+      `rms_norm_eps`).
+    No bias anywhere (the published `g_b_proj`'s is assumed absent), no
+    cache, no dropout. Parameter names are the published ones (`q_proj`,
+    `q_conv1d`, `A_log`, `f_a_proj`, `f_b_proj`, `dt_bias`, `b_proj`,
+    `g_a_proj`, `g_b_proj`, `o_norm`, `o_proj`). `A_log` is drawn as log
+    U(1, 16), `dt_bias` as 0. With gradients on, the work between the
+    projections and `o_proj` is recomputed in the backward
+    (`torch.utils.checkpoint`): at 32k tokens its f32 gates and norms
+    would keep ~7 GB a layer. Spans `kda.project`, `kda.conv`,
+    `kda.gate`, `kda.core` (`kda.core_bwd` in the backward on the card)
+    and `kda.out`."""
+
+    def __init__(self, config: ModelConfig, device=None):
+        super().__init__()
+        self.config = c = config
+        D, H, d = c.embedding_dim, c.kda_num_heads, c.kda_head_dim
+        dt = self.dtype = compute_dtype(c)
+        n, w = H * d, c.short_conv_kernel_size
+        self.q_proj = Dense(D, n, dt, device, use_bias=False)
+        self.k_proj = Dense(D, n, dt, device, use_bias=False)
+        self.v_proj = Dense(D, n, dt, device, use_bias=False)
+        self.q_conv1d = _Conv(n, w, device)
+        self.k_conv1d = _Conv(n, w, device)
+        self.v_conv1d = _Conv(n, w, device)
+        self.A_log = nn.Parameter(torch.empty(H, device=device))
+        self.f_a_proj = Dense(D, d, dt, device, use_bias=False)
+        self.f_b_proj = Dense(d, n, dt, device, use_bias=False)
+        self.dt_bias = nn.Parameter(torch.empty(n, device=device))
+        self.b_proj = Dense(D, H, dt, device, use_bias=False)
+        self.g_a_proj = Dense(D, d, dt, device, use_bias=False)
+        self.g_b_proj = Dense(d, n, dt, device, use_bias=False)
+        self.o_norm = RMSNorm(d, c.rms_norm_eps, torch.float32, device)
+        self.o_proj = Dense(n, D, dt, device, use_bias=False)
+
+    def init_parameters(self, generator) -> None:
+        u = torch.empty_like(self.A_log, device=draw_device(
+            generator, self.A_log.device))
+        u.uniform_(1.0, 16.0, generator=generator)
+        with torch.no_grad():
+            self.A_log.copy_(u.log())
+        nn.init.zeros_(self.dt_bias)
+
+    def forward(self, hidden: torch.Tensor, prosody=None,
+                use_memory: bool = True, kv_cache=None, cache_index=None,
+                dropout_seed=None) -> Tuple[torch.Tensor, None]:
+        """hidden [B, L, D] at positions 0..L-1; no cache."""
+        if kv_cache is not None:
+            raise ValueError("Kimi Delta Attention keeps no cache here")
+        with span("kda.project"):
+            args = (self.q_proj(hidden), self.k_proj(hidden),
+                    self.v_proj(hidden), self.f_a_proj(hidden),
+                    self.b_proj(hidden), self.g_a_proj(hidden))
+        o = (checkpoint(self._mix, *args, use_reentrant=False)
+             if torch.is_grad_enabled() else self._mix(*args))
+        with span("kda.out"):
+            return self.o_proj(o), None
+
+    def _mix(self, q, k, v, fa, b, ga) -> torch.Tensor:
+        """Everything between the projections (q, k, v, the gate's and the
+        output gate's first factors, beta's logits) and `o_proj`: the
+        input to `o_proj`, [B, L, H * d] in the compute dtype. Recomputed
+        in the backward, so that a layer keeps only its projections'
+        outputs (the core saves its inputs only while it runs)."""
+        c = self.config
+        B, L, _ = q.shape
+        H, d = c.kda_num_heads, c.kda_head_dim
+        with span("kda.conv"):
+            q, k, v = (F.silu(causal_conv(t, conv.weight)).view(B, L, H, d)
+                       for t, conv in ((q, self.q_conv1d),
+                                       (k, self.k_conv1d),
+                                       (v, self.v_conv1d)))
+        with span("kda.gate"):
+            q = l2_unit(q) * _scalar(d ** -0.5, q)
+            k = l2_unit(k)
+            f = self.f_b_proj(fa).float() + self.dt_bias
+            g = (-torch.exp(self.A_log)[:, None]
+                 * F.softplus(f.view(B, L, H, d)))
+            beta = torch.sigmoid(b.float())
+        o = kda(q, k, v, g, beta)
+        with span("kda.out"):
+            gate = torch.sigmoid(self.g_b_proj(ga).float()).view(B, L, H, d)
+            o = (self.o_norm(o) * gate).to(self.dtype)
+            return o.reshape(B, L, H * d)
+
+
+class _Conv(nn.Module):
+    """The weight [n, 1, w] of a depthwise convolution without bias."""
+
+    def __init__(self, channels: int, width: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(channels, 1, width,
+                                               device=device))
+
+    def init_parameters(self, generator) -> None:
+        lecun_normal_(self.weight, self.weight.shape[-1], generator)
 
 
 class GatedMLP(nn.Module):
@@ -857,12 +994,14 @@ def _block(config: ModelConfig, use_snn_ffn: bool, layer_index: int, device
     """(attention norm, attention, FFN norm, FFN) of a layer by the
     config's block kind."""
     D, dt = config.embedding_dim, compute_dtype(config)
-    if config.block == "deepseek_v3":
+    if config.latent_stem:
         eps = config.rms_norm_eps
         ffn = (GatedMLP(D, config.intermediate_size, dt, device)
                if layer_index < config.first_k_dense_replace
                else MoEFFN(config, device))
-        return (RMSNorm(D, eps, dt, device), LatentAttention(config, device),
+        mixer = (KimiDeltaAttention if config.delta_rule_layer(layer_index)
+                 else LatentAttention)(config, device)
+        return (RMSNorm(D, eps, dt, device), mixer,
                 RMSNorm(D, eps, dt, device), ffn)
     return (LayerNorm(D, dt, device), ProsodyGatedAttention(config, device),
             LayerNorm(D, dt, device), _ffn(config, use_snn_ffn, device))

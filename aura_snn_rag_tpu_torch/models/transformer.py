@@ -33,7 +33,10 @@ plain token embedding (`embed_tokens`), the layers (latent attention
 with RoPE in place of the theta-gamma positions, the dense FFN or the
 MoE), a final RMSNorm and an untied head without bias; it has no place
 cells (`place_activity` is None), no input norm and no dropout, runs on
-one rank, and keeps no KV cache (`init_kv_caches` refuses it).
+one rank, and keeps no KV cache (`init_kv_caches` refuses it). Kimi-
+Linear's hybrid block (`config.KimiLinearConfig`) is the same stem
+(`ModelConfig.latent_stem`) with Kimi Delta Attention in the layers of
+its pattern.
 """
 
 from __future__ import annotations
@@ -104,7 +107,7 @@ class HippocampalTransformer(nn.Module):
         self.config = cfg = config
         self.memory_config = memory_config
         dt = compute_dtype(cfg)
-        latent = cfg.block == "deepseek_v3"
+        latent = cfg.latent_stem
         if latent:
             if cfg.tie_word_embeddings:
                 raise ValueError("DeepSeek-V3's block has an untied head")
@@ -159,7 +162,7 @@ class HippocampalTransformer(nn.Module):
     @property
     def token_table(self) -> torch.Tensor:
         """The token embedding's [vocab, D] f32 table."""
-        if self.config.block == "deepseek_v3":
+        if self.config.latent_stem:
             return self.embed_tokens.weight
         return self.semantic_encoder.token_embedding.weight
 
@@ -186,7 +189,7 @@ class HippocampalTransformer(nn.Module):
         if n_seq > 1 and kv_caches is not None:
             raise ValueError("a KV cache decodes one sequence on one rank; "
                              "a 'seq'-sharded model has none")
-        if cfg.block == "deepseek_v3":
+        if cfg.latent_stem:
             if n_seq > 1 or kv_caches is not None or positions is not None:
                 raise ValueError("DeepSeek-V3's block runs whole sequences "
                                  "at positions 0..L-1, on one rank")
@@ -250,7 +253,7 @@ class HippocampalTransformer(nn.Module):
         dtype (the JAX package's are [B, max_len, H, Hd]); H is this
         rank's heads under tensor parallelism."""
         cfg = self.config
-        if cfg.block == "deepseek_v3":
+        if cfg.latent_stem:
             raise NotImplementedError(
                 "DeepSeek-V3's block has no KV cache here: decoding needs a "
                 "latent cache (kv_a and the rope key per position)")

@@ -32,7 +32,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("flat_scan", "ivf_scan", "experts", "adamw")
+SOURCES = ("flat_scan", "ivf_scan", "experts", "adamw", "kda")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

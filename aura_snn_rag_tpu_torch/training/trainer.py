@@ -26,7 +26,7 @@ What differs from the JAX package: no jit (each step runs eagerly), the
 parameters live in the optimizer's flat buffer, and the dropout masks
 come from per-step seeds (`layers.Dropout`) and are not JAX's bits.
 
-With DeepSeek-V3's block (`config.DeepSeekV3Config`, no JAX
+With DeepSeek-V3's stem (`config.DeepSeekV3Config`, `KimiLinearConfig`; no JAX
 counterpart) the step is the same with three differences: the loss has
 no place-code term (the model has no place cells), the modulators read
 the plain token embedding, and after the optimizer step every MoE layer
@@ -298,10 +298,11 @@ class Trainer:
         if self._tp is not None:
             raise RuntimeError("the trainer's model is already split over "
                                "a 'model' axis; place a new trainer")
-        if self.config.model.block != "hippocampal":
+        if self.config.model.latent_stem:
             raise NotImplementedError(
-                "DeepSeek-V3's block trains on one rank here: its expert "
-                "loads and experts are not exchanged over a mesh")
+                "DeepSeek-V3's stem (Moonlight's and Kimi-Linear's blocks) "
+                "trains on one rank here: its expert loads and experts are "
+                "not exchanged over a mesh")
         pcfg = self.config.parallel
         names = tuple(mesh.mesh_dim_names)
         seq_ax = pcfg.seq_axis_name

@@ -1367,6 +1367,205 @@ def kernel_adamw(dev, gen):
     return res
 
 
+KDA_PASSES = ("kda_intra_fwd", "kda_intra_bwd", "kda_state_fwd",
+              "kda_state_bwd")
+KDA_SHAPE = dict(T=32_768, H=32, d=128)      # the Kimi-Linear cell's
+KDA_CHECK_HEADS = 2         # heads held to the plain versions
+KDA_CHECK_CHUNKS = 256      # chunk-heads of the intra passes held to theirs
+KDA_TOL = 1e-4              # of each output's largest value (f32 sums in
+                            # other orders, expf against PyTorch's exp)
+
+
+def kda_inputs(dev, gen, T, H, d):
+    """(q, k, v, g, beta) as Kimi Delta Attention hands them to its core:
+    q, k unit per head (q times d^-1/2), v, bf16; g = -U(1, 16) softplus
+    of a unit normal per channel and beta = sigmoid of one, f32."""
+    import torch
+    import torch.nn.functional as F
+    q, k, v = (torch.randn(1, T, H, d, device=dev, generator=gen)
+               for _ in range(3))
+    q = (F.normalize(q, dim=-1) * d ** -0.5).bfloat16()
+    k = F.normalize(k, dim=-1).bfloat16()
+    a = torch.empty(H, device=dev).uniform_(1.0, 16.0, generator=gen)
+    g = -a[:, None] * F.softplus(torch.randn(1, T, H, d, device=dev,
+                                             generator=gen))
+    beta = torch.sigmoid(torch.randn(1, T, H, device=dev, generator=gen))
+    return q, k, v.bfloat16(), g, beta
+
+
+def device_launches(fn):
+    """(The device operations by name, the torch calls Python code makes,
+    the hand-written kernels' launches) of one call of fn (profiler)."""
+    import collections
+    import torch
+    from torch.autograd import DeviceType
+    from torch.overrides import TorchFunctionMode
+    from aura_snn_rag_tpu_torch.ops.cuda import _build
+
+    class Calls(TorchFunctionMode):
+        n = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    fn()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof, \
+            Calls() as calls:
+        fn()
+        torch.cuda.synchronize()
+    return (collections.Counter(
+        e.name() for e in prof.profiler.kineto_results.events()
+        if e.device_type() == DeviceType.CUDA), calls.n,
+        nonzero_counts(_build.launch_counts))
+
+
+def kernel_kda(dev, gen):
+    """Kimi Delta Attention's four passes (`ops/cuda/kda.py`) at the
+    Kimi-Linear cell's shape (T 32,768, H 32, d 128, chunk 64): each held
+    to its plain version (the intra passes on the first
+    `KDA_CHECK_CHUNKS` chunk-heads, the state passes on the first
+    `KDA_CHECK_HEADS` heads), timed with CUDA events and graph replay,
+    with its bound (inputs read once, outputs written once, at 3.35 TB/s;
+    its f32 operations at 67 TFLOP/s); the whole core forward and
+    backward against the loop path on the card; and a layer's core
+    making as many torch calls and hand-written launches at T = 8,192 as
+    at 32,768."""
+    import torch
+    from aura_snn_rag_tpu_torch.ops import kda
+    from aura_snn_rag_tpu_torch.ops.cuda import _build
+    from aura_snn_rag_tpu_torch.ops.cuda import kda as kernels_kda
+
+    T, H, d = KDA_SHAPE["T"], KDA_SHAPE["H"], KDA_SHAPE["d"]
+    C = kernels_kda.CHUNK
+    x = kda_inputs(dev, gen, T, H, d)
+    q, k, v, g, beta = kda._chunked_inputs(*x, C)
+    G = g.cumsum(-2)
+    N = q.shape[0] * q.shape[1]
+    flat = [t.reshape(N, C, d) for t in (q, k, G)]
+    bflat = beta.reshape(N, C)
+    res = {}
+
+    def close(name, got, want):
+        err = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                  .item() for a, b in zip(got, want))
+        check(all(bool(torch.isfinite(a).all()) for a in got),
+              f"{name}: not finite")
+        check(err <= KDA_TOL, f"{name}: gap {err} to the plain version")
+        return err
+
+    _build.reset_launch_counts()
+    A, P = kernels_kda.intra_fwd(*flat, bflat)
+    n = KDA_CHECK_CHUNKS
+    sub = [t[:n] for t in flat] + [bflat[:n]]
+    e_intra = close("kda_intra_fwd", (A[:n], P[:n]),
+                    kernels_kda.intra_fwd_plain(*sub))
+    dA, dP = (torch.randn(N, C, C, device=dev, generator=gen)
+              for _ in range(2))
+    grads = kernels_kda.intra_bwd(*flat, bflat, dA, dP)
+    e_intra_b = close("kda_intra_bwd", [t[:n] for t in grads],
+                      kernels_kda.intra_bwd_plain(*sub, dA[:n], dP[:n]))
+    W, Ubar = kda._solve(A.view(*q.shape[:2], C, C), beta,
+                         k * torch.exp(G), v)
+    last = G[..., -1:, :]
+    state = [W.contiguous(), Ubar.contiguous(),
+             (k * torch.exp(last - G)).contiguous(),
+             torch.exp(last[..., 0, :]).contiguous()]
+    h, U = kernels_kda.state_fwd(*state)
+    hs = KDA_CHECK_HEADS
+    e_state = close("kda_state_fwd", (h[:hs], U[:hs]),
+                    kernels_kda.state_fwd_plain(*[t[:hs] for t in state]))
+    dh = torch.randn_like(h) * 1e-2
+    dU = torch.randn_like(U)
+    bw = [dh, dU, state[0], state[2], state[3]]
+    out_b = kernels_kda.state_bwd(*bw)
+    e_state_b = close("kda_state_bwd", [t[:hs] for t in out_b],
+                      kernels_kda.state_bwd_plain(*[t[:hs] for t in bw]))
+    check(nonzero_counts(_build.launch_counts) == dict.fromkeys(
+        KDA_PASSES, 1), f"kda launches {dict(_build.launch_counts)}")
+    f4, mat, st = 4 * N * C * d, 4 * N * C * C, 4 * N * d * d
+    pairs = N * C * (C + 1) // 2 * d
+    heads, chunks = q.shape[0], q.shape[1]
+    passes = {
+        "kda_intra_fwd": (lambda: kernels_kda.intra_fwd(*flat, bflat),
+                          3 * f4 + 4 * N * C + 2 * mat, 4 * pairs,
+                          e_intra),
+        "kda_intra_bwd": (lambda: kernels_kda.intra_bwd(*flat, bflat, dA,
+                                                         dP),
+                          6 * f4 + 8 * N * C + 2 * mat, 10 * pairs,
+                          e_intra_b),
+        "kda_state_fwd": (lambda: kernels_kda.state_fwd(*state),
+                          4 * f4 + 4 * N * d + st, 4 * N * C * d * d,
+                          e_state),
+        "kda_state_bwd": (lambda: kernels_kda.state_bwd(*bw),
+                          4 * f4 + 4 * N * d + 2 * st, 4 * N * C * d * d,
+                          e_state_b)}
+    for name, (fn, nbytes, ops, err) in passes.items():
+        b_ms, b_by = bound_ms(nbytes, ops, "f32")
+        res[name] = dict(ms=time_ms([fn], iters=5),
+                         graph_ms=graph_ms([fn], iters=5, replays=3),
+                         bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                         ops=ops, max_rel_gap=err)
+        log(f"kernel {name} T={T} H={H} d={d}: ms={res[name]['ms']:.3f} "
+            f"graph_ms={res[name]['graph_ms']:.3f} bound_ms={b_ms:.3f} "
+            f"({b_by}); gap {err:.3g}")
+    del A, P, dA, dP, grads, W, Ubar, state, h, U, dh, dU, bw, out_b
+    torch.cuda.empty_cache()
+
+    # the whole core, forward and backward, against the loop path on the
+    # first heads (plain PyTorch on the card), with f32 leaves so that
+    # the gradients are not rounded to bf16
+    leaves = [t.detach().float().requires_grad_(True) for t in x]
+    do = torch.randn(1, T, H, d, device=dev, generator=gen)
+
+    def core():
+        o = kda.kda_chunked(*leaves)
+        return o, torch.autograd.grad(o, leaves, do)
+
+    o, gr = core()
+    part = [t[:, :, :hs].detach().requires_grad_(True) for t in leaves]
+    o2 = kda.kda_chunk_loop(*part)
+    gr2 = torch.autograd.grad(o2, part, do[:, :, :hs])
+    e_core = close("kda core", [o[:, :, :hs]] + [t[:, :, :hs] for t in gr],
+                   [o2] + list(gr2))
+    core_ms = time_ms([core], iters=3, warmup=1)
+    fwd_ms = time_ms([lambda: kda.kda_chunked(*x)], iters=3, warmup=1)
+    # no loop over chunks: the same torch calls from Python and hand-
+    # written launches at 128 chunks as at 512; the library may launch
+    # other kernels for one call by its batch, so the device operations
+    # are reported by name
+    seen = {L: device_launches(lambda L=L: core_at(kda, x, L, do))
+            for L in (8_192, T)}
+    launches = {L: sum(v[0].values()) for L, v in seen.items()}
+    differ = {n: (seen[8_192][0][n], seen[T][0][n])
+              for n in seen[8_192][0] | seen[T][0]
+              if seen[8_192][0][n] != seen[T][0][n]}
+    log(f"kda core T={T}: forward and backward {core_ms:.3f} ms (forward "
+        f"{fwd_ms:.3f}); gap to the loop path {e_core:.3g}; torch calls "
+        f"and launches { {L: v[1:] for L, v in seen.items()} }; device "
+        f"operations {launches}, by name where they differ {differ}")
+    check(seen[8_192][1:] == seen[T][1:], "kda core: torch calls or "
+          "launches differ by T")
+    res["core"] = dict(ms=core_ms, fwd_ms=fwd_ms, max_rel_gap=e_core,
+                       launches=launches, torch_calls=seen[T][1],
+                       launches_differ=differ)
+    del x, leaves, do, o, gr, part, o2, gr2
+    torch.cuda.empty_cache()
+    return res
+
+
+def core_at(kda, x, L, do):
+    """One forward and backward of the card path over the first L
+    positions of x."""
+    import torch
+    part = [t[:, :L].detach().requires_grad_(True) for t in x]
+    o = kda.kda_chunked(*part)
+    return torch.autograd.grad(o, part, do[:, :L])
+
+
 # --------------------------------------------------------------------------
 # engine phase
 # --------------------------------------------------------------------------
@@ -5950,6 +6149,8 @@ def main() -> int:
     res_experts = kernel_experts(dev, gen)
     # AdamW's two passes at the Moonlight and LM cells' parameter counts
     res_adamw = kernel_adamw(dev, gen)
+    # Kimi Delta Attention's four passes at the Kimi-Linear cell's shape
+    res_kda = kernel_kda(dev, gen)
 
     # ---- the main path: counts from zero, read after the last phase ----
     _build.reset_launch_counts()
@@ -6158,6 +6359,12 @@ def main() -> int:
                                  "by XLA)",
                         launches_train=launches_train[ADAMW_PASSES[0]],
                         **res_adamw))
+    # Kimi Delta Attention's passes (no Pallas kernel: no linear attention
+    # in the JAX package)
+    kernels.append(dict(name="+".join(KDA_PASSES), route="cuda",
+                        source="aura_snn_rag_tpu_torch/ops/cuda/csrc/kda.cu",
+                        replaces="none (no linear attention in the JAX "
+                                 "package)", **res_kda))
     log(json.dumps({"torch_topk_ms": topk_ms}))
     log(json.dumps({"engine": stats}))
     log(json.dumps({"lm": lm}))

@@ -1,6 +1,6 @@
 """Kernels A, B, C, D and E, the overflow annex's pass, the held
-experts' passes and AdamW's two passes against their plain PyTorch
-versions on the card, the
+experts' passes, AdamW's two passes and Kimi Delta Attention's four
+against their plain PyTorch versions on the card, the
 neuromorphic brain system and the NaturalBrain path (NaturalBrain, the
 MoE language zone's forward and gradients, the prosody gains, the
 SRFFN; no kernel) on the card against
@@ -1806,3 +1806,93 @@ def test_adamw_step_launches_each_pass_once(dev, mu_dtype):
     opt.step(nan)
     for a, b in zip(kept, state()):
         assert torch.equal(a, b)
+
+
+# ---- Kimi Delta Attention's passes (`ops/cuda/kda.py`) ----
+
+def _kda_inputs(seed, T, H=3, d=128):
+    """(q, k, v, g, beta) as the layer hands them to its core (q, k, v
+    bf16; g the published gate's draw, f32), from numpy, on the CPU."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, T, H, d),
+                                                    np.float32))
+               for _ in range(3))
+    q = (torch.nn.functional.normalize(q, dim=-1) * d ** -0.5).bfloat16()
+    k = torch.nn.functional.normalize(k, dim=-1).bfloat16()
+    a = torch.from_numpy(rng.uniform(1.0, 16.0, H).astype(np.float32))
+    g = -a[:, None] * torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((1, T, H, d), np.float32)))
+    beta = torch.sigmoid(torch.from_numpy(rng.standard_normal((1, T, H),
+                                                              np.float32)))
+    return [q, k, v.bfloat16(), g, beta]
+
+
+def _kda_close(got, want, rel=1e-4):
+    for a, b in zip(got, want):
+        a = a.float().cpu()
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max() <= rel * b.abs().max()
+
+
+@pytest.mark.parametrize("which", ["intra_fwd", "intra_bwd", "state_fwd",
+                                   "state_bwd"])
+def test_kda_passes_match_their_plain_versions(dev, which):
+    """Each pass of `csrc/kda.cu` at the published widths (chunks of 64,
+    heads of 128) against its plain version on the CPU: 3 heads x 5
+    chunks, one launch each."""
+    from aura_snn_rag_tpu_torch.ops import kda
+    from aura_snn_rag_tpu_torch.ops.cuda import kda as kernels
+    q, k, v, g, beta = kda._chunked_inputs(*_kda_inputs(1, 320), 64)
+    G = g.cumsum(-2)
+    n = q.shape[0] * q.shape[1]
+    intra = [t.reshape(n, 64, 128) for t in (q, k, G)] + [
+        beta.reshape(n, 64)]
+    rng = np.random.default_rng(2)
+    extra = [torch.from_numpy(rng.standard_normal((n, 64, 64), np.float32))
+             for _ in range(2)]
+    A, _ = kernels.intra_fwd_plain(*intra)
+    W, Ubar = kda._solve(A.view(*q.shape[:2], 64, 64), beta,
+                         k * torch.exp(G), v)
+    last = G[..., -1:, :]
+    state = [W.contiguous(), Ubar.contiguous(),
+             (k * torch.exp(last - G)).contiguous(),
+             torch.exp(last[..., 0, :]).contiguous()]
+    dh = torch.from_numpy(rng.standard_normal(
+        (q.shape[0], q.shape[1], 128, 128), np.float32)) * 1e-2
+    args = {"intra_fwd": intra, "intra_bwd": intra + extra,
+            "state_fwd": state,
+            "state_bwd": [dh, torch.randn_like(Ubar), state[0], state[2],
+                          state[3]]}[which]
+    want = getattr(kernels, which + "_plain")(*args)
+    launch_counts.clear()
+    got = getattr(kernels, which)(*(t.to(dev) for t in args))
+    torch.cuda.synchronize()
+    assert dict(launch_counts) == {"kda_" + which: 1}
+    _kda_close(got, want)
+
+
+@pytest.mark.parametrize("T", [100, 700])
+def test_kda_core_on_the_card_matches_the_loop_path(dev, T):
+    """The card path (`kda.kda`: every chunk at once, the four passes)
+    forward and backward against the CPU's loop over chunks, with its
+    launches: the intra and state passes forward, again in the backward's
+    recompute, and each backward pass once, at any T."""
+    from aura_snn_rag_tpu_torch.ops import kda
+    from aura_snn_rag_tpu_torch.utils.trace import counters
+    x = [t.float() for t in _kda_inputs(3, T)]       # f32 gradients
+    do = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (1, T, 3, 128), np.float32))
+    cpu = [t.clone().requires_grad_(True) for t in x]
+    want = kda.kda_chunk_loop(*cpu)
+    gw = torch.autograd.grad(want, cpu, do)
+    card = [t.to(dev).requires_grad_(True) for t in x]
+    launch_counts.clear()
+    c0 = counters["path.kda_chunked"]
+    got = kda.kda(*card)
+    gg = torch.autograd.grad(got, card, do.to(dev))
+    torch.cuda.synchronize()
+    assert counters["path.kda_chunked"] == c0 + 1
+    assert dict(launch_counts) == {"kda_intra_fwd": 2, "kda_state_fwd": 2,
+                                   "kda_state_bwd": 1, "kda_intra_bwd": 1}
+    _kda_close([got], [want.detach()])
+    _kda_close(gg, gw)

@@ -19,7 +19,7 @@ import torch
 
 from aura_snn_rag_tpu_torch.ops import experts  # noqa: F401
 from aura_snn_rag_tpu_torch.ops.cuda import (  # noqa: F401
-    _build, adamw, annex, flat_scan, ivf_scan)
+    _build, adamw, annex, flat_scan, ivf_scan, kda)
 
 C_TYPES = {"int": ctypes.c_int, "long": ctypes.c_long,
            "float": ctypes.c_float}

@@ -18,10 +18,11 @@ import pytest
 import torch
 
 import aura_snn_rag_tpu_torch as port
-from aura_snn_rag_tpu_torch.config import DeepSeekV3Config
+from aura_snn_rag_tpu_torch.config import DeepSeekV3Config, KimiLinearConfig
 from aura_snn_rag_tpu_torch.memory import engine
 from aura_snn_rag_tpu_torch.models.layers import MoEFFN
 from aura_snn_rag_tpu_torch.ops import experts as ex
+from aura_snn_rag_tpu_torch.reference import kimi_linear as kimi_ref
 from aura_snn_rag_tpu_torch.reference import moonlight as ref
 from aura_snn_rag_tpu_torch.training.losses import hippocampal_loss
 from aura_snn_rag_tpu_torch.training.trainer import Trainer
@@ -242,25 +243,42 @@ def _share(x, m_full, state, offset, held):
     return moe(x), moe
 
 
-def test_shares_of_the_experts_add_up_to_the_uncut_layer():
-    """Four shares of 4 experts each (the shared expert, the router and
+# Moonlight's layer: 16 experts in four shares of 4, top 3 (its case as
+# it was); Kimi-Linear's: 32 experts (256 published) in four shares of 8,
+# top 8, 1 shared, width 16, hidden 64
+SHARES = {
+    "moonlight": (MODEL, ref.Moonlight, 4),
+    "kimi_linear": (KimiLinearConfig(
+        vocab_size=256, embedding_dim=64, num_layers=2, num_heads=4,
+        intermediate_size=96, max_seq_len=L, n_routed_experts=32,
+        experts_held=8, num_experts_per_tok=8, n_shared_experts=1,
+        moe_intermediate_size=16, routed_scaling_factor=2.446,
+        dtype="float32", kda_layers=(0,)), kimi_ref.KimiLinear, 4)}
+
+
+@pytest.mark.parametrize("model", list(SHARES))
+def test_shares_of_the_experts_add_up_to_the_uncut_layer(model):
+    """Four shares of the experts (the shared expert, the router and
     everything else counted once) add up to the uncut reference's MoE
-    layer over all 16."""
-    full = dataclasses.replace(MODEL, experts_held=16, experts_offset=0)
+    layer over all of them."""
+    cfg, reference, n_shares = SHARES[model]
+    E = cfg.n_routed_experts
+    held = E // n_shares
+    full = dataclasses.replace(cfg, experts_held=E, experts_offset=0)
     torch.manual_seed(4)
     whole = MoEFFN(full, device="cpu")
     port.models.layers.initialize(whole, torch.Generator().manual_seed(2))
     state = dict(whole.named_parameters())
-    x = torch.randn(B, L, MODEL.embedding_dim)
+    x = torch.randn(B, L, cfg.embedding_dim)
     outs, shared = [], None
-    for s in range(4):
-        y, moe = _share(x, full, state, 4 * s, 4)
+    for s in range(n_shares):
+        y, moe = _share(x, full, state, held * s, held)
         outs.append(y.detach())
         shared = moe.shared_experts(x).detach()
-    total = sum(outs) - 3 * shared
-    top, _ = whole.route(x.reshape(-1, MODEL.embedding_dim))
+    total = sum(outs) - (n_shares - 1) * shared
+    top, _ = whole.route(x.reshape(-1, cfg.embedding_dim))
     P = {f"layers.1.ffn.{n}": p.detach() for n, p in state.items()}
-    r = ref.Moonlight(P, dataclasses.asdict(full), {})
+    r = reference(P, dataclasses.asdict(full), {})
     want = r.moe(x, "layers.1", top.view(B, L, -1))
     _close(total, want, 2e-5, "sum of shares")
     # and a share alone is not the whole layer
